@@ -5,7 +5,8 @@ serving slice runs: the GPT-2 / Llama config ladder (`gpt2_config`,
 `llama_config`, `create_lm`), RoPE, LayerNorm/RMSNorm, the gelu and
 SwiGLU FFNs, and `Attention` with the slot-cursor KV cache — the dense
 path for prefill chunks (and for `decode_kernel=False`), the CUDA decode
-kernel (ops/attention.py) for single-token steps.
+kernels (ops/attention.py) for single-token steps: K4 over the
+contiguous cache, K5 over the paged one.
 
 Every call is a decode-mode call: it takes explicit per-row positions
 ([B, S] absolute offsets), writes its K/V into the cache at those
@@ -16,6 +17,18 @@ serving engine passes each slot's own cursor. The cache is kv-head-major
 IN PLACE — the reference donates its cache buffers to the jitted step
 for the same effect, one live copy of the biggest allocation.
 
+The serving engine's paged mode swaps the per-row cache for a global
+POOL of fixed-size pages, [NP, KV, ps, D] per layer (`PagedKVCache`),
+and passes each call `pages`, the [B, max_len // ps] table of physical
+pages behind each row's logical blocks. A write of position t lands in
+page table[b, t // ps] at slot t % ps; page 0 is the trash page that
+unallocated entries point at. Positions >= max_len are DROPPED — the
+reference sends them to an out-of-range page id and its scatter drops
+them; here they are filtered on the host (`page_index`), since a torch
+scatter would raise instead. A clamp, as the contiguous single-token
+write does, could land inside a SHARED prefix page. Reads gather the
+pool back into the logical layout (dense path) or go through K5.
+
 Numerics mirror the flax modules op by op in the model dtype: matmuls
 round to it before the bias add, norms take their statistics in f32
 (eps 1e-5, variance as E[x^2] - E[x]^2 clamped at 0), RoPE rotates in f32
@@ -25,11 +38,12 @@ with -1e30 and casts the probabilities back, and the tied LM head
 accumulates and returns f32.
 
 Not here yet (later slices): the training forward and its flash
-kernels, paged caches, tp_overlap, MoE, remat, MaskedLM and ViT.
+kernels, tp_overlap, MoE, remat, MaskedLM and ViT.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import List, Optional
 
@@ -38,7 +52,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.attention import NEG_INF, decode_attention
+from ..ops.attention import (NEG_INF, decode_attention, gather_pages,
+                             paged_decode_attention)
 from ..utils.device import resolve_device
 
 
@@ -98,6 +113,24 @@ class LayerCache:
                 if t is not None]
 
 
+def _layer_caches(cfg: TransformerConfig, shape, device) -> List[LayerCache]:
+    """Zeroed per-layer caches of `shape` + [D] (k, v) and `shape` (the
+    int8 scales): [B, KV, L] for slot rows, [NP, KV, ps] for a pool."""
+    quant = cfg.kv_cache_dtype == "int8"
+    if cfg.kv_cache_dtype not in (None, "int8"):
+        raise ValueError(f"kv_cache_dtype={cfg.kv_cache_dtype!r}; "
+                         f"expected None or 'int8'")
+    dt = torch.int8 if quant else cfg.dtype
+
+    def z(*extra, dtype):
+        return torch.zeros((*shape, *extra), dtype=dtype, device=device)
+    return [LayerCache(
+        z(cfg.head_dim, dtype=dt), z(cfg.head_dim, dtype=dt),
+        z(dtype=torch.float32) if quant else None,
+        z(dtype=torch.float32) if quant else None)
+        for _ in range(cfg.num_layers)]
+
+
 class KVCache:
     """Per-layer caches of one decode batch (or of the serving engine's
     slot rows). `rows(i, j)` is a view of rows [i, j): writes through it
@@ -109,20 +142,8 @@ class KVCache:
     @classmethod
     def zeros(cls, cfg: TransformerConfig, batch: int,
               device) -> "KVCache":
-        KV, L, D = cfg.kv_heads, cfg.max_len, cfg.head_dim
-        quant = cfg.kv_cache_dtype == "int8"
-        if cfg.kv_cache_dtype not in (None, "int8"):
-            raise ValueError(f"kv_cache_dtype={cfg.kv_cache_dtype!r}; "
-                             f"expected None or 'int8'")
-        dt = torch.int8 if quant else cfg.dtype
-
-        def z(*shape, dtype):
-            return torch.zeros(shape, dtype=dtype, device=device)
-        return cls([LayerCache(
-            z(batch, KV, L, D, dtype=dt), z(batch, KV, L, D, dtype=dt),
-            z(batch, KV, L, dtype=torch.float32) if quant else None,
-            z(batch, KV, L, dtype=torch.float32) if quant else None)
-            for _ in range(cfg.num_layers)])
+        return cls(_layer_caches(cfg, (batch, cfg.kv_heads, cfg.max_len),
+                                 device))
 
     def rows(self, start: int, stop: int) -> "KVCache":
         return KVCache([LayerCache(*[None if t is None else t[start:stop]
@@ -134,6 +155,70 @@ class KVCache:
         for c in self.layers:
             for t in c.tensors():
                 t.zero_()
+
+
+class PagedKVCache(KVCache):
+    """Per-layer page pools: k/v [NP, KV, ps, D] in the model dtype, or
+    int8 with k_scale/v_scale [NP, KV, ps] f32. Shared by every row; a
+    call reaches it through its page tables (`pages`)."""
+
+    def __init__(self, layers: List[LayerCache], page_size: int):
+        super().__init__(layers)
+        self.page_size = page_size
+
+    @classmethod
+    def zeros(cls, cfg: TransformerConfig, num_pages: int, page_size: int,
+              device) -> "PagedKVCache":
+        if page_size < 1 or cfg.max_len % page_size:
+            raise ValueError(f"max_len={cfg.max_len} must be a multiple of "
+                             f"page_size={page_size}")
+        if num_pages < 2:
+            raise ValueError(f"num_pages={num_pages}: need >= 2 (page 0 is "
+                             f"the reserved trash page)")
+        return cls(_layer_caches(cfg, (num_pages, cfg.kv_heads, page_size),
+                                 device), page_size)
+
+
+@dataclasses.dataclass
+class PageIndex:
+    """One call's view of the page tables, made once per forward and
+    read by every layer: `table` [B, nblk] int32 on the device (K5 and
+    the dense gather read it) and the scatter targets of the call's
+    writes, resolved on the host — physical `page` and `slot` of each
+    written position, and `src`, the (row, column) of each kept position
+    in the call's [B, S] tokens (None: every position is kept)."""
+    table: torch.Tensor
+    page: torch.Tensor
+    slot: torch.Tensor
+    src: Optional[torch.Tensor] = None
+
+    @functools.cached_property
+    def table64(self) -> torch.Tensor:
+        return self.table.long()
+
+
+def page_index(pages, pos_host: torch.Tensor, page_size: int, max_len: int,
+               device) -> PageIndex:
+    """The PageIndex of a call at host positions `pos_host` [B, S] over
+    the host page tables `pages` [B, max_len // page_size]. Positions
+    >= max_len are dropped here (see the module docstring)."""
+    B, S = pos_host.shape
+    pt = torch.as_tensor(np.asarray(pages), dtype=torch.int64)
+    nblk = max_len // page_size
+    if tuple(pt.shape) != (B, nblk):
+        raise ValueError(f"pages must be [B, max_len // page_size]="
+                         f"{(B, nblk)}, got {tuple(pt.shape)}")
+    keep = pos_host < max_len
+    blk = torch.where(keep, pos_host // page_size, 0)
+    where = torch.stack([pt.gather(1, blk), pos_host % page_size])
+    src = None
+    if not bool(keep.all()):
+        bi, si = keep.nonzero(as_tuple=True)
+        where = where[:, bi, si]
+        src = torch.stack([bi, si]).to(device, non_blocking=True)
+    where = where.to(device, non_blocking=True)
+    return PageIndex(pt.to(device, torch.int32, non_blocking=True),
+                     where[0], where[1], src)
 
 
 def _write(c: torch.Tensor, u: torch.Tensor, pos: torch.Tensor,
@@ -157,6 +242,16 @@ def _write(c: torch.Tensor, u: torch.Tensor, pos: torch.Tensor,
     bi, si = keep.nonzero(as_tuple=True)
     c[bi.to(c.device), :, pos_host[bi, si].to(c.device)] = \
         u[bi.to(c.device), si.to(c.device)]
+
+
+def _write_paged(pool: torch.Tensor, u: torch.Tensor,
+                 pages: PageIndex) -> None:
+    """pool [NP, KV, ps(, D)] <- u [B, KV, S(, D)] at the call's page
+    slots, in place."""
+    u = u.transpose(1, 2)                     # [B, S, KV(, D)]
+    if pages.src is not None:
+        u = u[pages.src[0], pages.src[1]]
+    pool[pages.page, :, pages.slot] = u
 
 
 def _quantize_int8(x: torch.Tensor):
@@ -239,7 +334,8 @@ class Attention(nn.Module):
         self.value = nn.Linear(E, KV * D)
         self.out = nn.Linear(H * D, E)
 
-    def forward(self, x, pos, pos_host, cache: LayerCache):
+    def forward(self, x, pos, pos_host, cache: LayerCache,
+                pages: Optional[PageIndex] = None):
         cfg = self.config
         dt = cfg.dtype
         B, S, _ = x.shape
@@ -247,17 +343,19 @@ class Attention(nn.Module):
         q = _linear(x, self.query, dt).view(B, S, H, D)
         k = _linear(x, self.key, dt).view(B, S, KV, D)
         v = _linear(x, self.value, dt).view(B, S, KV, D)
-        out = self._decode_attend(q, k, v, pos, pos_host, cache)
+        out = self._decode_attend(q, k, v, pos, pos_host, cache, pages)
         return _linear(out.reshape(B, S, H * D), self.out, dt)
 
-    def _decode_attend(self, q, k, v, pos, pos_host, cache: LayerCache):
+    def _decode_attend(self, q, k, v, pos, pos_host, cache: LayerCache,
+                       pages: Optional[PageIndex] = None):
         """Write this call's K/V at `pos` (per row), then attend each
         query to cache positions <= its own. RoPE is applied here, at the
         absolute positions, so cached keys are stored rotated. The
-        single-token step with cfg.decode_kernel runs the decode kernel;
-        everything else (prefill chunks, decode_kernel=False) runs the
-        dense path below, which reads the whole [B, KV, L, D] cache and
-        masks per row."""
+        single-token step with cfg.decode_kernel runs the decode kernel
+        (K5 when `pages` is given, else K4); everything else (prefill
+        chunks, decode_kernel=False) runs the dense path below, which
+        reads the whole logical [B, KV, L, D] cache — gathered from the
+        pool through the page table when paged — and masks per row."""
         cfg = self.config
         dt = cfg.dtype
         B, S, H, D = q.shape
@@ -268,27 +366,45 @@ class Attention(nn.Module):
             k = rope(k, pos)
         k_t = k.transpose(1, 2)                   # [B, KV, S, D]
         v_t = v.transpose(1, 2)
+        if pages is not None:
+            def write(c, u):
+                _write_paged(c, u, pages)
+
+            def read(c):
+                return gather_pages(c, pages.table64)
+        else:
+            def write(c, u):
+                _write(c, u, pos, pos_host)
+
+            def read(c):
+                return c
         if cfg.kv_cache_dtype == "int8":
             k8, k_sc = _quantize_int8(k_t)
             v8, v_sc = _quantize_int8(v_t)
-            _write(cache.k, k8, pos, pos_host)
-            _write(cache.v, v8, pos, pos_host)
-            _write(cache.k_scale, k_sc, pos, pos_host)
-            _write(cache.v_scale, v_sc, pos, pos_host)
+            write(cache.k, k8)
+            write(cache.v, v8)
+            write(cache.k_scale, k_sc)
+            write(cache.v_scale, v_sc)
         else:
-            _write(cache.k, k_t, pos, pos_host)
-            _write(cache.v, v_t, pos, pos_host)
+            write(cache.k, k_t)
+            write(cache.v, v_t)
 
         if cfg.decode_kernel and S == 1:
-            out = decode_attention(q[:, 0], cache.k, cache.v, pos[:, 0],
-                                   k_scale=cache.k_scale,
-                                   v_scale=cache.v_scale)
+            if pages is not None:
+                out = paged_decode_attention(
+                    q[:, 0], cache.k, cache.v, pos[:, 0], pages.table,
+                    k_scale=cache.k_scale, v_scale=cache.v_scale)
+            else:
+                out = decode_attention(q[:, 0], cache.k, cache.v, pos[:, 0],
+                                       k_scale=cache.k_scale,
+                                       v_scale=cache.v_scale)
             return out[:, None]
         if cache.k_scale is not None:
-            keys = cache.k.to(dt) * cache.k_scale[..., None].to(dt)
-            values = cache.v.to(dt) * cache.v_scale[..., None].to(dt)
+            keys = read(cache.k).to(dt) * read(cache.k_scale)[..., None].to(dt)
+            values = (read(cache.v).to(dt)
+                      * read(cache.v_scale)[..., None].to(dt))
         else:
-            keys, values = cache.k, cache.v
+            keys, values = read(cache.k), read(cache.v)
         if KV != H:
             keys = keys.repeat_interleave(H // KV, dim=1)
             values = values.repeat_interleave(H // KV, dim=1)
@@ -336,8 +452,9 @@ class Block(nn.Module):
         self.ln_2 = Norm(cfg)
         self.mlp = Mlp(cfg)
 
-    def forward(self, x, pos, pos_host, cache: LayerCache):
-        x = x + self.attn(self.ln_1(x), pos, pos_host, cache)
+    def forward(self, x, pos, pos_host, cache: LayerCache,
+                pages: Optional[PageIndex] = None):
+        x = x + self.attn(self.ln_1(x), pos, pos_host, cache, pages)
         return x + self.mlp(self.ln_2(x))
 
 
@@ -347,9 +464,10 @@ class Backbone(nn.Module):
         self.blocks = nn.ModuleList(Block(cfg) for _ in range(cfg.num_layers))
         self.ln_f = Norm(cfg)
 
-    def forward(self, h, pos, pos_host, cache: KVCache):
+    def forward(self, h, pos, pos_host, cache: KVCache,
+                pages: Optional[PageIndex] = None):
         for block, layer_cache in zip(self.blocks, cache.layers):
-            h = block(h, pos, pos_host, layer_cache)
+            h = block(h, pos, pos_host, layer_cache, pages)
         return self.ln_f(h)
 
 
@@ -381,7 +499,9 @@ class CausalLM(nn.Module):
 
     `forward(tokens [B, S], positions, cache)` writes the call's K/V
     into `cache` at `positions` and returns f32 logits [B, S, V] (or the
-    final hidden state [B, S, E] with `with_head=False`)."""
+    final hidden state [B, S, E] with `with_head=False`). A
+    `PagedKVCache` needs `pages`, the host [B, max_len // page_size]
+    page tables."""
 
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
@@ -403,8 +523,16 @@ class CausalLM(nn.Module):
     def new_cache(self, batch: int) -> KVCache:
         return KVCache.zeros(self.config, batch, self.device)
 
+    def new_paged_cache(self, num_pages: int,
+                        page_size: int) -> PagedKVCache:
+        """A pool of `num_pages` pages of `page_size` positions (page 0
+        is the trash page) for the serving engine's paged mode."""
+        return PagedKVCache.zeros(self.config, num_pages, page_size,
+                                  self.device)
+
     def forward(self, tokens: torch.Tensor, positions=None,
-                cache: Optional[KVCache] = None, with_head: bool = True):
+                cache: Optional[KVCache] = None, with_head: bool = True,
+                pages=None):
         cfg = self.config
         dt = cfg.dtype
         B, S = tokens.shape
@@ -414,10 +542,23 @@ class CausalLM(nn.Module):
         pos = pos_host.to(self.device, non_blocking=True)
         if cache is None:
             cache = self.new_cache(B)
+        paged = isinstance(cache, PagedKVCache)
+        if paged != (pages is not None):
+            raise ValueError("a paged cache needs pages= (the page tables) "
+                             "and pages= needs a paged cache")
+        index = (page_index(pages, pos_host, cache.page_size, cfg.max_len,
+                            self.device) if paged else None)
         h = F.embedding(tokens, self.wte.weight.to(dt))
         if self.wpe is not None:
-            h = h + F.embedding(pos, self.wpe.weight.to(dt))
-        h = self.backbone(h, pos, pos_host, cache)
+            # a paged prefill runs the rows outside its batch at their own
+            # cursor, which can reach past max_len: those positions' K/V
+            # writes are dropped and their outputs discarded, so their
+            # table row only needs to exist (the reference reads a filled
+            # row there)
+            wpe_pos = (pos.clamp(max=cfg.max_len - 1)
+                       if bool((pos_host >= cfg.max_len).any()) else pos)
+            h = h + F.embedding(wpe_pos, self.wpe.weight.to(dt))
+        h = self.backbone(h, pos, pos_host, cache, index)
         if not with_head:
             return h
         return head_logits(h, self.wte.weight, dt)
@@ -523,7 +664,8 @@ def create_lm(name: str = "gpt2-medium", device=None, seed: int = 0,
 
 
 __all__ = [
-    "TransformerConfig", "LayerCache", "KVCache", "Attention", "Mlp",
+    "TransformerConfig", "LayerCache", "KVCache", "PagedKVCache",
+    "PageIndex", "page_index", "Attention", "Mlp",
     "Norm", "Block", "Backbone", "CausalLM", "rope", "head_logits",
     "gpt2_config", "llama_config", "param_shapes", "build_lm", "create_lm",
 ]

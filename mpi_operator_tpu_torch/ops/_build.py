@@ -1,9 +1,9 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Each kernel is one `csrc/<name>.cu` file with a plain C entry point. At
-first use it is compiled by `nvcc` for Hopper (`sm_90a`) into a shared
-library under `ops/_build/` (listed in `.gitignore`) and loaded with
-`ctypes`. Nothing here includes PyTorch's headers, so a build takes
+Each source is one `csrc/<name>.cu` file with plain C entry points
+(`decode_attention.cu` holds K4's and K5's). At first use it is compiled
+by `nvcc` for Hopper (`sm_90a`) into a shared library under `ops/_build/`
+(listed in `.gitignore`) and loaded with `ctypes`. Nothing here includes PyTorch's headers, so a build takes
 seconds, not the minutes a `torch.utils.cpp_extension` build takes.
 
 A library's file name carries a hash of its source and flags, so an

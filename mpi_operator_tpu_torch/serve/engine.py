@@ -1,9 +1,9 @@
 """Continuous-batching serving engine over the decode fast path (PyTorch).
 
-The counterpart of `mpi_operator_tpu/serve/engine.py` in its default
-mode: the contiguous slot cache. `generate()` (models/generate.py) is the
-fixed-batch oracle; this engine serves the same model the way a front
-end needs it served:
+The counterpart of `mpi_operator_tpu/serve/engine.py` in its colocated
+modes: the contiguous slot cache and the paged cache with prefix
+caching. `generate()` (models/generate.py) is the fixed-batch oracle;
+this engine serves the same model the way a front end needs it served:
 
 - **Slots.** The KV cache is ONE fixed [SLOTS, KV, L, D] buffer per layer;
   each row is an independent request at its own depth, driven by
@@ -31,10 +31,26 @@ end needs it served:
   in place (the reference donates the cache buffers to its jitted
   programs for the same effect: one live copy of the largest
   allocation).
+- **Paged KV + prefix caching** (`EngineConfig.paged`). The per-layer
+  cache becomes a POOL of `page_size`-position pages ([num_pages, KV,
+  page_size, D], models/transformer.py PagedKVCache) and each slot
+  carries a page table (page 0 is the trash page that free rows and
+  unallocated blocks point at). Admission reserves a request's whole
+  worst-case page span up front (slots.PageAllocator via
+  Scheduler.admit), so decode never allocates mid-flight. Fully
+  prefilled PROMPT pages are published into a refcounted prefix cache
+  keyed by chained token windows: a request sharing a system prompt pins
+  those pages and starts prefill at the first page it does not share
+  (copy-on-write at page granularity). Prefill is BATCHED: every waiting
+  slot whose next chunk has the same bucket advances in one [S, C] call.
+  Decode steps read the cache through K5 (paged decode attention) with
+  `decode_kernel`. Each step's page table is a fresh host array, uploaded
+  with the step, so a table the host rebuilds can never change under a
+  step still in flight.
 
-Not here (later slices of the port): paged KV + prefix caching
-(`paged=True`), speculative decoding, and the telemetry / event-log /
-tracer hooks. PyTorch runs eagerly, so the reference's compile pins
+Not here (later slices of the port): speculative decoding and the
+telemetry / event-log / tracer hooks (with the paged mode's page
+gauges). PyTorch runs eagerly, so the reference's compile pins
 (`compile_counts`) have no counterpart yet; CUDA-graph capture counts
 take their place when the decode step is captured.
 
@@ -56,7 +72,7 @@ from ..models.transformer import CausalLM, head_logits
 from ..telemetry import span
 from ..utils.device import resolve_device
 from .scheduler import Request, RequestState, Scheduler
-from .slots import SlotManager
+from .slots import PageAllocator, SlotManager
 
 
 @dataclasses.dataclass
@@ -67,15 +83,25 @@ class EngineConfig:
     dispatches step N+1 before syncing step N; `admit_lookahead` bounds
     the admission scan past a head-of-queue that does not fit;
     `request_timeout` (seconds, None = off) retires a request that
-    outlives its deadline with finish_reason "timeout". `paged=True`
-    and `speculative` raise until their slices of the port land (their
-    page and draft knobs come with them)."""
+    outlives its deadline with finish_reason "timeout". `speculative`
+    raises until its slice of the port lands (its draft knobs come with
+    it).
+
+    `paged` switches the cache to the page pool: `page_size` positions
+    a page (must divide max_len; any size >= 1 runs K5), `num_pages`
+    physical pages including the trash page (None sizes the pool to the
+    contiguous layout's bytes: slots * max_len // page_size + 1),
+    `prefix_cache` publishes fully prefilled prompt pages for sharing
+    across requests (False keeps pure paging)."""
     slots: int = 8
     chunk_buckets: Tuple[int, ...] = (32, 128, 512)
     decode_kernel: Optional[bool] = None
     rng_seed: int = 0
     async_decode: bool = True
     paged: bool = False
+    page_size: int = 64
+    num_pages: Optional[int] = None
+    prefix_cache: bool = True
     admit_lookahead: int = 8
     request_timeout: Optional[float] = None
     speculative: Optional[str] = None
@@ -91,7 +117,8 @@ class RequestResult:
     #                                   (-1.0 when the request timed out
     #                                   before its first token)
     token_times: List[float]          # absolute (run-relative) per token
-    cached_tokens: int = 0            # prefix-cache span (paged mode; 0)
+    cached_tokens: int = 0            # prompt span served from the prefix
+    #                                   cache (paged mode; 0 = cold)
     admitted_at: float = 0.0          # run-relative admission time
 
 
@@ -167,11 +194,6 @@ class ServingEngine:
                     f"{name}= is not ported yet: the engine's telemetry, "
                     f"event-log and tracer hooks come with a later slice "
                     f"of the PyTorch port")
-        if cfg.paged:
-            raise NotImplementedError(
-                "paged=True (the page-pool KV cache, prefix caching and "
-                "the paged decode kernel) is the next slice of the "
-                "PyTorch port; use the contiguous cache (paged=False)")
         if cfg.speculative is not None:
             raise NotImplementedError(
                 "speculative decoding comes with a later slice of the "
@@ -197,7 +219,21 @@ class ServingEngine:
         self.scheduler = Scheduler(cfg.chunk_buckets, mcfg.max_len,
                                    admit_lookahead=cfg.admit_lookahead)
         self.slots = SlotManager(S)
-        self.cache = self.dmodel.new_cache(S)
+        self.page_allocator: Optional[PageAllocator] = None
+        if cfg.paged:
+            ps = cfg.page_size
+            if ps < 1 or mcfg.max_len % ps:
+                raise ValueError(f"page_size={ps} must be >= 1 and divide "
+                                 f"max_len={mcfg.max_len}")
+            NP = cfg.num_pages
+            if NP is None:
+                # the contiguous layout's bytes, plus the trash page
+                NP = S * (mcfg.max_len // ps) + 1
+            self.page_allocator = PageAllocator(NP, ps)
+            self._nblk = mcfg.max_len // ps
+            self.cache = self.dmodel.new_paged_cache(NP, ps)
+        else:
+            self.cache = self.dmodel.new_cache(S)
         self._prev_tok = torch.zeros(S, dtype=torch.int64, device=self.device)
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(cfg.rng_seed)
@@ -211,26 +247,37 @@ class ServingEngine:
         self._buf_i = 0
         self._steps_dispatched = 0
         self._session: Optional[Dict] = None
+        # high-water marks over a run: paged mode sustains more slots
+        # than contiguous at equal cache bytes exactly when
+        # pages_in_use_peak stays under the pool while occupancy_peak
+        # exceeds the contiguous slot count
         self.occupancy_peak = 0
+        self.pages_in_use_peak = 0
 
     # -- bookkeeping ------------------------------------------------------
 
     def reset(self) -> None:
-        """Clear all serving state (queue, slots, cache contents) and
-        rewind the sampling generator, so a reset engine replays a trace
-        with identical tokens, sampled draws included."""
+        """Clear all serving state (queue, slots, cache contents, page
+        allocator and prefix cache) and rewind the sampling generator, so
+        a reset engine replays a trace with identical tokens, sampled
+        draws included."""
         self._sync_device()
         self.scheduler = Scheduler(self.config.chunk_buckets,
                                    self.model_config.max_len,
                                    admit_lookahead=self.config
                                    .admit_lookahead)
         self.slots = SlotManager(self.config.slots)
+        if self.page_allocator is not None:
+            # cached prefix pages index into the cache zeroed below, so
+            # the prefix cache goes with it
+            self.page_allocator.reset()
         self.cache.zero_()
         self._prev_tok = torch.zeros_like(self._prev_tok)
         self._generator.manual_seed(self.config.rng_seed)
         self._steps_dispatched = 0
         self._session = None
         self.occupancy_peak = 0
+        self.pages_in_use_peak = 0
 
     @property
     def steps_dispatched(self) -> int:
@@ -258,14 +305,27 @@ class ServingEngine:
                     cache=self.cache.rows(slot, slot + 1), with_head=False)
 
     @torch.inference_mode()
-    def _step(self, toks, use_prev, pos, temps, top_ks, top_ps, mode):
-        """ONE token for ALL slots: [S] tokens at [S] cursors. A row's
-        input is the previous step's device output (use_prev) or the
-        host token (the bonus token after prefill)."""
+    def _prefill_batched(self, toks: np.ndarray, starts: np.ndarray,
+                         pages: np.ndarray) -> None:
+        """One paged chunk for every slot row: [S, C] tokens at absolute
+        positions starts[b]..starts[b]+C, written into the pool through
+        the [S, nblk] page tables; the hidden state is discarded."""
+        positions = starts[:, None] + np.arange(toks.shape[1])[None]
+        self.dmodel(self._to_device(toks.astype(np.int64)),
+                    positions=positions, cache=self.cache, with_head=False,
+                    pages=pages)
+
+    @torch.inference_mode()
+    def _step(self, toks, use_prev, pos, temps, top_ks, top_ps, mode,
+              pages=None):
+        """ONE token for ALL slots: [S] tokens at [S] cursors (through
+        the [S, nblk] page tables in paged mode). A row's input is the
+        previous step's device output (use_prev) or the host token (the
+        bonus token after prefill)."""
         tokens = torch.where(self._to_device(use_prev), self._prev_tok,
                              self._to_device(toks.astype(np.int64)))
         h = self.dmodel(tokens[:, None], positions=pos[:, None],
-                        cache=self.cache, with_head=False)
+                        cache=self.cache, with_head=False, pages=pages)
         logits = head_logits(h[:, 0], self._table, self.model_config.dtype)
         return sample_slots(logits, self._generator, self._to_device(temps),
                             self._to_device(top_ks), self._to_device(top_ps),
@@ -281,6 +341,70 @@ class ServingEngine:
         with span("serve.prefill"):
             self._prefill(st.slot, window, w)
         st.pos = min(p1, w + size)
+
+    def _page_table_array(self) -> np.ndarray:
+        """[S, nblk] physical-page tables for every slot row, built anew
+        for each call; free rows are all trash-page entries (their
+        masked writes sink there)."""
+        pt = np.zeros((self.config.slots, self._nblk), np.int32)
+        for st in self.slots.states:
+            if st is not None:
+                pt[st.slot] = st.page_table
+        return pt
+
+    def _run_prefill_batched(self, lead: RequestState) -> None:
+        """Paged prefill: advance EVERY waiting slot whose next chunk
+        has the lead's bucket in one [S, C] call. Bound non-member rows
+        run zero tokens at their own cursor: their junk K/V lands where
+        their next real write (chunk or decode step) overwrites it, in
+        their own private pages (a row never writes below its cursor,
+        and its shared prefix pages all lie below it); free rows write
+        into the trash page."""
+        size = lead.chunks[0][1]
+        batch = [st for st in self.scheduler.active
+                 if st.prefilling and st.chunks[0][1] == size]
+        toks = np.zeros((self.config.slots, size), np.int64)
+        starts = np.zeros((self.config.slots,), np.int64)
+        for st in self.slots.states:
+            if st is not None:
+                starts[st.slot] = st.pos
+        done = []
+        for st in batch:
+            w, _ = st.chunks.pop(0)
+            p1 = len(st.req.prompt) - 1
+            window = list(st.req.prompt[w:min(w + size, p1)])
+            toks[st.slot, :len(window)] = window
+            starts[st.slot] = w
+            done.append((st, w, p1))
+        with span("serve.prefill"):
+            self._prefill_batched(toks, starts, self._page_table_array())
+        for st, w, p1 in done:
+            st.pos = max(st.pos, min(p1, w + size))
+            if self.config.prefix_cache:
+                self._publish_prompt_pages(st)
+
+    def _publish_prompt_pages(self, st: RequestState) -> None:
+        """Register this request's newly COMPLETED prompt pages in the
+        prefix cache (chained keys, slots.PageAllocator.publish). Only
+        full pages of prompt positions [0, P-1) are ever published — the
+        partial tail page also holds decode tokens and stays private.
+        A False from publish() means another request registered the
+        identical prefix first; this copy stays private, and publishing
+        stops (descendants would chain off a page nothing can reach
+        through the cache)."""
+        alloc = self.page_allocator
+        ps = alloc.page_size
+        full = (len(st.req.prompt) - 1) // ps
+        while (st.published_pages < full
+               and (st.published_pages + 1) * ps <= st.pos):
+            k = st.published_pages
+            page = st.page_table[k]
+            if not alloc.publish(page, st.publish_parent,
+                                 st.req.prompt[k * ps:(k + 1) * ps]):
+                st.published_pages = full
+                break
+            st.published_pages = k + 1
+            st.publish_parent = page
 
     def _dispatch_decode_step(self):
         """Build the step arrays and dispatch ONE decode step without
@@ -302,9 +426,10 @@ class ServingEngine:
             mode = "full"
         self._steps_dispatched += 1
         step_t0 = time.perf_counter()
+        pages = (self._page_table_array() if self.config.paged else None)
         with span("serve.decode_step"):
             out_tok, out_logp = self._step(toks, use_prev, pos, temps,
-                                           top_ks, top_ps, mode)
+                                           top_ks, top_ps, mode, pages)
             self._prev_tok = out_tok             # the device-side chain
             buf_tok, buf_lp = self._host_bufs[self._buf_i]
             self._buf_i ^= 1
@@ -371,6 +496,15 @@ class ServingEngine:
         if not st.slot_released:          # EOS path: freed here; the
             self.slots.release(st)        # length path freed its row
             st.slot_released = True       # at dispatch already
+        if self.page_allocator is not None:
+            # drop every reference this request held, shared prefix
+            # pages and private pages alike; its PUBLISHED pages park in
+            # the evictable LRU where later lookups still find them. A
+            # step still in flight may write this row's pages, but any
+            # new owner's writes are enqueued after it on the stream.
+            for p in st.owned_pages:
+                self.page_allocator.release(p)
+            st.owned_pages = []
         results[st.req.id] = RequestResult(
             id=st.req.id, tokens=list(st.generated),
             logprobs=list(st.logprobs),
@@ -413,9 +547,19 @@ class ServingEngine:
 
     def submit(self, req: Request) -> None:
         """Queue one request into the open session; raises ValueError for
-        a span the engine can never hold (prompt + new > max_len)."""
+        a span the engine can never hold (prompt + new > max_len, or more
+        KV pages than the whole pool)."""
         if self._session is None:
             raise RuntimeError("submit() outside a session (call start())")
+        alloc = self.page_allocator
+        if alloc is not None:
+            need = Scheduler.pages_needed(req, alloc.page_size)
+            if need > alloc.usable:
+                # it would sit at the head of the queue forever
+                raise ValueError(
+                    f"request {req.id}: worst-case span needs {need} KV "
+                    f"pages but the pool has {alloc.usable} usable "
+                    f"(raise num_pages or lower max_new_tokens)")
         self.scheduler.submit(req)
 
     @property
@@ -444,9 +588,14 @@ class ServingEngine:
 
         now = now_fn()
         self._sweep_timeouts(now, results)
+        alloc = self.page_allocator
         with span("serve.schedule"):
-            self._note_admissions(self.scheduler.admit(self.slots.free, now))
+            self._note_admissions(self.scheduler.admit(
+                self.slots.free, now, allocator=alloc))
         self.occupancy_peak = max(self.occupancy_peak, self.slots.occupied)
+        if alloc is not None:
+            self.pages_in_use_peak = max(self.pages_in_use_peak,
+                                         alloc.in_use)
         pending = sess["pending"]
         if self.slots.occupied == 0 and pending is None:
             nxt = self.scheduler.next_arrival()
@@ -454,7 +603,10 @@ class ServingEngine:
                 return False
         st = self.scheduler.next_prefill()
         if st is not None:
-            self._run_prefill_chunk(st)
+            if self.config.paged:
+                self._run_prefill_batched(st)
+            else:
+                self._run_prefill_chunk(st)
         new_pending = (self._dispatch_decode_step()
                        if self.scheduler.decoding() else None)
         if pending is not None:

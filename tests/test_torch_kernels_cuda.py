@@ -1,5 +1,5 @@
-"""The port's CUDA decode-attention kernel (K4) against its plain version,
-on the card.
+"""The port's CUDA decode-attention kernels (K4 contiguous, K5 paged)
+against their plain versions, on the card.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine that has only PyTorch and the CUDA toolkit:
@@ -8,14 +8,18 @@ machine that has only PyTorch and the CUDA toolkit:
 
 Without a card every test here skips (the kernel has no CPU mode; its
 plain version is held against the JAX reference in
-test_torch_decode_attention.py). `poisoned_inputs` is shared with that
-file: the cache past each row's cursor holds POISON, so a read past the
-cursor shows up as a huge error, not a lucky zero.
+test_torch_decode_attention.py and test_torch_paged_attention.py).
+`poisoned_inputs` and `paged_inputs` are shared with those files: the
+cache past each row's cursor holds POISON, and so does every page no
+table entry maps (the trash page 0 among them), so a read past the
+cursor or through a wrong page shows up as a huge error, not a lucky
+zero.
 
 Tolerances: bf16 atol 2e-2 + rtol 2e-2 (the kernel's online softmax
 rounds p to bf16 against a running max, the plain version against the
 row max: a few bf16 ulps at |out| ~ 1); f32 atol 1e-4 (summation order
-only).
+only). K5 against K4 on the same logical cache: bit for bit (one kernel
+body and one tile walk; only the row addresses differ).
 """
 import numpy as np
 import pytest
@@ -46,6 +50,44 @@ def poisoned_inputs(B, H, KV, L, D, curs, quantized, seed=0):
         out.append(np.where(dead, 127, x8).astype(np.int8))
         scales.append(np.where(dead[..., 0], POISON, s).astype(np.float32))
     return (*out, *scales)
+
+
+def paged_inputs(B, H, KV, D, ps, nblk, curs, quantized, seed=0,
+                 share=True):
+    """numpy q, a page pool and its table: the logical cache of
+    `poisoned_inputs` (L = nblk * ps) scattered into a pool of
+    NP = B * nblk + 2 pages through a seeded permutation of pages
+    1..NP-2. Page 0 (trash) and page NP-1 (never mapped) hold POISON.
+    With `share`, the two rows with the largest cursors share their first
+    pages (up to 2, all below both cursors), as a prefix hit does.
+    Returns (q, k_pages, v_pages, k_scale, v_scale, table int32 [B, nblk],
+    the logical (k, v, ks, vs))."""
+    L = ps * nblk
+    curs = np.broadcast_to(np.asarray(curs, np.int32), (B,))
+    q, k, v, ks, vs = poisoned_inputs(B, H, KV, L, D, curs, quantized, seed)
+    NP = B * nblk + 2
+    rs = np.random.RandomState(seed + 1)
+    table = rs.permutation(np.arange(1, NP - 1)).reshape(B, nblk)
+    if share and B >= 2:
+        i, j = np.argsort(curs, kind="stable")[-2:]
+        n = min(2, (int(curs[i]) + 1) // ps, nblk)
+        table[j, :n] = table[i, :n]
+        for x in (k, v) + ((ks, vs) if quantized else ()):
+            x[j, :, :n * ps] = x[i, :, :n * ps]
+    table = table.astype(np.int32)
+
+    def pool(x, fill):
+        out = np.full((NP, KV, ps) + x.shape[3:], fill, x.dtype)
+        for b in range(B):
+            for blk in range(nblk):
+                out[table[b, blk]] = x[b, :, blk * ps:(blk + 1) * ps]
+        return out
+    dead = 127 if quantized else POISON
+    kp, vp = pool(k, dead), pool(v, dead)
+    ksp = vsp = None
+    if quantized:
+        ksp, vsp = pool(ks, POISON), pool(vs, POISON)
+    return q, kp, vp, ksp, vsp, table, (k, v, ks, vs)
 
 
 @pytest.fixture
@@ -120,3 +162,62 @@ def test_scalar_cursor_and_refusals_on_card(cuda_device):
         port.decode_attention(tq[..., :24].contiguous(),
                               tk[..., :24].contiguous(),
                               tv[..., :24].contiguous(), 40)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,KV,D,ps,nblk,curs", [
+    (4, 16, 16, 64, 64, 4, [0, 63, 64, 255]),       # page = tile
+    (4, 32, 8, 64, 16, 8, [1, 15, 17, 127]),        # tiles span pages
+    (4, 32, 8, 128, 8, 25, [0, 7, 64, 199]),
+    (4, 8, 1, 64, 1, 96, [5, 0, 95, 64]),           # one position a page
+    (10, 16, 16, 64, 16, 64,
+     [0, 1, 15, 16, 17, 63, 64, 65, 1022, 1023]),
+])
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_paged_kernel_matches_ref_and_contiguous_on_card(
+        cuda_device, B, H, KV, D, ps, nblk, curs, quantized, dtype):
+    """K5 against its plain version over a shuffled, partly shared,
+    poisoned pool; then against K4 on the same logical cache, bit for
+    bit."""
+    q, kp, vp, ksp, vsp, table, (k, v, ks, vs) = paged_inputs(
+        B, H, KV, D, ps, nblk, curs, quantized, seed=B + ps, share=True)
+    args = _on_card(cuda_device, dtype, q, kp, vp, np.asarray(curs, np.int32),
+                    ksp, vsp)
+    pt = torch.from_numpy(table).to(cuda_device)
+    before = port.launch_counts["paged_decode_attention"]
+    out = port.paged_decode_attention(*args[:4], pt, *args[4:])
+    torch.cuda.synchronize()
+    assert port.launch_counts["paged_decode_attention"] == before + 1
+    ref = port.paged_decode_attention_ref(*args[:4], pt, *args[4:])
+    if dtype == torch.bfloat16:
+        torch.testing.assert_close(out.float(), ref.float(), atol=2e-2,
+                                   rtol=2e-2)
+    else:
+        torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
+    contiguous = _on_card(cuda_device, dtype, q, k, v,
+                          np.asarray(curs, np.int32), ks, vs)
+    assert torch.equal(out, port.decode_attention(*contiguous))
+
+
+@pytest.mark.cuda
+def test_paged_refusals_on_card(cuda_device):
+    """What K5 does not take raises instead of running some other path;
+    a table entry outside the pool gives NaN, not a read outside it."""
+    q, kp, vp, _, _, table, _ = paged_inputs(2, 8, 2, 64, 16, 4, [40, 63],
+                                             False, seed=2, share=False)
+    tq, tk, tv, cur, _, _ = _on_card(cuda_device, torch.bfloat16, q, kp, vp,
+                                     np.asarray([40, 63], np.int32), None,
+                                     None)
+    pt = torch.from_numpy(table).to(cuda_device)
+    with pytest.raises(TypeError, match="int32"):
+        port.paged_decode_attention(tq, tk, tv, cur, pt.long())
+    with pytest.raises(ValueError, match="page_table"):
+        port.paged_decode_attention(tq, tk, tv, cur, pt[:1])
+    with pytest.raises(ValueError, match="contiguous"):
+        port.paged_decode_attention(tq, tk, tv, cur, pt.t().contiguous().t())
+    bad = pt.clone()
+    bad[1, 0] = tk.shape[0]
+    out = port.paged_decode_attention(tq, tk, tv, cur, bad)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out[0]).all() and torch.isnan(out[1]).all()

@@ -220,8 +220,11 @@ def test_engine_sampling_in_support_and_reproducible():
 
 def test_engine_refuses_what_is_not_ported():
     _, _, tm = _pair()
-    with pytest.raises(NotImplementedError, match="next slice"):
-        _engine(tm, paged=True)
+    # the paged cache is ported: one request runs, token-exact
+    req = Request(0, [5, 9, 2, 7], max_new_tokens=4)
+    paged = _engine(tm, paged=True, page_size=8)
+    assert paged.run([req])[0].tokens == _oracle(tm, req)
+    assert paged.page_allocator.in_use == 0
     with pytest.raises(NotImplementedError, match="speculative"):
         _engine(tm, speculative="ngram")
     with pytest.raises(NotImplementedError, match="telemetry"):
