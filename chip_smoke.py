@@ -7,9 +7,9 @@ It drives the port only: it imports neither JAX nor the JAX package.
 Phases, each of which fails the run (non-zero exit, no result line):
 
 1. Device: the card's name and power limit, as nvidia-smi reports them.
-2. Build: every hand-written kernel of the serving path, from the
-   sources in ops/csrc/, one nvcc per source, all started together
-   (K4 and K5 share one source).
+2. Build: every hand-written kernel of the serving and training paths,
+   from the sources in ops/csrc/, one nvcc per source, all started
+   together (K4 and K5 share one source, K1-K3 another).
 3. Kernel K4 (decode attention) against its plain PyTorch version on
    the card, for the gpt2-medium (H=KV=16) and llama-1b (H=32, KV=8)
    head layouts, D=64, bf16 and int8 caches, B=8, L=1024, ragged
@@ -54,11 +54,39 @@ Phases, each of which fails the run (non-zero exit, no result line):
 8. Llama, paged: llama-1b at full width, 2 layers, int8 KV, page_size
    16, a 32-token shared prefix (the router bench's settings), 12
    requests — GQA, paged int8 scales and tiles that span pages.
+9. Kernels K1-K3 (flash attention forward, dq, dk/dv) against their
+   plain versions in bf16: the training shape (B=16, S=512, gpt2-medium
+   heads H=16, D=64, causal), llama-1b's heads after the K/V repeat
+   (H=32), a [B, S] key mask with one fully masked row (non-causal and
+   causal), a ragged S=500, and D=128, where the q-tile and the k-tile
+   differ. K2/K3 get the plain forward's lse and delta. Each output is
+   held to a relative error limit, and at the training shape each limit
+   must fail planted faults made from the plain versions (a skipped
+   tile; for K2/K3 ds left unrounded). Times each
+   kernel at the training shape with L2 flushed beside its bound, its
+   plain version, and one scaled_dot_product_attention(is_causal=True)
+   forward and its backward through autograd (yardsticks only: the port
+   never calls SDPA).
+10. Training, gpt2-medium (this slice's main path, the JAX bench's gpt2
+   leg): run_lm_benchmark(workload="gpt2", size="medium",
+   batch_per_device=16, seq_len=512), bf16 compute over f32 masters,
+   attention="flash", AdamW with warmup, 3 warmup steps then 3 windows
+   of 10 steps. K1, K2 and K3 must each launch num_layers x steps times
+   (the decode kernels never); every step's loss finite and no update
+   skipped by the guard. Then one step's gradients from the same weights
+   and batch through attention="flash" and "dense" must agree (cosine >=
+   0.999 per parameter tensor, global norm within 1%), and two profiled
+   steps give K1-K3's share of device time and the idle share.
+11. Training, llama-1b at full width, 2 layers, batch 8 x 512: RoPE, GQA
+   through the repeat, SwiGLU and RMSNorm in training, with the same
+   launch and finiteness checks.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
+import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -83,6 +111,39 @@ LOGPROB_TOL = 0.1
 POISON = 1e4
 B_KERNEL, L_KERNEL, D_KERNEL = 8, 1024, 64
 LAYOUTS = {"gpt2-medium": (16, 16), "llama-1b": (32, 8)}
+
+# K1-K3 against their plain versions in bf16, read as the relative error
+# ||kernel - plain|| / ||plain|| of each output tensor (out; dq; dk and
+# dv), so the limit scales with the outputs (|dq| is ~0.05 at the
+# training shape, far under an absolute 2e-2). K1 rounds p to bf16
+# against a running max, the plain version against the row max, so most
+# p differ by up to half a bf16 ulp. K2/K3 round ds as the plain version
+# does, after f32 sums in another order: their outputs differ only where
+# a sum lands across a bf16 rounding boundary. Each limit lies between
+# the sound kernel's reading and the smallest reading of a planted fault
+# (`planted_faults`), which the run checks. lse (f32) within f32 sums
+# over up to 512 terms.
+FLASH_REL = {"flash_fwd": 4e-3, "flash_dq": 4e-4, "flash_dkv": 4e-4}
+LSE_ATOL = 1e-3
+FLASH_TILE = 64          # the kernels' tile at D <= 64
+# (name, B, S, H, D, causal, mask): the training shape first
+FLASH_CASES = [
+    ("gpt2-medium", 16, 512, 16, 64, True, None),
+    ("llama-1b", 8, 512, 32, 64, True, None),
+    ("masked", 4, 512, 16, 64, False, "empty"),
+    ("masked-causal", 4, 512, 16, 64, True, "pad"),
+    ("ragged", 16, 500, 16, 64, True, None),
+    # D=128: K1/K2 walk 32-key tiles under 64-query tiles, K3 the reverse
+    ("unequal-tiles", 4, 512, 16, 128, True, None),
+]
+# one step's gradients, flash against dense, same weights and batch: both
+# bf16; dense rounds its scores to bf16 (the reference's einsum does) and
+# its probabilities after an f32 softmax, flash rounds p against a running
+# max, so entries differ by a few bf16 ulps that average out over the
+# 8192 tokens of a batch. The key bias is left out of the cosine: it
+# shifts a row's scores uniformly, so its exact gradient is 0 and both
+# sides hold rounding noise (checked to be under 1e-3 of the global norm)
+GRAD_COSINE, GRAD_NORM_RTOL, NOISE_NORM = 0.999, 0.01, 1e-3
 
 
 def check(cond, msg):
@@ -417,7 +478,13 @@ def kernel_group(name: str) -> str:
     if "decode_attention" in name:
         return ("K5 paged_decode_attention" if "PagedRows" in name
                 else "K4 decode_attention")
-    if any(s in name.lower() for s in ("gemm", "xmma", "cutlass", "gemv")):
+    for kernel, group in (("flash_fwd_kernel", "K1 flash_fwd"),
+                          ("flash_dq_kernel", "K2 flash_dq"),
+                          ("flash_dkv_kernel", "K3 flash_dkv")):
+        if kernel in name:
+            return group
+    if any(s in name.lower() for s in ("gemm", "xmma", "cutlass", "gemv",
+                                       "nvjet")):
         return "GEMM (cuBLAS)"
     return name[:70]
 
@@ -567,6 +634,325 @@ def ab_runs(model, trace, configs):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the training phases: K1-K3 alone, then LM training through them
+# ---------------------------------------------------------------------------
+
+def flash_inputs(B, S, H, D, mask, gen, dev):
+    """bf16 q, k, v, do [B, S, H, D] and an optional [B, S] bool key mask:
+    row 0 padded after 3/4 of S; with "empty", row 1 masked everywhere."""
+    q, k, v, do = (torch.randn(B, S, H, D, generator=gen, device=dev)
+                   .bfloat16() for _ in range(4))
+    m = None
+    if mask is not None:
+        m = torch.ones(B, S, dtype=torch.bool, device=dev)
+        m[0, (3 * S) // 4:] = False
+        if mask == "empty":
+            m[1] = False
+    return q, k, v, do, m
+
+
+def flash_bound(name, B, S, H, D, causal):
+    """(bound_ms, bound_by) of one flash kernel: the bytes it must move
+    (each bf16 [B, S, H, D] input and output once, f32 [B, H, S] lse and
+    delta once) over HBM bandwidth, against its products over the
+    visible (query, key) pairs (2*D flops a pair and product: K1 q.k and
+    p.v, K2 adds do.v and ds.k for 3, K3 q.k, do.v, p.do, ds.q for 4)
+    over the bf16 tensor-core rate."""
+    t, stat = B * S * H * D * 2, B * H * S * 4
+    pairs = B * H * (S * (S + 1) // 2 if causal else S * S)
+    nbytes, products = {"flash_fwd": (4 * t + stat, 2),
+                        "flash_dq": (5 * t + 2 * stat, 3),
+                        "flash_dkv": (6 * t + 2 * stat, 4)}[name]
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = products * 2 * D * pairs / BF16_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def rel_err(got, want) -> float:
+    """||got - want|| / ||want|| over the whole tensor, in f32."""
+    got, want = got.float(), want.float()
+    return float((got - want).norm() / want.norm().clamp(min=1e-30))
+
+
+def planted_faults(ops, q, k, v, do, lse, delta, causal, want):
+    """What the relative error would read for a kernel with a planted
+    fault, made from the plain versions and held against the sound plain
+    outputs `want` {"flash_fwd": out, "flash_dq": dq, "flash_dkv": (dk,
+    dv)}: one tile skipped (the smallest reading over every tile: a
+    k-tile's keys masked for K1/K2, a q-tile's do and delta zeroed for
+    K3), and ds left unrounded (the plain versions on f32 copies of
+    the inputs, the output rounded to bf16). Returns [(kernel, fault,
+    reading)]."""
+    B, S = q.shape[:2]
+    tiles = [slice(j, j + FLASH_TILE) for j in range(0, S, FLASH_TILE)]
+
+    def keys_off(t):
+        m = torch.ones(B, S, dtype=torch.bool, device=q.device)
+        m[:, t] = False
+        return m
+
+    def rows_off(t):
+        d, dl = do.clone(), delta.clone()
+        d[:, t], dl[:, :, t] = 0, 0
+        return ops.flash_dkv_ref(q, k, v, d, lse, dl, causal)
+
+    dk, dv = want["flash_dkv"]
+    f32 = [x.float() for x in (q, k, v, do)]
+    return [
+        ("flash_fwd", "skipped k-tile", min(
+            rel_err(ops.flash_fwd_ref(q, k, v, causal, keys_off(t))[0],
+                    want["flash_fwd"]) for t in tiles)),
+        ("flash_dq", "skipped k-tile", min(
+            rel_err(ops.flash_dq_ref(q, k, v, do, lse, delta, causal,
+                                     keys_off(t)), want["flash_dq"])
+            for t in tiles)),
+        ("flash_dkv", "skipped q-tile", min(
+            max(rel_err(a, dk), rel_err(b, dv))
+            for a, b in map(rows_off, tiles))),
+        ("flash_dq", "unrounded ds", rel_err(
+            ops.flash_dq_ref(*f32, lse, delta, causal).bfloat16(),
+            want["flash_dq"])),
+        ("flash_dkv", "unrounded ds", rel_err(
+            ops.flash_dkv_ref(*f32, lse, delta, causal)[0].bfloat16(), dk)),
+    ]
+
+
+def flash_kernel_phase(ops, dev):
+    """K1-K3 against their plain versions over FLASH_CASES, and the
+    planted faults' readings at the training shape against the limits;
+    returns ({kernel: max abs error}, {kernel: timing row at the
+    training shape})."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    worst = {"flash_fwd": 0.0, "flash_dq": 0.0, "flash_dkv": 0.0}
+    worst_rel = dict(worst)
+    rows = {}
+    for name, B, S, H, D, causal, mask in FLASH_CASES:
+        q, k, v, do, m = flash_inputs(B, S, H, D, mask, gen, dev)
+        out, lse = ops.flash_fwd(q, k, v, causal, m)
+        torch.cuda.synchronize()
+        ref_out, ref_lse = ops.flash_fwd_ref(q, k, v, causal, m)
+        delta = ops.flash_delta(ref_out, do)
+        dq = ops.flash_dq(q, k, v, do, ref_lse, delta, causal, m)
+        dk, dv = ops.flash_dkv(q, k, v, do, ref_lse, delta, causal, m)
+        torch.cuda.synchronize()
+        ref_dq = ops.flash_dq_ref(q, k, v, do, ref_lse, delta, causal, m)
+        ref_dk, ref_dv = ops.flash_dkv_ref(q, k, v, do, ref_lse, delta,
+                                           causal, m)
+        lse_err = float((lse - ref_lse).abs().max())
+        check(lse_err <= LSE_ATOL, f"K1 {name}: lse differs from the plain "
+              f"version by {lse_err} > {LSE_ATOL}")
+        errs, rels = {}, {}
+        for kname, got, want in (("flash_fwd", out, ref_out),
+                                 ("flash_dq", dq, ref_dq),
+                                 ("flash_dkv", dk, ref_dk),
+                                 ("flash_dkv", dv, ref_dv)):
+            err = float((got.float() - want.float()).abs().max())
+            rel = rel_err(got, want)
+            check(torch.isfinite(got).all().item(),
+                  f"{kname} {name}: non-finite output")
+            check(rel <= FLASH_REL[kname],
+                  f"{kname} {name}: ||kernel - plain|| / ||plain|| = {rel} "
+                  f"> {FLASH_REL[kname]} (max abs error {err})")
+            errs[kname] = max(errs.get(kname, 0.0), err)
+            rels[kname] = max(rels.get(kname, 0.0), rel)
+            worst[kname] = max(worst[kname], err)
+            worst_rel[kname] = max(worst_rel[kname], rel)
+        if mask == "empty":      # the row with no valid key: no gradient
+            check(not dq[1].any() and not dk[1].any() and not dv[1].any(),
+                  f"{name}: gradients flow from the fully masked row")
+        log(f"  K1-K3 {name:13s} B={B} S={S} H={H} D={D} causal={causal} "
+            f"mask={mask}: relative error fwd {rels['flash_fwd']:.3e} dq "
+            f"{rels['flash_dq']:.3e} dkv {rels['flash_dkv']:.3e}; max abs "
+            f"error fwd {errs['flash_fwd']:.3e} dq {errs['flash_dq']:.3e} "
+            f"dkv {errs['flash_dkv']:.3e}; lse {lse_err:.3e}")
+        if name != "gpt2-medium":
+            continue
+        faults = planted_faults(ops, q, k, v, do, ref_lse, delta, causal, {
+            "flash_fwd": ref_out, "flash_dq": ref_dq,
+            "flash_dkv": (ref_dk, ref_dv)})
+        for kname, fault, reading in faults:
+            log(f"  planted fault {kname} {fault}: relative error "
+                f"{reading:.3e} against the limit {FLASH_REL[kname]:.1e}")
+            check(reading > FLASH_REL[kname],
+                  f"{kname}: the limit {FLASH_REL[kname]} passes a "
+                  f"kernel with a {fault} ({reading})")
+        flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)
+        out, lse = ops.flash_fwd(q, k, v, causal)
+        delta = ops.flash_delta(out, do)
+        calls = {
+            "flash_fwd": (lambda: ops.flash_fwd(q, k, v, causal),
+                          lambda: ops.flash_fwd_ref(q, k, v, causal)),
+            "flash_dq": (lambda: ops.flash_dq(q, k, v, do, lse, delta,
+                                              causal),
+                         lambda: ops.flash_dq_ref(q, k, v, do, lse, delta,
+                                                  causal)),
+            "flash_dkv": (lambda: ops.flash_dkv(q, k, v, do, lse, delta,
+                                                causal),
+                          lambda: ops.flash_dkv_ref(q, k, v, do, lse, delta,
+                                                    causal)),
+        }
+        # SDPA's [B, H, S, D] views of the same inputs; its cotangent made
+        # contiguous once, outside the timing
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        backend = torch._fused_sdp_choice(qt, kt, vt, is_causal=True)
+        sdpa_fwd = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True), 20, flush)
+        so = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        dot = do.transpose(1, 2).contiguous()
+        sdpa_bwd = time_ms(lambda: torch.autograd.grad(
+            so, (qt, kt, vt), dot, retain_graph=True), 20, flush)
+        log(f"  SDPA (is_causal, yardstick; backend choice {backend}): "
+            f"forward {sdpa_fwd:.4f} ms, backward (dq, dk, dv in one call) "
+            f"{sdpa_bwd:.4f} ms")
+        for kname, (kernel, plain) in calls.items():
+            ms = time_ms(kernel, 20, flush)
+            plain_ms = time_ms(plain, 5, flush)
+            bound_ms, bound_by = flash_bound(kname, B, S, H, D, causal)
+            lib = sdpa_fwd if kname == "flash_fwd" else sdpa_bwd
+            rows[kname] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                               bound_by=bound_by, library_ms=lib)
+            log(f"  {kname:9s} kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+                f"bound {bound_ms:.4f} ms ({bound_by})  SDPA "
+                f"{'forward' if kname == 'flash_fwd' else 'backward'} "
+                f"{lib:.4f} ms")
+        del flush, so, qt, kt, vt
+    torch.cuda.empty_cache()
+    log(f"  K1-K3 worst relative error over the cases: "
+        + ", ".join(f"{n} {worst_rel[n]:.3e} (limit {FLASH_REL[n]:.1e})"
+                    for n in worst_rel))
+    return worst, rows
+
+
+FLASH_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
+
+
+def train_phase(name, ops, **kw):
+    """run_lm_benchmark(**kw) with every kernel count zeroed just before
+    and read just after: K1-K3 must each have launched once a layer a
+    step, the decode kernels never; every timed step's loss finite and
+    no update skipped by the guard. Returns (state, metrics, counts)."""
+    from mpi_operator_tpu_torch.examples.lm_benchmark import run_lm_benchmark
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    state, m = run_lm_benchmark(log=lambda line: log(f"  {line}"), **kw)
+    torch.cuda.synchronize()
+    counts = dict(ops.launch_counts)
+    layers, steps = state.model.config.num_layers, state.step
+    check(all(counts[k] == layers * steps for k in FLASH_KERNELS),
+          f"{name}: flash launches {counts} over {steps} steps of {layers} "
+          f"layers")
+    check(all(n == 0 for k, n in counts.items() if k not in FLASH_KERNELS),
+          f"{name}: other kernels launched: {counts}")
+    losses = m["step_losses"]
+    check(all(math.isfinite(x) for x in losses)
+          and math.isfinite(m["final_loss"]),
+          f"{name}: non-finite loss among {losses}")
+    check(int(state.opt.count) == steps,
+          f"{name}: the guard skipped {steps - int(state.opt.count)} updates")
+    stats = {k: m[k] for k in ("tokens_per_sec", "step_time_p50_ms",
+                               "step_time_p99_ms", "host_gap_p50_ms",
+                               "mfu", "tflops_per_sec_per_device",
+                               "flops_per_step", "final_loss")}
+    stats.update(steps=steps, launches={k: counts[k] for k in FLASH_KERNELS},
+                 first_loss=losses[0], last_loss=losses[-1],
+                 peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+    log(f"  {name}: {json.dumps(stats)}")
+    return state, m, counts
+
+
+def grads_agree(tcfg, mcfg, dev):
+    """One step's gradients from the same weights and batch through
+    attention="flash" and "dense"; returns the flash trainer and state
+    for profiling."""
+    from mpi_operator_tpu_torch.data import TokenStream
+    from mpi_operator_tpu_torch.models.transformer import param_shapes
+    from mpi_operator_tpu_torch.train import LMTrainer
+    batch = TokenStream(tcfg.global_batch_size, tcfg.seq_len,
+                        mcfg.vocab_size, seed=1, device=dev).batch(0)
+    grads = {}
+    for impl in ("dense", "flash"):
+        trainer = LMTrainer(dataclasses.replace(mcfg, attention=impl), tcfg,
+                            device=dev)
+        state = trainer.init_state(0)
+        loss, g, _ = trainer.loss_and_grads(state, *batch)
+        grads[impl] = (float(loss), g)
+        if impl == "dense":
+            del trainer, state
+            torch.cuda.empty_cache()
+    (ld, gd), (lf, gf) = grads["dense"], grads["flash"]
+    norm_d, norm_f = float(gd.norm()), float(gf.norm())
+    worst, off = (1.0, ""), 0
+    for pname, shape in param_shapes(mcfg).items():
+        n = math.prod(shape)
+        a, b = gf[off:off + n], gd[off:off + n]
+        off += n
+        if pname.endswith("attn.key.bias"):
+            check(float(a.norm()) <= NOISE_NORM * norm_f
+                  and float(b.norm()) <= NOISE_NORM * norm_d,
+                  f"{pname}: gradient {float(a.norm())} / {float(b.norm())} "
+                  f"is not rounding noise")
+            continue
+        cos = float(torch.dot(a, b) / (a.norm() * b.norm()).clamp(min=1e-30))
+        worst = min(worst, (cos, pname))
+    log(f"  grads flash vs dense: loss {lf:.6f} vs {ld:.6f}, global norm "
+        f"{norm_f:.6f} vs {norm_d:.6f}, worst cosine {worst[0]:.6f} "
+        f"({worst[1]})")
+    check(worst[0] >= GRAD_COSINE, f"gradient cosine {worst[0]} < "
+          f"{GRAD_COSINE} for {worst[1]}")
+    check(abs(norm_f - norm_d) <= GRAD_NORM_RTOL * norm_d,
+          f"global gradient norm {norm_f} vs {norm_d} beyond "
+          f"{GRAD_NORM_RTOL:.0%}")
+    return trainer, state, batch
+
+
+def profile_train(trainer, state, batch, step_ms, steps=2):
+    """Where a training step's time goes: `steps` train steps under
+    torch.profiler after one unprofiled step; device busy per step
+    against the profiled wall time and against `step_ms`, the unprofiled
+    benchmark's step time (the profiler's own host cost inflates the
+    former), device time by kernel group, K1-K3's share, and the host
+    ops that take the most CPU time."""
+    from torch.profiler import ProfilerActivity, profile
+    trainer.train_step(state, *batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            trainer.train_step(state, *batch)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    groups = {}
+    for e in prof.events():
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or e.is_user_annotation):
+            continue
+        g = groups.setdefault(kernel_group(e.name), [0.0, 0])
+        g[0] += e.time_range.elapsed_us()
+        g[1] += 1
+    busy = sum(g[0] for g in groups.values())
+    flash = sum(groups.get(k, [0.0])[0] for k in
+                ("K1 flash_fwd", "K2 flash_dq", "K3 flash_dkv"))
+    busy_ms = busy / 1e3 / steps
+    log(f"  profile: {steps} train steps, wall {wall_us / 1e3:.2f} ms "
+        f"({wall_us / 1e3 / steps:.2f} ms a step), device busy "
+        f"{busy_ms:.2f} ms a step, idle share {1 - busy / wall_us:.3f} "
+        f"profiled, {1 - busy_ms / step_ms:.3f} against the unprofiled "
+        f"step of {step_ms:.2f} ms; K1-K3 {flash / max(busy, 1e-9):.1%} of "
+        f"device time")
+    for name, (us, n) in sorted(groups.items(), key=lambda kv: -kv[1][0])[:14]:
+        log(f"  profile: {us / 1e3 / steps:8.3f} ms a step "
+            f"{us / max(busy, 1e-9):6.1%} {n // steps:5d} launches a step  "
+            f"{name}")
+    host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    for e in host[:8]:
+        log(f"  profile host: {e.self_cpu_time_total / 1e3 / steps:8.3f} ms "
+            f"a step self CPU, {e.count // steps:5d} calls a step  {e.key[:60]}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -586,7 +972,7 @@ def main() -> int:
         f"count {torch.cuda.device_count()}")
 
     t0 = time.perf_counter()
-    _build.build(["decode_attention"])
+    _build.build(["decode_attention", "flash_attention"])
     log(f"[build] {time.perf_counter() - t0:.1f} s")
     for name, text in _build.build_logs.items():
         for line in text.splitlines():
@@ -602,6 +988,12 @@ def main() -> int:
     log("[kernel] K5 paged_decode_attention vs paged_decode_attention_ref "
         "and vs K4 on the gathered cache")
     err5, row5 = paged_kernel_phase(ops, dev)
+    log(f"[kernel] {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    log("[kernel] K1-K3 flash_fwd / flash_dq / flash_dkv vs their plain "
+        "versions")
+    flash_err, flash_rows = flash_kernel_phase(ops, dev)
     log(f"[kernel] {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -660,17 +1052,52 @@ def main() -> int:
                 ops, EngineConfig(slots=4, chunk_buckets=(16, 64),
                                   paged=True, page_size=16),
                 "paged_decode_attention", shared_len=32)
+    del llama
+    torch.cuda.empty_cache()
     log(f"[paged-llama] {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    log("[train] gpt2-medium, bf16 over f32 masters, attention=flash, "
+        "batch 16 x 512, AdamW with warmup")
+    state, train_metrics, train_counts = train_phase(
+        "gpt2-medium-train", ops, workload="gpt2", size="medium",
+        batch_per_device=16, seq_len=512, num_steps=30, warmup_steps=3,
+        attention="flash")
+    mcfg = state.model.config
+    del state
+    torch.cuda.empty_cache()
+    from mpi_operator_tpu_torch.train import LMTrainerConfig
+    trainer, tstate, batch = grads_agree(
+        LMTrainerConfig(global_batch_size=16, seq_len=512), mcfg, dev)
+    profile_train(trainer, tstate, batch, train_metrics["step_time_p50_ms"])
+    del trainer, tstate, batch
+    torch.cuda.empty_cache()
+    log(f"[train] {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    log("[train-llama] llama-1b (2 layers), bf16, attention=flash, batch "
+        "8 x 512")
+    train_phase("llama-1b-2l-train", ops, workload="llama", size="1b",
+                batch_per_device=8, seq_len=512, num_layers=2, num_steps=10,
+                warmup_steps=2, attention="flash")
+    log(f"[train-llama] {time.perf_counter() - t0:.1f} s")
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
 
     source = "mpi_operator_tpu_torch/ops/csrc/decode_attention.cu"
+    flash_source = "mpi_operator_tpu_torch/ops/csrc/flash_attention.cu"
+    flash_lines = {"flash_fwd": 137, "flash_dq": 305, "flash_dkv": 344}
     print(json.dumps({"kernels": [
         dict(name="decode_attention", route="cuda", source=source,
              replaces="mpi_operator_tpu/ops/attention.py:458",
              launches=launches, max_abs_err=err, **row),
         dict(name="paged_decode_attention", route="cuda", source=source,
              replaces="mpi_operator_tpu/ops/attention.py:724",
-             launches=launches5, max_abs_err=err5, **row5)]}))
+             launches=launches5, max_abs_err=err5, **row5)] + [
+        dict(name=name, route="cuda", source=flash_source,
+             replaces=f"mpi_operator_tpu/ops/attention.py:{line}",
+             launches=train_counts[name], max_abs_err=flash_err[name],
+             **flash_rows[name])
+        for name, line in flash_lines.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -6,9 +6,11 @@ mirrors the reference module of the same path; each TPU kernel on a
 ported path is a kernel hand-written for Hopper (ops/csrc/), beside its
 plain PyTorch version.
 
-Ported so far: the continuous-batching serving engine in contiguous
-slot-cursor mode (serve/engine.py) over the decode-mode CausalLM
-(models/), with the decode-attention kernel (ops/attention.py).
+Ported so far: the continuous-batching serving engine, contiguous and
+paged (serve/engine.py), over the decode-mode CausalLM (models/), with
+the decode-attention kernels K4 and K5; and single-device LM training
+(train/lm_trainer.py, examples/lm_benchmark.py) over the training
+forward, with the flash-attention kernels K1-K3 (ops/attention.py).
 Entry points run on the CUDA card unless the caller passes
 device="cpu".
 """

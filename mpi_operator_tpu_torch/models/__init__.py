@@ -4,10 +4,10 @@ from .generate import (  # noqa: F401
 )
 from .transformer import (  # noqa: F401
     CausalLM, KVCache, TransformerConfig, build_lm, create_lm, gpt2_config,
-    llama_config,
+    llama_config, lm_config,
 )
 
 __all__ = ["CausalLM", "GenerateResult", "KVCache", "TransformerConfig",
            "build_lm", "cast_params", "create_lm", "decode_model",
            "generate", "gpt2_config", "init_params", "llama_config",
-           "params_from_flax"]
+           "lm_config", "params_from_flax"]

@@ -1,18 +1,27 @@
-"""The decode path of the Transformer LM, in PyTorch.
+"""The Transformer LM in PyTorch: the decode path and the training forward.
 
 The counterpart of `mpi_operator_tpu/models/transformer.py` for what the
-serving slice runs: the GPT-2 / Llama config ladder (`gpt2_config`,
-`llama_config`, `create_lm`), RoPE, LayerNorm/RMSNorm, the gelu and
-SwiGLU FFNs, and `Attention` with the slot-cursor KV cache — the dense
-path for prefill chunks (and for `decode_kernel=False`), the CUDA decode
-kernels (ops/attention.py) for single-token steps: K4 over the
-contiguous cache, K5 over the paged one.
+serving and training slices run: the GPT-2 / Llama config ladder
+(`gpt2_config`, `llama_config`, `create_lm`), RoPE, LayerNorm/RMSNorm,
+the gelu and SwiGLU FFNs, and `Attention` in two modes.
 
-Every call is a decode-mode call: it takes explicit per-row positions
-([B, S] absolute offsets), writes its K/V into the cache at those
-positions, and attends each query to cache positions <= its own. The
-lockstep `generate()` passes the same positions for every row, the
-serving engine passes each slot's own cursor. The cache is kv-head-major
+Training forward (`CausalLM(tokens)`: no positions, no cache): the
+reference's `decode=False` path. Positions are arange(S), RoPE rotates
+q and k at them, GQA repeats K/V across each query group
+(`repeat_interleave`, the reference's `jnp.repeat` on the head axis),
+and `attend` runs flash attention (K1-K3, ops/attention.py) or the
+dense O(S^2) path per `TransformerConfig.attention`. No cache is
+allocated or written. The tied head is `TiedHead`, whose backward has
+the reference's `_head_matmul_bwd` rounding.
+
+Decode mode (every call with `positions`): the dense path for prefill
+chunks (and for `decode_kernel=False`), the CUDA decode kernels for
+single-token steps: K4 over the contiguous cache, K5 over the paged one.
+A decode-mode call takes explicit per-row positions ([B, S] absolute
+offsets), writes its K/V into the cache at those positions, and attends
+each query to cache positions <= its own. The lockstep `generate()`
+passes the same positions for every row, the serving engine passes each
+slot's own cursor. The cache is kv-head-major
 [B, KV, L, D] (int8 caches carry [B, KV, L] f32 scales) and is updated
 IN PLACE — the reference donates its cache buffers to the jitted step
 for the same effect, one live copy of the biggest allocation.
@@ -37,8 +46,7 @@ takes its einsum in the model dtype, scales in f32 by 1/sqrt(D), masks
 with -1e30 and casts the probabilities back, and the tied LM head
 accumulates and returns f32.
 
-Not here yet (later slices): the training forward and its flash
-kernels, tp_overlap, MoE, remat, MaskedLM and ViT.
+Not here yet (later slices): tp_overlap, MoE, remat, MaskedLM and ViT.
 """
 from __future__ import annotations
 
@@ -52,8 +60,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.attention import (NEG_INF, decode_attention, gather_pages,
-                             paged_decode_attention)
+from ..ops.attention import (NEG_INF, decode_attention, flash_attention,
+                             gather_pages, paged_decode_attention)
 from ..utils.device import resolve_device
 
 
@@ -79,6 +87,11 @@ class TransformerConfig:
     # single-token steps run the CUDA decode kernel (ops/attention.py);
     # False keeps the dense path, the correctness oracle
     decode_kernel: bool = False
+    # the training forward's attention: "flash" (K1-K3), "dense", or
+    # "auto" = flash on a CUDA tensor, dense on the CPU — the reference
+    # picks flash only on its accelerator. The kernels take bf16, so an
+    # f32 CUDA tensor raises there instead of running dense on the card
+    attention: str = "auto"
 
     @property
     def head_dim(self) -> int:
@@ -334,8 +347,9 @@ class Attention(nn.Module):
         self.value = nn.Linear(E, KV * D)
         self.out = nn.Linear(H * D, E)
 
-    def forward(self, x, pos, pos_host, cache: LayerCache,
+    def forward(self, x, pos, pos_host, cache: Optional[LayerCache],
                 pages: Optional[PageIndex] = None):
+        """Decode mode with a cache; the training forward without one."""
         cfg = self.config
         dt = cfg.dtype
         B, S, _ = x.shape
@@ -343,8 +357,26 @@ class Attention(nn.Module):
         q = _linear(x, self.query, dt).view(B, S, H, D)
         k = _linear(x, self.key, dt).view(B, S, KV, D)
         v = _linear(x, self.value, dt).view(B, S, KV, D)
-        out = self._decode_attend(q, k, v, pos, pos_host, cache, pages)
+        if cache is None:
+            out = self._train_attend(q, k, v)
+        else:
+            out = self._decode_attend(q, k, v, pos, pos_host, cache, pages)
         return _linear(out.reshape(B, S, H * D), self.out, dt)
+
+    def _train_attend(self, q, k, v):
+        """The reference's non-decode branch: RoPE at arange(S), K/V
+        repeated across each query group, then `attend`."""
+        cfg = self.config
+        S, H = q.shape[1], q.shape[2]
+        if cfg.pos_embedding == "rope":
+            pos = torch.arange(S, device=q.device)
+            q = rope(q, pos)
+            k = rope(k, pos)
+        if k.shape[2] != H:
+            g = H // k.shape[2]
+            k = k.repeat_interleave(g, dim=2)
+            v = v.repeat_interleave(g, dim=2)
+        return attend(q, k, v, None, cfg)
 
     def _decode_attend(self, q, k, v, pos, pos_host, cache: LayerCache,
                        pages: Optional[PageIndex] = None):
@@ -452,7 +484,7 @@ class Block(nn.Module):
         self.ln_2 = Norm(cfg)
         self.mlp = Mlp(cfg)
 
-    def forward(self, x, pos, pos_host, cache: LayerCache,
+    def forward(self, x, pos, pos_host, cache: Optional[LayerCache],
                 pages: Optional[PageIndex] = None):
         x = x + self.attn(self.ln_1(x), pos, pos_host, cache, pages)
         return x + self.mlp(self.ln_2(x))
@@ -464,11 +496,71 @@ class Backbone(nn.Module):
         self.blocks = nn.ModuleList(Block(cfg) for _ in range(cfg.num_layers))
         self.ln_f = Norm(cfg)
 
-    def forward(self, h, pos, pos_host, cache: KVCache,
+    def forward(self, h, pos, pos_host, cache: Optional[KVCache],
                 pages: Optional[PageIndex] = None):
-        for block, layer_cache in zip(self.blocks, cache.layers):
+        """Decode mode through `cache`; the training forward with None."""
+        layers = cache.layers if cache is not None else [None] * len(
+            self.blocks)
+        for block, layer_cache in zip(self.blocks, layers):
             h = block(h, pos, pos_host, layer_cache, pages)
         return self.ln_f(h)
+
+
+def dense_attention(q, k, v, mask=None, causal: bool = True,
+                    dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The reference O(S^2) attention over [B, S, H, D]: scores as an
+    einsum in the inputs' dtype, then f32, divided by sqrt(D), masked
+    with -1e30 (causal and/or the [B, S] key mask), f32 softmax, the
+    probabilities cast to `dtype` for the p.v einsum."""
+    D = q.shape[-1]
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() / math.sqrt(D)
+    if causal:
+        S_q, S_k = logits.shape[-2:]
+        tril = torch.ones(S_q, S_k, dtype=torch.bool,
+                          device=q.device).tril()
+        logits = torch.where(tril, logits, NEG_INF)
+    if mask is not None:
+        logits = torch.where(mask[:, None, None, :].bool(), logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def attend(q, k, v, mask, cfg: TransformerConfig) -> torch.Tensor:
+    """The training forward's attention over [B, S, H, D] (equal head
+    counts), per `cfg.attention` (the reference's `_attend`)."""
+    impl = cfg.attention
+    if impl == "auto":
+        impl = "flash" if q.device.type == "cuda" else "dense"
+    if impl == "flash":
+        return flash_attention(q.contiguous(), k.contiguous(),
+                               v.contiguous(), causal=cfg.causal, mask=mask)
+    if impl == "dense":
+        return dense_attention(q, k, v, mask=mask, causal=cfg.causal,
+                               dtype=cfg.dtype)
+    raise ValueError(f"attention={cfg.attention!r}; expected 'auto', "
+                     f"'dense' or 'flash'")
+
+
+class TiedHead(torch.autograd.Function):
+    """The tied LM head h [.., E] . table[V, E]^T with the reference's
+    `_head_matmul` custom_vjp numerics: the forward is `head_logits` (f32
+    out); the backward rounds the f32 cotangent to the table's dtype
+    before both products, accumulates them in f32 and returns dh in h's
+    dtype and dtable in the table's."""
+
+    @staticmethod
+    def forward(ctx, h, table):
+        ctx.save_for_backward(h, table)
+        return head_logits(h, table, table.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        h, table = ctx.saved_tensors
+        gb = g.to(table.dtype)
+        dh = torch.matmul(gb, table).to(h.dtype)
+        dtable = torch.matmul(gb.reshape(-1, g.shape[-1]).t(),
+                              h.reshape(-1, h.shape[-1]).to(table.dtype))
+        return dh, dtable.to(table.dtype)
 
 
 def head_logits(h: torch.Tensor, table: torch.Tensor,
@@ -495,13 +587,15 @@ def _host_positions(positions, B: int, S: int) -> torch.Tensor:
 
 
 class CausalLM(nn.Module):
-    """GPT-2 / Llama decoder LM with a tied head, in decode mode.
+    """GPT-2 / Llama decoder LM with a tied head.
 
-    `forward(tokens [B, S], positions, cache)` writes the call's K/V
-    into `cache` at `positions` and returns f32 logits [B, S, V] (or the
-    final hidden state [B, S, E] with `with_head=False`). A
-    `PagedKVCache` needs `pages`, the host [B, max_len // page_size]
-    page tables."""
+    `forward(tokens [B, S])` with no positions and no cache is the
+    training forward (positions arange(S), nothing cached), with
+    gradients through every path. `forward(tokens, positions, cache)`
+    is decode mode: it writes the call's K/V into `cache` (a new one if
+    None) at `positions`. Both return f32 logits [B, S, V] (or the final
+    hidden state [B, S, E] with `with_head=False`). A `PagedKVCache`
+    needs `pages`, the host [B, max_len // page_size] page tables."""
 
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
@@ -533,6 +627,8 @@ class CausalLM(nn.Module):
     def forward(self, tokens: torch.Tensor, positions=None,
                 cache: Optional[KVCache] = None, with_head: bool = True,
                 pages=None):
+        if positions is None and cache is None and pages is None:
+            return self._train_forward(tokens, with_head)
         cfg = self.config
         dt = cfg.dtype
         B, S = tokens.shape
@@ -562,6 +658,24 @@ class CausalLM(nn.Module):
         if not with_head:
             return h
         return head_logits(h, self.wte.weight, dt)
+
+    def _train_forward(self, tokens: torch.Tensor, with_head: bool):
+        """The reference's decode=False forward. The table is cast to the
+        model dtype separately for the embedding and for the head, so its
+        two gradients meet in f32, as the reference's two casts do."""
+        cfg = self.config
+        dt = cfg.dtype
+        S = tokens.shape[1]
+        if self.wpe is not None and S > cfg.max_len:
+            raise ValueError(f"sequence of {S} tokens is longer than "
+                             f"max_len={cfg.max_len} (the position table)")
+        h = F.embedding(tokens, self.wte.weight.to(dt))
+        if self.wpe is not None:
+            h = h + self.wpe.weight[:S].to(dt)
+        h = self.backbone(h, None, None, None)
+        if not with_head:
+            return h
+        return TiedHead.apply(h, self.wte.weight.to(dt))
 
 
 # ---------------------------------------------------------------------------
@@ -643,21 +757,26 @@ def build_lm(cfg: TransformerConfig, state_dict: dict,
     return model.eval().requires_grad_(False)
 
 
+def lm_config(name: str = "gpt2-medium", **overrides) -> TransformerConfig:
+    """The config of the named model ("gpt2-medium", "llama-test", ...;
+    a bare family name is gpt2-medium or llama-1b)."""
+    family, _, size = name.partition("-")
+    if family == "gpt2":
+        return gpt2_config(size or "medium", **overrides)
+    if family == "llama":
+        return llama_config(size or "1b", **overrides)
+    raise ValueError(f"unknown LM {name!r} (the port has gpt2-* and "
+                     f"llama-*)")
+
+
 def create_lm(name: str = "gpt2-medium", device=None, seed: int = 0,
               **overrides) -> CausalLM:
     """The named model ("gpt2-medium", "llama-test", ...) with random
     f32 weights drawn on `device` from `seed` (models/convert.py
-    init_params). Runs on the CUDA card unless `device="cpu"`."""
+    init_params), frozen for inference. Runs on the CUDA card unless
+    `device="cpu"`."""
     from .convert import init_params
-    family, _, size = name.partition("-")
-    size = size or None
-    if family == "gpt2":
-        cfg = gpt2_config(size or "medium", **overrides)
-    elif family == "llama":
-        cfg = llama_config(size or "1b", **overrides)
-    else:
-        raise ValueError(f"unknown LM {name!r} (the port serves gpt2-* "
-                         f"and llama-*)")
+    cfg = lm_config(name, **overrides)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     return build_lm(cfg, init_params(cfg, gen, device=dev), device=dev)
@@ -666,6 +785,8 @@ def create_lm(name: str = "gpt2-medium", device=None, seed: int = 0,
 __all__ = [
     "TransformerConfig", "LayerCache", "KVCache", "PagedKVCache",
     "PageIndex", "page_index", "Attention", "Mlp",
-    "Norm", "Block", "Backbone", "CausalLM", "rope", "head_logits",
-    "gpt2_config", "llama_config", "param_shapes", "build_lm", "create_lm",
+    "Norm", "Block", "Backbone", "CausalLM", "TiedHead", "attend",
+    "dense_attention", "rope", "head_logits",
+    "gpt2_config", "llama_config", "lm_config", "param_shapes", "build_lm",
+    "create_lm",
 ]

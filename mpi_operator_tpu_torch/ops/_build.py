@@ -1,10 +1,13 @@
 """Build and load the port's hand-written CUDA kernels.
 
 Each source is one `csrc/<name>.cu` file with plain C entry points
-(`decode_attention.cu` holds K4's and K5's). At first use it is compiled
+(`decode_attention.cu` holds K4's and K5's, `flash_attention.cu` K1's,
+K2's and K3's). At first use it is compiled
 by `nvcc` for Hopper (`sm_90a`) into a shared library under `ops/_build/`
-(listed in `.gitignore`) and loaded with `ctypes`. Nothing here includes PyTorch's headers, so a build takes
-seconds, not the minutes a `torch.utils.cpp_extension` build takes.
+(listed in `.gitignore`) and loaded with `ctypes`. Nothing here
+includes PyTorch's headers, so a build takes seconds, not the minutes a
+`torch.utils.cpp_extension` build takes. `build` starts one nvcc per
+source, all together, and then waits for them.
 
 A library's file name carries a hash of its source and flags, so an
 edited kernel is rebuilt and a stale build is never loaded. Builds

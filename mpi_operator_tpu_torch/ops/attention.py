@@ -1,10 +1,10 @@
-"""Decode attention — the single-query KV-cache step, on Hopper: K4 over
-a contiguous cache and K5 over a page pool.
+"""Attention on Hopper: the decode kernels K4 and K5 of the serving path
+and the flash-attention kernels K1-K3 of the training path.
 
-The counterparts of `mpi_operator_tpu/ops/attention.py::decode_attention`
-and `paged_decode_attention`, and of their one Pallas `_decode_kernel`.
-One call attends each row's query heads against that row's filled cache
-prefix:
+Decode — the counterparts of `mpi_operator_tpu/ops/attention.py::
+decode_attention` and `paged_decode_attention`, and of their one Pallas
+`_decode_kernel`. One call attends each row's query heads against that
+row's filled cache prefix:
 
   q            [B, H, D]         this step's queries (RoPE applied)
   cache_index  scalar or [B]     row b attends positions <= its cursor
@@ -20,19 +20,37 @@ prefix:
 Query head h reads kv head h // (H // KV) — GQA is native, the repeated
 [B, H, L, D] cache never exists.
 
+Flash attention — the counterpart of `flash_attention` and of its three
+Pallas kernels, reached through the `_flash_core` custom_vjp: K1
+`_fwd_kernel` (`flash_fwd`), K2 `_dq_kernel` (`flash_dq`) and K3
+`_dkv_kernel` (`flash_dkv`). `flash_attention(q, k, v, causal, mask)`
+takes the reference's public layout:
+
+  q, k, v      [B, S, H, D]      equal head counts (a GQA model repeats
+                                 K/V first, as the reference does)
+  mask         [B, S] or None    key-padding mask, > 0 = attend
+  lse, delta   [B, H, S] f32     the softmax statistics the backward
+                                 kernels take as explicit operands
+
+and is a `torch.autograd.Function` that saves only q, k, v, out, lse and
+the mask, as the custom_vjp does. The backward's delta = rowsum(dO * O)
+is one PyTorch reduction, as it is plain jnp in the reference.
+
 Two implementations of each function live here:
 
-- the hand-written CUDA kernel (`csrc/decode_attention.cu`: one kernel
-  body, two address policies, built with `nvcc` for sm_90a at first use,
-  bound with ctypes), which the wrapper launches for every CUDA tensor —
-  or raises: a CUDA tensor never takes another path;
+- the hand-written CUDA kernel (`csrc/decode_attention.cu`: K4 and K5,
+  one kernel body over two address policies; `csrc/flash_attention.cu`:
+  K1-K3), built with `nvcc` for sm_90a at first use and bound with
+  ctypes, which the wrapper launches for every CUDA tensor — or raises:
+  a CUDA tensor never takes another path;
 - the plain PyTorch version of the same arithmetic (`*_ref`), which the
   wrapper runs for a CPU tensor (the CPU tests) and which chip_smoke.py
   holds the kernel against on the card. The paged one gathers the pool
   through the table into the contiguous layout and runs K4's.
 
 `launch_counts[name]` counts kernel launches (and nothing else), so a
-run can show that its decode steps went through the kernel.
+run can show that its decode steps and its training steps went through
+the kernels.
 """
 from __future__ import annotations
 
@@ -46,7 +64,9 @@ NEG_INF = -1e30
 
 #: kernel launches per wrapper since the last reset_launch_counts()
 launch_counts: Dict[str, int] = {"decode_attention": 0,
-                                 "paged_decode_attention": 0}
+                                 "paged_decode_attention": 0,
+                                 "flash_fwd": 0, "flash_dq": 0,
+                                 "flash_dkv": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _MAX_GROUP = 8          # query heads per kv head the kernel holds
@@ -133,12 +153,13 @@ def decode_attention_ref(q, k_cache, v_cache, cache_index,
     return out.to(dt).reshape(B, H, D)
 
 
-def _entry(name: str, n_ptr: int, n_int: int):
-    """The C entry point `name` of the kernel library, its argument
-    types set: `n_ptr` tensor pointers, `n_int` ints, then the softmax
-    scale and the stream."""
+def _entry(name: str, n_ptr: int, n_int: int,
+           library: str = "decode_attention"):
+    """The C entry point `name` of a kernel library, its argument types
+    set: `n_ptr` tensor pointers, `n_int` ints, then the softmax scale
+    and the stream."""
     from ._build import load
-    fn = getattr(load("decode_attention"), name)
+    fn = getattr(load(library), name)
     if fn.argtypes is None:
         P = ctypes.c_void_p
         fn.argtypes = ([P] * n_ptr + [ctypes.c_int] * n_int
@@ -319,6 +340,254 @@ def paged_decode_attention(q, k_pages, v_pages, cache_index, page_table,
                                       page_table, k_scale, v_scale)
 
 
-__all__ = ["decode_attention", "decode_attention_ref", "decode_block_k",
-           "gather_pages", "launch_counts", "paged_decode_attention",
-           "paged_decode_attention_ref", "reset_launch_counts"]
+# ---------------------------------------------------------------------------
+# flash attention (training): K1 forward, K2 dq, K3 dk/dv
+# ---------------------------------------------------------------------------
+
+_FLASH_LIB = "flash_attention"
+
+
+def _check_flash_shapes(q, k, v, mask):
+    if q.ndim != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"q, k and v must be [B, S, H, D] of one shape "
+                         f"(a GQA model repeats K/V first); got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    B, S = q.shape[:2]
+    if S < 1:
+        raise ValueError("flash attention needs S >= 1")
+    if mask is not None and tuple(mask.shape) != (B, S):
+        raise ValueError(f"mask must be [B, S]={(B, S)}, got "
+                         f"{tuple(mask.shape)}")
+
+
+def _visible(S: int, causal: bool, mask, device) -> Optional[torch.Tensor]:
+    """[B or 1, 1, S, S] bool: query i may attend key j (None: all)."""
+    vis = None
+    if causal:
+        idx = torch.arange(S, device=device)
+        vis = (idx[:, None] >= idx[None, :])[None, None]
+    if mask is not None:
+        keys = (mask > 0)[:, None, None, :]
+        vis = keys if vis is None else vis & keys
+    return vis
+
+
+def _scores(q, k):
+    """f32 scores [B, H, S, S] times 1/sqrt(D): bf16 products are exact
+    in f32, so this is the kernels' f32-accumulated dot product."""
+    D = q.shape[-1]
+    return torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) \
+        * (1.0 / math.sqrt(D))
+
+
+def _recomputed_p(q, k, lse, causal, mask):
+    """p = exp(s - lse), re-masked explicitly (`_masked_p` of the
+    reference): 0 wherever the key is masked, whatever the row's lse."""
+    s = _scores(q, k)
+    keep = s > NEG_INF / 2
+    vis = _visible(q.shape[1], causal, mask, q.device)
+    if vis is not None:
+        keep = keep & vis
+    return torch.where(keep, torch.exp(s - lse[..., None]), 0.0), s
+
+
+def flash_fwd_ref(q, k, v, causal: bool = True, mask=None):
+    """The plain PyTorch version of K1: f32 scores times 1/sqrt(D),
+    masked keys at -1e30, softmax over the row (the kernel's online
+    softmax over one tile), p rounded to v's dtype before p.v while l
+    sums the unrounded p, l clamped at 1e-30, lse = m + log(l).
+    Returns (out [B, S, H, D] in q's dtype, lse [B, H, S] f32)."""
+    _check_flash_shapes(q, k, v, mask)
+    s = _scores(q, k)
+    vis = _visible(q.shape[1], causal, mask, q.device)
+    if vis is not None:
+        s = torch.where(vis, s, NEG_INF)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = torch.clamp(p.sum(-1, keepdim=True), min=1e-30)
+    acc = torch.einsum("bhqk,bkhd->bhqd", p.to(v.dtype).float(), v.float())
+    out = (acc / l).transpose(1, 2).to(q.dtype)
+    return out, (m + torch.log(l))[..., 0]
+
+
+def flash_dq_ref(q, k, v, do, lse, delta, causal: bool = True, mask=None):
+    """The plain PyTorch version of K2: p recomputed from lse (re-masked),
+    dp = do.v^T in f32, ds = p*(dp - delta)*scale rounded to k's dtype,
+    dq = ds.k accumulated in f32, returned in q's dtype."""
+    _check_flash_shapes(q, k, v, mask)
+    p, _ = _recomputed_p(q, k, lse, causal, mask)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
+    ds = p * (dp - delta[..., None]) * (1.0 / math.sqrt(q.shape[-1]))
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds.to(k.dtype).float(), k.float())
+    return dq.to(q.dtype)
+
+
+def flash_dkv_ref(q, k, v, do, lse, delta, causal: bool = True, mask=None):
+    """The plain PyTorch version of K3: dv = p^T.do with p unrounded in
+    f32 (the reference casts do to f32), dk = ds^T.q with ds rounded to
+    q's dtype; both accumulated in f32. Returns (dk, dv) in k's and v's
+    dtypes."""
+    _check_flash_shapes(q, k, v, mask)
+    p, _ = _recomputed_p(q, k, lse, causal, mask)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do.float())
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
+    ds = p * (dp - delta[..., None]) * (1.0 / math.sqrt(q.shape[-1]))
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds.to(q.dtype).float(), q.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _mask_u8(mask, device) -> Optional[torch.Tensor]:
+    """The [B, S] key mask as the kernels read it: uint8, 1 = attend."""
+    if mask is None:
+        return None
+    return (mask > 0).to(device=device, dtype=torch.uint8).contiguous()
+
+
+def _check_flash_launchable(name, tensors, stats):
+    """What the flash kernels take, checked on the host: bf16 [B, S, H,
+    D] tensors and f32 [B, H, S] statistics, all contiguous, 16-byte
+    aligned and on one device; D a multiple of 16 up to 128."""
+    q = tensors[0]
+    B, S, H, D = q.shape
+    for t in list(tensors) + list(stats):
+        if t.device != q.device:
+            raise ValueError(f"{name}: tensors on {t.device} and {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: the kernel takes contiguous tensors "
+                             f"only")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: tensors must be 16-byte aligned "
+                             f"(16-byte vector loads)")
+    for t in tensors:
+        if t.dtype != torch.bfloat16 or tuple(t.shape) != (B, S, H, D):
+            raise TypeError(f"{name}: the kernel takes bf16 [B, S, H, D] "
+                            f"tensors; got {t.dtype} {tuple(t.shape)}")
+    for t in stats:
+        if t.dtype != torch.float32 or tuple(t.shape) != (B, H, S):
+            raise TypeError(f"{name}: lse and delta must be f32 [B, H, S]"
+                            f"={(B, H, S)}; got {t.dtype} "
+                            f"{tuple(t.shape)}")
+    if D % 16 or not 16 <= D <= _MAX_HEAD_DIM:
+        raise ValueError(f"{name}: head dim {D}; the kernel takes "
+                         f"multiples of 16 up to {_MAX_HEAD_DIM}")
+    if B > 65535 or H > 65535:
+        raise ValueError(f"{name}: B={B} and H={H} must be <= 65535")
+
+
+def _flash_call(name, entry, n_ptr, ptrs, q, causal):
+    B, S, H, D = q.shape
+    rc = _entry(entry, n_ptr, 5, _FLASH_LIB)(
+        *ptrs, B, S, H, D, int(bool(causal)), 1.0 / math.sqrt(D),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed (code {rc})")
+    launch_counts[name] += 1
+
+
+def _ptr(t):
+    return 0 if t is None else t.data_ptr()
+
+
+def _on_card(q, fn) -> bool:
+    """True for a CUDA tensor, False for a CPU one; raises otherwise."""
+    if q.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"{fn}: unsupported device {q.device}")
+    return q.device.type == "cuda"
+
+
+def flash_fwd(q, k, v, causal: bool = True, mask=None):
+    """K1: (out [B, S, H, D], lse [B, H, S] f32). A CUDA `q` launches the
+    kernel or raises; a CPU `q` runs `flash_fwd_ref`."""
+    if not _on_card(q, "flash_fwd"):
+        return flash_fwd_ref(q, k, v, causal, mask)
+    _check_flash_shapes(q, k, v, mask)
+    _check_flash_launchable("flash_fwd", (q, k, v), ())
+    m8 = _mask_u8(mask, q.device)
+    B, S, H, _ = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    _flash_call("flash_fwd", "flash_fwd_launch", 6,
+                (q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(m8),
+                 out.data_ptr(), lse.data_ptr()), q, causal)
+    return out, lse
+
+
+def flash_dq(q, k, v, do, lse, delta, causal: bool = True, mask=None):
+    """K2: dq [B, S, H, D]. A CUDA `q` launches the kernel or raises; a
+    CPU `q` runs `flash_dq_ref`."""
+    if not _on_card(q, "flash_dq"):
+        return flash_dq_ref(q, k, v, do, lse, delta, causal, mask)
+    _check_flash_shapes(q, k, v, mask)
+    _check_flash_launchable("flash_dq", (q, k, v, do), (lse, delta))
+    m8 = _mask_u8(mask, q.device)
+    dq = torch.empty_like(q)
+    _flash_call("flash_dq", "flash_dq_launch", 8,
+                (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                 lse.data_ptr(), delta.data_ptr(), _ptr(m8), dq.data_ptr()),
+                q, causal)
+    return dq
+
+
+def flash_dkv(q, k, v, do, lse, delta, causal: bool = True, mask=None):
+    """K3: (dk, dv) [B, S, H, D]. A CUDA `q` launches the kernel or
+    raises; a CPU `q` runs `flash_dkv_ref`."""
+    if not _on_card(q, "flash_dkv"):
+        return flash_dkv_ref(q, k, v, do, lse, delta, causal, mask)
+    _check_flash_shapes(q, k, v, mask)
+    _check_flash_launchable("flash_dkv", (q, k, v, do), (lse, delta))
+    m8 = _mask_u8(mask, q.device)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _flash_call("flash_dkv", "flash_dkv_launch", 9,
+                (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                 lse.data_ptr(), delta.data_ptr(), _ptr(m8), dk.data_ptr(),
+                 dv.data_ptr()), q, causal)
+    return dk, dv
+
+
+def flash_delta(out, do):
+    """delta = rowsum(dO * O) in f32, as [B, H, S] (the backward's
+    prologue; plain jnp in the reference, one reduction here)."""
+    return (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+class FlashAttention(torch.autograd.Function):
+    """The `_flash_core` custom_vjp: forward through K1, backward
+    through K2 and K3 with delta = rowsum(dO * O). Saves q, k, v, out,
+    lse and the mask, nothing else."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, causal):
+        mask = _mask_u8(mask, q.device)          # converted once, saved
+        out, lse = flash_fwd(q, k, v, causal, mask)
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v, out, lse, mask)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse, mask = ctx.saved_tensors
+        do = do.contiguous()
+        delta = flash_delta(out, do)
+        dq = flash_dq(q, k, v, do, lse, delta, ctx.causal, mask)
+        dk, dv = flash_dkv(q, k, v, do, lse, delta, ctx.causal, mask)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q, k, v, causal: bool = True, mask=None):
+    """Flash attention over [B, S, H, D] (the reference's layout), with
+    gradients through K2/K3. `mask`: optional [B, S] key mask (> 0 =
+    attend). Any S >= 1: the kernels mask the ragged tail themselves,
+    with no dense fallback. A row whose keys are all masked gets the
+    mean of v (the reference's online softmax) and no gradient (the
+    backward re-masks p). Returns [B, S, H, D] in q's dtype."""
+    _check_flash_shapes(q, k, v, mask)
+    return FlashAttention.apply(q, k, v, mask, causal)
+
+
+__all__ = ["FlashAttention", "decode_attention", "decode_attention_ref",
+           "decode_block_k", "flash_attention", "flash_delta", "flash_dkv",
+           "flash_dkv_ref", "flash_dq", "flash_dq_ref", "flash_fwd",
+           "flash_fwd_ref", "gather_pages", "launch_counts",
+           "paged_decode_attention", "paged_decode_attention_ref",
+           "reset_launch_counts"]

@@ -1,5 +1,6 @@
-"""The port's CUDA decode-attention kernels (K4 contiguous, K5 paged)
-against their plain versions, on the card.
+"""The port's CUDA attention kernels against their plain versions, on
+the card: the decode kernels (K4 contiguous, K5 paged) and the flash
+kernels of the training path (K1 forward, K2 dq, K3 dk/dv).
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine that has only PyTorch and the CUDA toolkit:
@@ -8,7 +9,9 @@ machine that has only PyTorch and the CUDA toolkit:
 
 Without a card every test here skips (the kernel has no CPU mode; its
 plain version is held against the JAX reference in
-test_torch_decode_attention.py and test_torch_paged_attention.py).
+test_torch_decode_attention.py, test_torch_paged_attention.py and
+test_torch_flash_attention.py), except the check that the K1-K3 limits
+fail planted faults, which needs only the plain versions.
 `poisoned_inputs` and `paged_inputs` are shared with those files: the
 cache past each row's cursor holds POISON, and so does every page no
 table entry maps (the trash page 0 among them), so a read past the
@@ -19,7 +22,17 @@ Tolerances: bf16 atol 2e-2 + rtol 2e-2 (the kernel's online softmax
 rounds p to bf16 against a running max, the plain version against the
 row max: a few bf16 ulps at |out| ~ 1); f32 atol 1e-4 (summation order
 only). K5 against K4 on the same logical cache: bit for bit (one kernel
-body and one tile walk; only the row addresses differ).
+body and one tile walk; only the row addresses differ). K1-K3 in bf16:
+the relative error ||kernel - plain|| / ||plain|| of out, dq, dk and dv
+(it scales with the outputs: |dq| is ~0.05 at the training shape) within
+FLASH_REL. K1's online softmax rounds p to bf16 against a running max,
+the plain version against the row max, so most p differ by up to half a
+bf16 ulp; K2/K3 round ds as the plain version does after f32 sums in
+another order, so they differ only where a sum crosses a bf16 rounding
+boundary. Each limit lies below every planted fault's reading (a
+skipped tile; ds left unrounded), which a test here checks; chip_smoke.py
+prints both readings on the card. lse atol 1e-3 (f32 sums in another
+order over up to 512 terms).
 """
 import numpy as np
 import pytest
@@ -221,3 +234,179 @@ def test_paged_refusals_on_card(cuda_device):
     out = port.paged_decode_attention(tq, tk, tv, cur, bad)
     torch.cuda.synchronize()
     assert torch.isfinite(out[0]).all() and torch.isnan(out[1]).all()
+
+
+FLASH_CASES = {
+    # the training shape: gpt2-medium heads, B=16 x 512 tokens, causal
+    "gpt2-medium": dict(B=16, S=512, H=16, D=64, causal=True, mask=None),
+    # llama-1b's head layout after the K/V repeat
+    "llama-1b": dict(B=4, S=512, H=32, D=64, causal=True, mask=None),
+    # key padding, one batch row with no valid key at all
+    "masked": dict(B=4, S=256, H=4, D=64, causal=False, mask="empty"),
+    "masked-causal": dict(B=4, S=256, H=4, D=64, causal=True, mask="pad"),
+    # a ragged S: the kernels mask the tail tile themselves
+    "ragged": dict(B=2, S=500, H=4, D=64, causal=True, mask=None),
+    "ragged-masked": dict(B=2, S=77, H=2, D=64, causal=False, mask="pad"),
+    # D=128: K1/K2 walk 32-key tiles under 64-query tiles, K3 the reverse
+    "unequal-tiles": dict(B=2, S=320, H=4, D=128, causal=True, mask=None),
+    "unequal-tiles-ragged": dict(B=2, S=200, H=2, D=128, causal=False,
+                                 mask="empty"),
+    "small-head": dict(B=2, S=96, H=2, D=32, causal=True, mask=None),
+}
+
+
+def flash_inputs(B, S, H, D, mask, seed=0, device="cpu"):
+    """bf16 q, k, v, do [B, S, H, D] and an optional [B, S] bool key mask
+    (row 0 padded after 3/4 of S; "empty": row 1 masked everywhere)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q, k, v, do = (torch.randn(B, S, H, D, generator=gen, device=device)
+                   .bfloat16() for _ in range(4))
+    m = None
+    if mask is not None:
+        m = torch.ones(B, S, dtype=torch.bool, device=device)
+        m[0, (3 * S) // 4:] = False
+        if mask == "empty":
+            m[1] = False
+    return q, k, v, do, m
+
+
+# the relative error limits of K1-K3 in bf16 (the same as chip_smoke.py's)
+FLASH_REL = {"flash_fwd": 4e-3, "flash_dq": 4e-4, "flash_dkv": 4e-4}
+FLASH_TILE = 64          # the kernels' tile at D <= 64
+
+
+def rel_err(got, want) -> float:
+    """||got - want|| / ||want|| over the whole tensor, in f32."""
+    got, want = got.float(), want.float()
+    return float((got - want).norm() / want.norm().clamp(min=1e-30))
+
+
+def flash_against_plain(q, k, v, do, m, causal):
+    """Each kernel against its plain version on the same inputs (K2/K3
+    given the plain forward's lse and delta); returns {name: relative
+    error} after asserting the limits above."""
+    errs = {}
+    out, lse = port.flash_fwd(q, k, v, causal, m)
+    torch.cuda.synchronize()
+    ref_out, ref_lse = port.flash_fwd_ref(q, k, v, causal, m)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=0)
+    delta = port.flash_delta(ref_out, do)
+    dq = port.flash_dq(q, k, v, do, ref_lse, delta, causal, m)
+    dk, dv = port.flash_dkv(q, k, v, do, ref_lse, delta, causal, m)
+    torch.cuda.synchronize()
+    ref_dq = port.flash_dq_ref(q, k, v, do, ref_lse, delta, causal, m)
+    ref_dk, ref_dv = port.flash_dkv_ref(q, k, v, do, ref_lse, delta,
+                                        causal, m)
+    for name, got, want in (("flash_fwd", out, ref_out),
+                            ("flash_dq", dq, ref_dq), ("flash_dkv", dk, ref_dk),
+                            ("flash_dkv", dv, ref_dv)):
+        assert torch.isfinite(got).all(), name
+        rel = rel_err(got, want)
+        assert rel <= FLASH_REL[name], (name, rel)
+        errs[name] = max(errs.get(name, 0.0), rel)
+    return errs
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_limits_fail_planted_faults(causal):
+    """Each relative error limit fails a kernel with a planted fault,
+    made from the plain versions on the CPU: one tile skipped (the
+    smallest reading over every tile: a k-tile's keys masked for K1/K2,
+    a q-tile's do and delta zeroed for K3) and, for K2/K3, ds left
+    unrounded (the plain versions on f32 copies, outputs rounded to
+    bf16)."""
+    B, S, H, D = 2, 256, 4, 64
+    q, k, v, do, _ = flash_inputs(B, S, H, D, None, seed=9)
+    out, lse = port.flash_fwd_ref(q, k, v, causal)
+    delta = port.flash_delta(out, do)
+    dq = port.flash_dq_ref(q, k, v, do, lse, delta, causal)
+    dk, dv = port.flash_dkv_ref(q, k, v, do, lse, delta, causal)
+    readings = {"flash_fwd": [], "flash_dq": [], "flash_dkv": []}
+    for j in range(0, S, FLASH_TILE):
+        keys = torch.ones(B, S, dtype=torch.bool)
+        keys[:, j:j + FLASH_TILE] = False
+        readings["flash_fwd"].append(
+            rel_err(port.flash_fwd_ref(q, k, v, causal, keys)[0], out))
+        readings["flash_dq"].append(rel_err(
+            port.flash_dq_ref(q, k, v, do, lse, delta, causal, keys), dq))
+        d, dl = do.clone(), delta.clone()
+        d[:, j:j + FLASH_TILE], dl[:, :, j:j + FLASH_TILE] = 0, 0
+        a, b = port.flash_dkv_ref(q, k, v, d, lse, dl, causal)
+        readings["flash_dkv"].append(max(rel_err(a, dk), rel_err(b, dv)))
+    f32 = [x.float() for x in (q, k, v, do)]
+    readings["flash_dq"].append(rel_err(
+        port.flash_dq_ref(*f32, lse, delta, causal).bfloat16(), dq))
+    readings["flash_dkv"].append(rel_err(
+        port.flash_dkv_ref(*f32, lse, delta, causal)[0].bfloat16(), dk))
+    for name, rs in readings.items():
+        assert min(rs) > FLASH_REL[name], (name, rs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(FLASH_CASES))
+def test_flash_kernels_match_plain_on_card(cuda_device, case):
+    """K1, K2 and K3 against their plain versions, one launch each."""
+    c = dict(FLASH_CASES[case])
+    causal, mask = c.pop("causal"), c.pop("mask")
+    q, k, v, do, m = flash_inputs(**c, mask=mask, seed=len(case),
+                                  device=cuda_device)
+    before = {n: port.launch_counts[n]
+              for n in ("flash_fwd", "flash_dq", "flash_dkv")}
+    flash_against_plain(q, k, v, do, m, causal)
+    assert {n: port.launch_counts[n] - before[n] for n in before} == \
+        {"flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1}
+    if mask == "empty":
+        out, _ = port.flash_fwd(q, k, v, causal, m)
+        assert torch.isfinite(out).all()
+
+
+@pytest.mark.cuda
+def test_flash_autograd_and_repeatability_on_card(cuda_device):
+    """flash_attention's autograd gradients equal the kernels called
+    directly, bit for bit, and two runs give the same bits (every output
+    tile has one owner: no atomics)."""
+    q, k, v, do, _ = flash_inputs(2, 192, 4, 64, None, seed=5,
+                                  device=cuda_device)
+    grads = []
+    for _ in range(2):
+        tq, tk, tv = (x.clone().requires_grad_() for x in (q, k, v))
+        out = port.flash_attention(tq, tk, tv, causal=True)
+        out.backward(do)
+        grads.append((out.detach(), tq.grad, tk.grad, tv.grad))
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
+    out, lse = port.flash_fwd(q, k, v, True)
+    delta = port.flash_delta(out, do)
+    assert torch.equal(grads[0][1], port.flash_dq(q, k, v, do, lse, delta))
+    dk, dv = port.flash_dkv(q, k, v, do, lse, delta)
+    assert torch.equal(grads[0][2], dk) and torch.equal(grads[0][3], dv)
+
+
+@pytest.mark.cuda
+def test_flash_refusals_on_card(cuda_device):
+    """What the flash kernels do not take raises instead of running some
+    other path."""
+    q, k, v, do, _ = flash_inputs(1, 64, 2, 64, None, device=cuda_device)
+    with pytest.raises(TypeError, match="bf16"):
+        port.flash_fwd(q.float(), k.float(), v.float())
+    with pytest.raises(ValueError, match="contiguous"):
+        port.flash_fwd(q.transpose(1, 2).contiguous().transpose(1, 2), k, v)
+    with pytest.raises(ValueError, match="head dim"):
+        port.flash_fwd(q[..., :24].contiguous(), k[..., :24].contiguous(),
+                       v[..., :24].contiguous())
+    with pytest.raises(ValueError, match="one shape"):
+        port.flash_fwd(q, k[:, :, :1].contiguous(), v)
+
+
+@pytest.mark.cuda
+def test_f32_training_on_card_raises(cuda_device):
+    """attention="auto" is flash on a CUDA tensor whatever its dtype: an
+    f32 run on the card reaches K1's launch check and raises, instead of
+    training through the plain dense path."""
+    from mpi_operator_tpu_torch.examples.lm_benchmark import run_lm_benchmark
+    before = dict(port.launch_counts)
+    with pytest.raises(TypeError, match="bf16"):
+        run_lm_benchmark(workload="gpt2", size="test", batch_per_device=2,
+                         seq_len=64, num_steps=1, warmup_steps=1,
+                         dtype_name="float32", log=lambda line: None)
+    assert port.launch_counts == before

@@ -86,8 +86,9 @@ def test_wrapper_rejects_bad_tables_and_counts_no_cpu_launch():
     args = (_t(q), _t(kp), _t(vp), _t(np.array([5, 30], np.int32)))
     port.reset_launch_counts()
     port.paged_decode_attention(*args, _t(pt))
-    assert port.launch_counts == {"decode_attention": 0,
-                                  "paged_decode_attention": 0}
+    assert {"decode_attention", "paged_decode_attention"} <= set(
+        port.launch_counts)
+    assert not any(port.launch_counts.values())
     with pytest.raises(TypeError, match="int32"):
         port.paged_decode_attention(*args, _t(pt).long())
     with pytest.raises(ValueError, match="page_table"):
