@@ -9,7 +9,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
 1. Device: the card's name and power limit, as nvidia-smi reports them.
 2. Build: every hand-written kernel of the serving and training paths,
    from the sources in ops/csrc/, one nvcc per source, all started
-   together (K4 and K5 share one source, K1-K3 another).
+   together (K4 and K5 share one source, K1-K3 another); ptxas'
+   registers, shared memory and spills printed for each kernel.
 3. Kernel K4 (decode attention) against its plain PyTorch version on
    the card, for the gpt2-medium (H=KV=16) and llama-1b (H=32, KV=8)
    head layouts, D=64, bf16 and int8 caches, B=8, L=1024, ragged
@@ -58,15 +59,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
    plain versions in bf16: the training shape (B=16, S=512, gpt2-medium
    heads H=16, D=64, causal), llama-1b's heads after the K/V repeat
    (H=32), a [B, S] key mask with one fully masked row (non-causal and
-   causal), a ragged S=500, and D=128, where the q-tile and the k-tile
-   differ. K2/K3 get the plain forward's lse and delta. Each output is
-   held to a relative error limit, and at the training shape each limit
-   must fail planted faults made from the plain versions (a skipped
-   tile; for K2/K3 ds left unrounded). Times each
-   kernel at the training shape with L2 flushed beside its bound, its
-   plain version, and one scaled_dot_product_attention(is_causal=True)
-   forward and its backward through autograd (yardsticks only: the port
-   never calls SDPA).
+   causal), a ragged S=500, S=129 (one past K1's 128-row tiles), and
+   D=128 (two 64-column boxes a tile). K2/K3 get the plain forward's
+   lse and delta. Each output is held to a relative error limit, and at
+   the training shape each limit must fail planted faults made from the
+   plain versions (a skipped tile; for K2/K3 ds left unrounded). Times
+   each kernel at the training shape with L2 flushed beside its bound,
+   its plain version, and one scaled_dot_product_attention(is_causal=
+   True) forward and its backward through autograd (yardsticks only:
+   the port never calls SDPA), and prints K1 over SDPA's forward and
+   K2 + K3 over SDPA's backward, ratios taken in the same call.
 10. Training, gpt2-medium (this slice's main path, the JAX bench's gpt2
    leg): run_lm_benchmark(workload="gpt2", size="medium",
    batch_per_device=16, seq_len=512), bf16 compute over f32 masters,
@@ -125,7 +127,10 @@ LAYOUTS = {"gpt2-medium": (16, 16), "llama-1b": (32, 8)}
 # over up to 512 terms.
 FLASH_REL = {"flash_fwd": 4e-3, "flash_dq": 4e-4, "flash_dkv": 4e-4}
 LSE_ATOL = 1e-3
-FLASH_TILE = 64          # the kernels' tile at D <= 64
+# the tile each kernel walks at D <= 64, the unit a skipped-tile fault
+# drops: K1's k-tiles of 128 keys (under 128-query CTAs), K2's k-tiles of
+# 64 (under 64-query CTAs), K3's q-tiles of 64 (under 128-key CTAs)
+FLASH_TILE = {"flash_fwd": 128, "flash_dq": 64, "flash_dkv": 64}
 # (name, B, S, H, D, causal, mask): the training shape first
 FLASH_CASES = [
     ("gpt2-medium", 16, 512, 16, 64, True, None),
@@ -133,7 +138,10 @@ FLASH_CASES = [
     ("masked", 4, 512, 16, 64, False, "empty"),
     ("masked-causal", 4, 512, 16, 64, True, "pad"),
     ("ragged", 16, 500, 16, 64, True, None),
-    # D=128: K1/K2 walk 32-key tiles under 64-query tiles, K3 the reverse
+    # one row past K1's 128-row q-tile and k-tile and K3's key tile
+    ("tile-edge", 16, 129, 16, 64, True, None),
+    # D=128: two 64-column boxes a tile; K1 walks 64-key tiles, K2
+    # 32-key tiles, K3 32-query tiles
     ("unequal-tiles", 4, 512, 16, 128, True, None),
 ]
 # one step's gradients, flash against dense, same weights and batch: both
@@ -685,7 +693,10 @@ def planted_faults(ops, q, k, v, do, lse, delta, causal, want):
     the inputs, the output rounded to bf16). Returns [(kernel, fault,
     reading)]."""
     B, S = q.shape[:2]
-    tiles = [slice(j, j + FLASH_TILE) for j in range(0, S, FLASH_TILE)]
+
+    def tiles(name):
+        return [slice(j, j + FLASH_TILE[name])
+                for j in range(0, S, FLASH_TILE[name])]
 
     def keys_off(t):
         m = torch.ones(B, S, dtype=torch.bool, device=q.device)
@@ -702,14 +713,14 @@ def planted_faults(ops, q, k, v, do, lse, delta, causal, want):
     return [
         ("flash_fwd", "skipped k-tile", min(
             rel_err(ops.flash_fwd_ref(q, k, v, causal, keys_off(t))[0],
-                    want["flash_fwd"]) for t in tiles)),
+                    want["flash_fwd"]) for t in tiles("flash_fwd"))),
         ("flash_dq", "skipped k-tile", min(
             rel_err(ops.flash_dq_ref(q, k, v, do, lse, delta, causal,
                                      keys_off(t)), want["flash_dq"])
-            for t in tiles)),
+            for t in tiles("flash_dq"))),
         ("flash_dkv", "skipped q-tile", min(
             max(rel_err(a, dk), rel_err(b, dv))
-            for a, b in map(rows_off, tiles))),
+            for a, b in map(rows_off, tiles("flash_dkv")))),
         ("flash_dq", "unrounded ds", rel_err(
             ops.flash_dq_ref(*f32, lse, delta, causal).bfloat16(),
             want["flash_dq"])),
@@ -817,6 +828,9 @@ def flash_kernel_phase(ops, dev):
                 f"bound {bound_ms:.4f} ms ({bound_by})  SDPA "
                 f"{'forward' if kname == 'flash_fwd' else 'backward'} "
                 f"{lib:.4f} ms")
+        log(f"  ratios in this call: K1 / SDPA forward "
+            f"{rows['flash_fwd']['ms'] / sdpa_fwd:.3f}, (K2 + K3) / SDPA "
+            f"backward {(rows['flash_dq']['ms'] + rows['flash_dkv']['ms']) / sdpa_bwd:.3f}")
         del flush, so, qt, kt, vt
     torch.cuda.empty_cache()
     log(f"  K1-K3 worst relative error over the cases: "
@@ -947,10 +961,42 @@ def profile_train(trainer, state, batch, step_ms, steps=2):
         log(f"  profile: {us / 1e3 / steps:8.3f} ms a step "
             f"{us / max(busy, 1e-9):6.1%} {n // steps:5d} launches a step  "
             f"{name}")
+    log("  profile: K1 / K2 / K3 " + " / ".join(
+        f"{groups.get(k, [0.0])[0] / 1e3 / steps:.3f}" for k in
+        ("K1 flash_fwd", "K2 flash_dq", "K3 flash_dkv")) + " ms a step")
     host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
     for e in host[:8]:
         log(f"  profile host: {e.self_cpu_time_total / 1e3 / steps:8.3f} ms "
             f"a step self CPU, {e.count // steps:5d} calls a step  {e.key[:60]}")
+
+
+def ptxas_report(log_text):
+    """[(kernel, "N registers, M bytes smem, spill stores/loads")] from
+    `nvcc -Xptxas -v` output: each entry function's name (demangled down
+    to the kernel and its template arguments) and what ptxas used."""
+    out, kernel, spills = [], None, ""
+    for line in log_text.splitlines():
+        if "Compiling entry function" in line:
+            mangled = line.split("'")[1]
+            for name in ("flash_fwd_kernel", "flash_dq_kernel",
+                         "flash_dkv_kernel", "wgmma_probe_kernel",
+                         "decode_attention_kernel"):
+                if name in mangled:
+                    args = mangled.split(name, 1)[1]
+                    kernel = name + "<" + ",".join(
+                        x for x in args.replace("ILi", " ").replace(
+                            "ELi", " ").replace("EE", " ").split()
+                        if x.isdigit()) + ">"
+                    break
+            else:
+                kernel = mangled[:60]
+        elif "spill stores" in line:
+            spills = line.strip()
+        elif "Used" in line and "registers" in line and kernel:
+            used = line.split("Used", 1)[1].strip()
+            out.append((kernel, f"{used}; {spills}"))
+            kernel = None
+    return out
 
 
 def main() -> int:
@@ -975,9 +1021,8 @@ def main() -> int:
     _build.build(["decode_attention", "flash_attention"])
     log(f"[build] {time.perf_counter() - t0:.1f} s")
     for name, text in _build.build_logs.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
+        for kernel, report in ptxas_report(text):
+            log(f"[build] {name}: {kernel}: {report}")
 
     t0 = time.perf_counter()
     log("[kernel] K4 decode_attention vs decode_attention_ref")

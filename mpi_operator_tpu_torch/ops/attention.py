@@ -40,9 +40,10 @@ Two implementations of each function live here:
 
 - the hand-written CUDA kernel (`csrc/decode_attention.cu`: K4 and K5,
   one kernel body over two address policies; `csrc/flash_attention.cu`:
-  K1-K3), built with `nvcc` for sm_90a at first use and bound with
-  ctypes, which the wrapper launches for every CUDA tensor — or raises:
-  a CUDA tensor never takes another path;
+  K1 and K3 warp-specialised with TMA and wgmma, K2 with mma.sync),
+  built with `nvcc` for sm_90a at first use and bound with ctypes, which
+  the wrapper launches for every CUDA tensor — or raises: a CUDA tensor
+  never takes another path;
 - the plain PyTorch version of the same arithmetic (`*_ref`), which the
   wrapper runs for a CPU tensor (the CPU tests) and which chip_smoke.py
   holds the kernel against on the card. The paged one gathers the pool
@@ -154,16 +155,16 @@ def decode_attention_ref(q, k_cache, v_cache, cache_index,
 
 
 def _entry(name: str, n_ptr: int, n_int: int,
-           library: str = "decode_attention"):
+           library: str = "decode_attention", scale: bool = True):
     """The C entry point `name` of a kernel library, its argument types
     set: `n_ptr` tensor pointers, `n_int` ints, then the softmax scale
-    and the stream."""
+    (unless `scale` is False) and the stream."""
     from ._build import load
     fn = getattr(load(library), name)
     if fn.argtypes is None:
         P = ctypes.c_void_p
         fn.argtypes = ([P] * n_ptr + [ctypes.c_int] * n_int
-                       + [ctypes.c_float, P])
+                       + ([ctypes.c_float] if scale else []) + [P])
         fn.restype = ctypes.c_int
     return fn
 
@@ -345,6 +346,7 @@ def paged_decode_attention(q, k_pages, v_pages, cache_index, page_table,
 # ---------------------------------------------------------------------------
 
 _FLASH_LIB = "flash_attention"
+_ENCODE_FAILED = -2      # flash_attention.cu's code for a refused TMA map
 
 
 def _check_flash_shapes(q, k, v, mask):
@@ -481,7 +483,8 @@ def _flash_call(name, entry, n_ptr, ptrs, q, causal):
         *ptrs, B, S, H, D, int(bool(causal)), 1.0 / math.sqrt(D),
         torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed (code {rc})")
+        why = ": the driver refused a TMA map" if rc == _ENCODE_FAILED else ""
+        raise RuntimeError(f"{name} kernel launch failed (code {rc}{why})")
     launch_counts[name] += 1
 
 
@@ -545,6 +548,34 @@ def flash_dkv(q, k, v, do, lse, delta, causal: bool = True, mask=None):
     return dk, dv
 
 
+def wgmma_probe(q, k, v):
+    """The layout probe built beside K1 and K3 (no training or serving
+    path calls it): one warpgroup loads q [1, 64, 1, D] and k, v [1, BK,
+    1, D] bf16 (BK = 128 for D <= 64, 64 above) through K1's TMA maps,
+    computes s = q.k^T with both operands K-major and o = bf16(s).v with
+    v MN-major through K1's wgmma wrappers, and returns (s [64, BK], o
+    [64, D]) in f32. The cuda tests hold both against torch.matmul."""
+    D = q.shape[-1]
+    bk = 128 if D <= 64 else 64
+    if (tuple(q.shape) != (1, 64, 1, D) or tuple(k.shape) != (1, bk, 1, D)
+            or v.shape != k.shape):
+        raise ValueError(f"wgmma_probe: q [1, 64, 1, D] and k, v [1, {bk}, "
+                         f"1, D]; got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    _check_flash_launchable("wgmma_probe", (q,), ())
+    _check_flash_launchable("wgmma_probe", (k, v), ())
+    pd = 64 if D <= 64 else 128
+    s = torch.empty((64, bk), dtype=torch.float32, device=q.device)
+    o = torch.empty((64, pd), dtype=torch.float32, device=q.device)
+    rc = _entry("flash_wgmma_probe_launch", 5, 1, _FLASH_LIB,
+                scale=False)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), s.data_ptr(),
+        o.data_ptr(), D, torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"wgmma_probe kernel launch failed (code {rc})")
+    return s, o[:, :D]
+
+
 def flash_delta(out, do):
     """delta = rowsum(dO * O) in f32, as [B, H, S] (the backward's
     prologue; plain jnp in the reference, one reduction here)."""
@@ -590,4 +621,4 @@ __all__ = ["FlashAttention", "decode_attention", "decode_attention_ref",
            "flash_dkv_ref", "flash_dq", "flash_dq_ref", "flash_fwd",
            "flash_fwd_ref", "gather_pages", "launch_counts",
            "paged_decode_attention", "paged_decode_attention_ref",
-           "reset_launch_counts"]
+           "reset_launch_counts", "wgmma_probe"]
