@@ -10,24 +10,34 @@ Phases, each of which fails the run (non-zero exit, no result line):
 2. Build: every hand-written kernel of the serving and training paths,
    from the sources in ops/csrc/, one nvcc per source, all started
    together (K4 and K5 share one source, K1-K3 another); ptxas'
-   registers, shared memory and spills printed for each kernel.
+   registers, shared memory and spills printed for each kernel, and
+   K1-K3 (warp specialised, setmaxnreg 40/232) must read 168 registers
+   and no spills.
 3. Kernel K4 (decode attention) against its plain PyTorch version on
    the card, for the gpt2-medium (H=KV=16) and llama-1b (H=32, KV=8)
    head layouts, D=64, bf16 and int8 caches, B=8, L=1024, ragged
-   per-row cursors with the cache past every cursor poisoned. Times the
-   kernel, the plain version and one scaled_dot_product_attention call
-   (a yardstick only: the port never calls it) with L2 flushed between
-   launches, beside the least time the card could take (bytes bound).
+   per-row cursors with the cache past every cursor poisoned: edge
+   cursors, the split edges of the split length the wrapper picks
+   (length - 1, + 0, + 1, twice it, 1022, 1023, and a short row whose
+   later splits lie past its cursor), the serving depths and a long set
+   (896..1023). Times the kernel, the plain version and one
+   scaled_dot_product_attention call (a yardstick only: the port never
+   calls it) with L2 flushed between launches, beside the least time
+   the card could take (bytes bound), at the serving and long sets.
 4. Kernel K5 (paged decode attention) against its plain version and,
    bit for bit, against K4 on the same logical cache gathered
    contiguous: both head layouts, bf16 and int8, pages of 64 and 16
    positions, logical L=1024, the pool a seeded permutation with the
    trash page and one never-mapped page poisoned, two rows sharing their
    first pages, the cache past every cursor poisoned; cursors at the
-   edges (0, 1, 15, 16, 17, 63, 64, 65, 1022, 1023: one row each) and
-   the serving depths (B=8). Times K5, K4 on the gathered cache (the
-   cost of the indirection) and the plain version, beside the bytes
-   bound. No single PyTorch call reads a paged cache: library time null.
+   edges (0, 1, 15, 16, 17, 63, 64, 65, 1022, 1023: one row each), the
+   split edges, the serving depths and the long set (B=8), and the
+   paged serving phase's own shape (logical L=384, cursors in 160..319).
+   Times K5, K4 on the gathered cache (the cost of the indirection) and
+   the plain version, beside the bytes bound, at the serving, long and
+   paged serving sets; the kernels line's K5 row is the paged serving
+   set's, pages of 64. No single PyTorch call reads a paged cache:
+   library time null.
 5. Serving, contiguous: ServingEngine.run on gpt2-medium at full width
    and depth, bf16, decode_kernel=True, 8 slots, chunk buckets (32,
    128), 24 seeded requests (prompts of 32/64/128 tokens, 32 or 64 new
@@ -89,6 +99,7 @@ The line before the last is {"kernels": [...]}; the last line is
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -128,9 +139,9 @@ LAYOUTS = {"gpt2-medium": (16, 16), "llama-1b": (32, 8)}
 FLASH_REL = {"flash_fwd": 4e-3, "flash_dq": 4e-4, "flash_dkv": 4e-4}
 LSE_ATOL = 1e-3
 # the tile each kernel walks at D <= 64, the unit a skipped-tile fault
-# drops: K1's k-tiles of 128 keys (under 128-query CTAs), K2's k-tiles of
-# 64 (under 64-query CTAs), K3's q-tiles of 64 (under 128-key CTAs)
-FLASH_TILE = {"flash_fwd": 128, "flash_dq": 64, "flash_dkv": 64}
+# drops: K1's and K2's k-tiles of 128 keys (under 128-query CTAs), K3's
+# q-tiles of 64 (under 128-key CTAs)
+FLASH_TILE = {"flash_fwd": 128, "flash_dq": 128, "flash_dkv": 64}
 # (name, B, S, H, D, causal, mask): the training shape first
 FLASH_CASES = [
     ("gpt2-medium", 16, 512, 16, 64, True, None),
@@ -140,8 +151,8 @@ FLASH_CASES = [
     ("ragged", 16, 500, 16, 64, True, None),
     # one row past K1's 128-row q-tile and k-tile and K3's key tile
     ("tile-edge", 16, 129, 16, 64, True, None),
-    # D=128: two 64-column boxes a tile; K1 walks 64-key tiles, K2
-    # 32-key tiles, K3 32-query tiles
+    # D=128: two 64-column boxes a tile; K1 and K2 walk 64-key tiles, K3
+    # 32-query tiles
     ("unequal-tiles", 4, 512, 16, 128, True, None),
 ]
 # one step's gradients, flash against dense, same weights and batch: both
@@ -175,11 +186,11 @@ def device_line() -> str:
 # the kernel phase
 # ---------------------------------------------------------------------------
 
-def poisoned_cache(H, KV, cache, curs, gen, dev):
+def poisoned_cache(H, KV, cache, curs, gen, dev, L=L_KERNEL):
     """q [B,H,D] bf16 and a [B,KV,L,D] cache (bf16, or int8 + f32
     scales) filled up to each row's cursor and POISONed past it; B is
     the number of cursors."""
-    B, L, D = curs.shape[0], L_KERNEL, D_KERNEL
+    B, D = curs.shape[0], D_KERNEL
     q = torch.randn(B, H, D, generator=gen, device=dev).bfloat16()
     k = torch.randn(B, KV, L, D, generator=gen, device=dev)
     v = torch.randn(B, KV, L, D, generator=gen, device=dev)
@@ -216,7 +227,7 @@ def time_ms(fn, iters, flush) -> float:
     return float(np.median([e0.elapsed_time(e1) for e0, e1 in ev]))
 
 
-def bound(H, KV, cache, curs, page_size=None):
+def bound(H, KV, cache, curs, page_size=None, L=L_KERNEL):
     """(bound_ms, bound_by): the larger of the bytes K4 must move — the
     filled prefix of k and v (plus 8 bytes a position for int8 scales),
     q, the cursors and the output, each once — over HBM bandwidth, and
@@ -224,7 +235,7 @@ def bound(H, KV, cache, curs, page_size=None):
     over the bf16 tensor-core rate. With `page_size` (K5), plus the
     4-byte page-table entries the cursors reach."""
     B, D = curs.shape[0], D_KERNEL
-    last = (curs.long() + 1).clamp(max=L_KERNEL)
+    last = (curs.long() + 1).clamp(max=L)
     positions = int(last.sum())
     elt = 1 if cache == "int8" else 2
     nbytes = positions * KV * (2 * D * elt + (8 if cache == "int8" else 0))
@@ -237,20 +248,42 @@ def bound(H, KV, cache, curs, page_size=None):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+# the decode cursor sets that are timed beside their bound
+TIMED_CURSORS = ("serving", "long", "paged-serving")
+# the paged serving phase's logical cache length (its max_len)
+L_PAGED = 384
+
+
+def decode_cursor_sets(ops, KV, edges, dev):
+    """The decode phases' B=8 cursor sets for one head layout: `edges`;
+    the split edges of the split length the wrappers pick at this layout
+    (length - 1, + 0, + 1, twice the length, 1022, 1023, and a short row
+    whose later splits lie wholly past its cursor); the serving phase's
+    depths (prompt <= 128 + new <= 64); and a long set, 896..1023."""
+    rs = np.random.RandomState(0)
+    c = ops.decode_split_len(L_KERNEL, B_KERNEL * KV,
+                             torch.cuda.get_device_properties(
+                                 dev).multi_processor_count,
+                             ops.decode_tile(torch.bfloat16))
+    return {
+        "edges": edges,
+        "split-edges": [c - 1, c, c + 1, 2 * c - 1, 2 * c, 1022, 1023, 5],
+        "serving": sorted(rs.randint(32, 192, B_KERNEL).tolist()),
+        "long": sorted(np.random.RandomState(1).randint(
+            896, 1024, B_KERNEL).tolist()),
+    }
+
+
 def kernel_phase(k4, dev):
     """K4 vs its plain version at the main path's head layouts; returns
     (max_abs_err over every check, the timing row of the main path's
-    layout: gpt2-medium, bf16 cache)."""
+    layout: gpt2-medium, bf16 cache, serving cursors)."""
     gen = torch.Generator(device=dev).manual_seed(0)
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)  # 256 MB
-    rs = np.random.RandomState(0)
-    cursor_sets = {
-        "edges": [0, 1, 63, 64, 65, 511, 1022, 1023],
-        # the serving phase's depths: prompt (<= 128) + new (<= 64)
-        "serving": sorted(rs.randint(32, 192, B_KERNEL).tolist()),
-    }
     worst, main_row = 0.0, None
     for layout, (H, KV) in LAYOUTS.items():
+        cursor_sets = decode_cursor_sets(
+            k4, KV, [0, 1, 63, 64, 65, 511, 1022, 1023], dev)
         for cache in ("bf16", "int8"):
             for cname, cl in cursor_sets.items():
                 curs = torch.tensor(cl, dtype=torch.int32, device=dev)
@@ -267,9 +300,9 @@ def kernel_phase(k4, dev):
                       f"= {err} beyond atol {KERNEL_ATOL} rtol "
                       f"{KERNEL_RTOL}")
                 worst = max(worst, err)
-                if cname != "serving":
-                    log(f"  K4 {layout:11s} {cache:4s} {cname:7s} "
-                        f"max_abs_err {err:.3e}")
+                if cname not in TIMED_CURSORS:
+                    log(f"  K4 {layout:11s} {cache:4s} {cname:11s} "
+                        f"max_abs_err {err:.3e} cursors {cl}")
                     continue
                 ms = time_ms(lambda: k4.decode_attention(q, k, v, curs, ks,
                                                          vs), 50, flush)
@@ -285,11 +318,12 @@ def kernel_phase(k4, dev):
                             q4, k, v, attn_mask=mask, enable_gqa=H != KV),
                         50, flush)
                 bound_ms, bound_by = bound(H, KV, cache, curs)
-                log(f"  K4 {layout:11s} {cache:4s} {cname:7s} "
+                log(f"  K4 {layout:11s} {cache:4s} {cname:11s} "
                     f"max_abs_err {err:.3e}  kernel {ms:.4f} ms  plain "
                     f"{plain_ms:.4f} ms  sdpa {library_ms} ms  bound "
                     f"{bound_ms:.4f} ms ({bound_by}) cursors {cl}")
-                if layout == "gpt2-medium" and cache == "bf16":
+                if (layout == "gpt2-medium" and cache == "bf16"
+                        and cname == "serving"):
                     main_row = dict(ms=ms, plain_ms=plain_ms,
                                     bound_ms=bound_ms, bound_by=bound_by,
                                     library_ms=library_ms)
@@ -336,25 +370,29 @@ def paged_pool(k, v, ks, vs, curs, ps, gen):
 def paged_kernel_phase(ops, dev):
     """K5 vs its plain version and vs K4 on the gathered cache; returns
     (max_abs_err over every check, the timing row of the main path's
-    layout: gpt2-medium, bf16 pool, pages of 64)."""
+    shape: gpt2-medium, bf16 pool, pages of 64, the paged serving
+    phase's L and cursor depths)."""
     gen = torch.Generator(device=dev).manual_seed(1)
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)  # 256 MB
-    rs = np.random.RandomState(0)
-    cursor_sets = {
-        "edges": [0, 1, 15, 16, 17, 63, 64, 65, 1022, 1023],
-        "serving": sorted(rs.randint(32, 192, B_KERNEL).tolist()),
-    }
     worst, main_row = 0.0, None
     for layout, (H, KV) in LAYOUTS.items():
+        cursor_sets = decode_cursor_sets(
+            ops, KV, [0, 1, 15, 16, 17, 63, 64, 65, 1022, 1023], dev)
+        # the paged serving phase's own shape: L = max_len 384, a
+        # 128-token prefix plus 32..128 prompt and up to 64 new tokens
+        cursor_sets["paged-serving"] = sorted(np.random.RandomState(
+            2).randint(160, 320, B_KERNEL).tolist())
         for cache in ("bf16", "int8"):
             for ps in (64, 16):
                 for cname, cl in cursor_sets.items():
+                    L = L_PAGED if cname == "paged-serving" else L_KERNEL
                     curs = torch.tensor(cl, dtype=torch.int32, device=dev)
                     q, k, v, ks, vs = poisoned_cache(H, KV, cache, curs,
-                                                     gen, dev)
+                                                     gen, dev, L)
                     (kp, vp, ksp, vsp), pt, (k, v, ks, vs) = paged_pool(
                         k, v, ks, vs, curs, ps, gen)
-                    tag = f"K5 {layout:11s} {cache:4s} ps {ps:2d} {cname:7s}"
+                    tag = (f"K5 {layout:11s} {cache:4s} ps {ps:2d} "
+                           f"{cname:11s}")
                     out = ops.paged_decode_attention(q, kp, vp, curs, pt,
                                                      ksp, vsp)
                     torch.cuda.synchronize()
@@ -373,8 +411,9 @@ def paged_kernel_phase(ops, dev):
                           f"{tag}: K5 differs from K4 on the gathered cache "
                           f"by {diff}")
                     worst = max(worst, err)
-                    if cname != "serving":
-                        log(f"  {tag} max_abs_err {err:.3e}  == K4")
+                    if cname not in TIMED_CURSORS:
+                        log(f"  {tag} max_abs_err {err:.3e}  == K4 cursors "
+                            f"{cl}")
                         continue
                     ms = time_ms(lambda: ops.paged_decode_attention(
                         q, kp, vp, curs, pt, ksp, vsp), 50, flush)
@@ -382,13 +421,13 @@ def paged_kernel_phase(ops, dev):
                         q, k, v, curs, ks, vs), 50, flush)
                     plain_ms = time_ms(lambda: ops.paged_decode_attention_ref(
                         q, kp, vp, curs, pt, ksp, vsp), 10, flush)
-                    bound_ms, bound_by = bound(H, KV, cache, curs, ps)
+                    bound_ms, bound_by = bound(H, KV, cache, curs, ps, L)
                     log(f"  {tag} max_abs_err {err:.3e}  == K4  kernel "
                         f"{ms:.4f} ms  K4 on the gathered cache {k4_ms:.4f} "
                         f"ms  plain {plain_ms:.4f} ms  bound {bound_ms:.5f} "
                         f"ms ({bound_by}) cursors {cl}")
                     if (layout == "gpt2-medium" and cache == "bf16"
-                            and ps == 64):
+                            and ps == 64 and cname == "paged-serving"):
                         main_row = dict(ms=ms, plain_ms=plain_ms,
                                         bound_ms=bound_ms, bound_by=bound_by,
                                         library_ms=None)
@@ -970,6 +1009,34 @@ def profile_train(trainer, state, batch, step_ms, steps=2):
             f"a step self CPU, {e.count // steps:5d} calls a step  {e.key[:60]}")
 
 
+# the warp-specialised flash kernels: 384 threads at 168 registers fill
+# the register file, which setmaxnreg splits 40/232 between the producer
+# and the consumer warpgroups
+WS_KERNELS = ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel")
+WS_REGISTERS = 168
+
+
+def decode_types(args):
+    """The compute and cache dtypes at the head of a mangled decode
+    kernel's template arguments (bf16 is a named type, f32 `f`, int8
+    `a`; a repeat of bf16 is a substitution `S..._`); [] for the flash
+    kernels, whose only argument is an int."""
+    if not args.startswith("I") or args.startswith("ILi"):
+        return []
+    rest, out = args[1:], []
+    for _ in range(2):
+        if rest.startswith("13__nv_bfloat16"):
+            out.append("bf16")
+            rest = rest[len("13__nv_bfloat16"):]
+        elif rest[:1] in ("f", "a"):
+            out.append("f32" if rest[0] == "f" else "int8")
+            rest = rest[1:]
+        elif rest.startswith("S"):
+            out.append(out[-1] if out else "?")
+            rest = rest[rest.index("_") + 1:]
+    return out
+
+
 def ptxas_report(log_text):
     """[(kernel, "N registers, M bytes smem, spill stores/loads")] from
     `nvcc -Xptxas -v` output: each entry function's name (demangled down
@@ -984,9 +1051,9 @@ def ptxas_report(log_text):
                 if name in mangled:
                     args = mangled.split(name, 1)[1]
                     kernel = name + "<" + ",".join(
-                        x for x in args.replace("ILi", " ").replace(
-                            "ELi", " ").replace("EE", " ").split()
-                        if x.isdigit()) + ">"
+                        decode_types(args) + re.findall(r"Li(\d+)E", args)
+                        + [t for t in ("Contiguous", "Paged")
+                           if f"{t}Rows" in args]) + ">"
                     break
             else:
                 kernel = mangled[:60]
@@ -1021,8 +1088,19 @@ def main() -> int:
     _build.build(["decode_attention", "flash_attention"])
     log(f"[build] {time.perf_counter() - t0:.1f} s")
     for name, text in _build.build_logs.items():
+        seen = set()
         for kernel, report in ptxas_report(text):
             log(f"[build] {name}: {kernel}: {report}")
+            base = kernel.split("<")[0]
+            if base in WS_KERNELS:
+                seen.add(base)
+                check(report.startswith(f"{WS_REGISTERS} registers")
+                      and "0 bytes spill stores, 0 bytes spill loads"
+                      in report, f"{kernel}: ptxas reports {report}; the "
+                      f"40/232 setmaxnreg split needs {WS_REGISTERS} "
+                      f"registers and no spills")
+        check(name != "flash_attention" or seen == set(WS_KERNELS),
+              f"ptxas reported {sorted(seen)} of {WS_KERNELS}")
 
     t0 = time.perf_counter()
     log("[kernel] K4 decode_attention vs decode_attention_ref")

@@ -18,7 +18,10 @@ row's filled cache prefix:
                                  page page_table[b, t // ps], slot t % ps
 
 Query head h reads kv head h // (H // KV) — GQA is native, the repeated
-[B, H, L, D] cache never exists.
+[B, H, L, D] cache never exists. The kernel splits each row's positions
+over CTAs (`decode_split_len`, from L, B·KV and the SM count, never the
+cursors) and combines the splits in the same launch through a workspace
+cached per device (`decode_workspace`).
 
 Flash attention — the counterpart of `flash_attention` and of its three
 Pallas kernels, reached through the `_flash_core` custom_vjp: K1
@@ -40,7 +43,7 @@ Two implementations of each function live here:
 
 - the hand-written CUDA kernel (`csrc/decode_attention.cu`: K4 and K5,
   one kernel body over two address policies; `csrc/flash_attention.cu`:
-  K1 and K3 warp-specialised with TMA and wgmma, K2 with mma.sync),
+  K1-K3 warp-specialised with TMA and wgmma),
   built with `nvcc` for sm_90a at first use and bound with ctypes, which
   the wrapper launches for every CUDA tensor — or raises: a CUDA tensor
   never takes another path;
@@ -72,6 +75,14 @@ launch_counts: Dict[str, int] = {"decode_attention": 0,
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _MAX_GROUP = 8          # query heads per kv head the kernel holds
 _MAX_HEAD_DIM = 128
+#: the decode split aims at this many CTAs an SM over the whole cache,
+#: and gives a split at least DECODE_MIN_SPLIT_TILES tiles, or
+#: DECODE_TILES_PER_COVER tiles for each CTA an SM that the unsplit grid
+#: already has if that is more (chosen by `scripts/kernel_ab.py --sweep`
+#: on an H100, PERF.md)
+DECODE_CTAS_PER_SM = 2
+DECODE_MIN_SPLIT_TILES = 2
+DECODE_TILES_PER_COVER = 8
 
 
 def reset_launch_counts() -> None:
@@ -82,9 +93,106 @@ def reset_launch_counts() -> None:
 def decode_block_k(max_len: int, block_k: Optional[int] = None) -> int:
     """The k-tile of the reference's Pallas decode kernel for a cache of
     `max_len` positions. Kept for parity with the reference API; the
-    CUDA kernel picks its own tile (64 rows for bf16, 32 for f32) and
-    takes any cache length, so nothing in the port gates on it."""
+    CUDA kernel picks its own tile (`decode_tile`) and takes any cache
+    length, so nothing in the port gates on it."""
     return min(block_k or 128, max_len)
+
+
+_tile_rows: Dict[torch.dtype, int] = {}
+
+
+def decode_tile(cache_dtype: torch.dtype) -> int:
+    """Rows of one tile of the decode kernel for a cache dtype, as the
+    kernel library reports it (`decode_tile_rows` in
+    decode_attention.cu, which owns the number): a split length is a
+    multiple of it. Loads (and at first use builds) the library."""
+    if cache_dtype not in _tile_rows:
+        from ._build import load
+        fn = load("decode_attention").decode_tile_rows
+        fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+        rows = fn(_DTYPE_CODE.get(cache_dtype, -1))
+        if rows < 1:
+            raise TypeError(f"the decode kernel takes no {cache_dtype} "
+                            f"cache")
+        _tile_rows[cache_dtype] = rows
+    return _tile_rows[cache_dtype]
+
+
+def decode_split_len(L: int, bkv: int, sms: int, tile: int) -> int:
+    """The decode kernel's split length in positions, a multiple of
+    `tile`: positions [s * len, (s + 1) * len) of a row go to split s.
+    It depends on the logical cache length `L`, the (batch row, kv head)
+    pairs `bkv` and the card's SM count only, never on the cursors (they
+    may live on the device, and reading them would sync the host).
+
+    The split is there to fill the card: with few (row, kv head) pairs
+    one CTA each leaves most SMs idle and each walks its whole cache
+    alone. So the splits are as many as give DECODE_CTAS_PER_SM CTAs an
+    SM, but no split gets fewer than `decode_min_split_tiles` tiles:
+    the combine costs about as much as walking a few tiles, and the more
+    of the card the unsplit grid already covers, the less a split adds.
+    The tiles are shared out evenly. A row whose cursor ends early
+    leaves its later splits idle, and they exit at once."""
+    if min(L, bkv, sms, tile) < 1:
+        raise ValueError(f"decode_split_len: L={L}, bkv={bkv}, sms={sms}, "
+                         f"tile={tile} must all be >= 1")
+    n_tiles = -(-L // tile)
+    splits = max(1, min(-(-DECODE_CTAS_PER_SM * sms // bkv),
+                        n_tiles // decode_min_split_tiles(bkv, sms)))
+    return -(-n_tiles // splits) * tile
+
+
+def decode_min_split_tiles(bkv: int, sms: int) -> int:
+    """The fewest tiles `decode_split_len` gives a split when it splits:
+    DECODE_MIN_SPLIT_TILES, or DECODE_TILES_PER_COVER for each CTA an SM
+    the unsplit grid (`bkv` CTAs over `sms` SMs) already has."""
+    return max(DECODE_MIN_SPLIT_TILES,
+               -(-DECODE_TILES_PER_COVER * bkv // sms))
+
+
+_sm_counts: Dict[int, int] = {}
+_workspaces: Dict[int, tuple] = {}
+
+
+def _sm_count(device) -> int:
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if idx not in _sm_counts:
+        _sm_counts[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return _sm_counts[idx]
+
+
+def decode_workspace(device, B: int, KV: int, splits: int, G: int,
+                     D: int):
+    """(partials, tickets) of the decode kernel on `device`: f32 room for
+    B * KV * splits * G * (D + 2) values and B * KV int32 tickets, zero
+    at first. One pair a device, cached and grown only when a larger
+    shape arrives, so its addresses stay fixed from one decode step to
+    the next (what a CUDA graph of the step needs). The kernel leaves the
+    tickets at 0 after every launch; launches that share the workspace
+    run in order on one stream."""
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    n_part, n_tick = B * KV * splits * G * (D + 2), B * KV
+    ws = _workspaces.get(idx)
+    if ws is None or ws[0].numel() < n_part or ws[1].numel() < n_tick:
+        old = (0, 0) if ws is None else (ws[0].numel(), ws[1].numel())
+        ws = (torch.zeros(max(n_part, old[0]), dtype=torch.float32,
+                          device=device),
+              torch.zeros(max(n_tick, old[1]), dtype=torch.int32,
+                          device=device))
+        _workspaces[idx] = ws
+    return ws
+
+
+def _decode_plan(q, L, B, KV, H, D, cache_dtype):
+    """(chunk, partials, tickets) of one decode launch."""
+    tile = decode_tile(cache_dtype)
+    chunk = decode_split_len(L, B * KV, _sm_count(q.device), tile)
+    splits = -(-L // chunk)
+    ws, tickets = decode_workspace(q.device, B, KV, splits, H // KV, D)
+    return chunk, ws, tickets
 
 
 def _cursors(cache_index, B: int, device) -> torch.Tensor:
@@ -208,14 +316,15 @@ def _launch(q, k_cache, v_cache, cur, k_scale, v_scale):
                       [q, k_cache, v_cache, cur] + scales, k_cache.dtype,
                       quantized, scales, H, KV, D)
     out = torch.empty_like(q)
+    chunk, ws, tickets = _decode_plan(q, L, B, KV, H, D, k_cache.dtype)
     null = 0
-    rc = _entry("decode_attention_launch", 7, 7)(
+    rc = _entry("decode_attention_launch", 9, 8)(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         k_scale.data_ptr() if quantized else null,
         v_scale.data_ptr() if quantized else null,
-        cur.data_ptr(), out.data_ptr(), B, H, KV, L, D,
-        _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_cache.dtype],
-        1.0 / math.sqrt(D),
+        cur.data_ptr(), out.data_ptr(), ws.data_ptr(), tickets.data_ptr(),
+        B, H, KV, L, D, _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_cache.dtype],
+        chunk, 1.0 / math.sqrt(D),
         torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"decode_attention kernel launch failed "
@@ -305,15 +414,18 @@ def _launch_paged(q, k_pages, v_pages, cur, page_table, k_scale, v_scale):
                       [q, k_pages, v_pages, cur, page_table] + scales,
                       k_pages.dtype, quantized, scales, H, KV, D)
     out = torch.empty_like(q)
+    chunk, ws, tickets = _decode_plan(q, nblk * ps, B, KV, H, D,
+                                      k_pages.dtype)
     null = 0
-    rc = _entry("paged_decode_attention_launch", 8, 9)(
+    rc = _entry("paged_decode_attention_launch", 10, 10)(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         k_scale.data_ptr() if quantized else null,
         v_scale.data_ptr() if quantized else null,
         cur.data_ptr(), page_table.data_ptr(), out.data_ptr(),
+        ws.data_ptr(), tickets.data_ptr(),
         B, H, KV, NP, ps, nblk, D,
         _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_pages.dtype],
-        1.0 / math.sqrt(D),
+        chunk, 1.0 / math.sqrt(D),
         torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"paged_decode_attention kernel launch failed "
@@ -616,8 +728,11 @@ def flash_attention(q, k, v, causal: bool = True, mask=None):
     return FlashAttention.apply(q, k, v, mask, causal)
 
 
-__all__ = ["FlashAttention", "decode_attention", "decode_attention_ref",
-           "decode_block_k", "flash_attention", "flash_delta", "flash_dkv",
+__all__ = ["DECODE_CTAS_PER_SM", "DECODE_MIN_SPLIT_TILES",
+           "DECODE_TILES_PER_COVER", "FlashAttention", "decode_attention",
+           "decode_attention_ref", "decode_block_k",
+           "decode_min_split_tiles", "decode_split_len", "decode_tile",
+           "decode_workspace", "flash_attention", "flash_delta", "flash_dkv",
            "flash_dkv_ref", "flash_dq", "flash_dq_ref", "flash_fwd",
            "flash_fwd_ref", "gather_pages", "launch_counts",
            "paged_decode_attention", "paged_decode_attention_ref",

@@ -16,16 +16,15 @@
 //   mask                        [B, S] uint8 (1 = the key is attended),
 //                               or null
 //
-// Grid. K2: one CTA per (q-tile, head, batch row) that walks the
-// k-tiles. K1 and K3 are persistent: one CTA per SM walks work tiles
-// (K1: a 128-query tile of one head and batch row; K3: a 128-key tile),
-// the causal tiles with the most work first (K1's q-tiles last to first,
-// K3's key tiles first to last). Every output tile has one owner: no
+// Grid. All three are persistent: one CTA per SM walks work tiles (K1
+// and K2: a 128-query tile of one head and batch row; K3: a 128-key
+// tile), the causal tiles with the most work first (K1's and K2's
+// q-tiles last to first, K3's key tiles first to last). Every output tile has one owner: no
 // atomics, and the results repeat bit for bit from run to run. Causal
 // work skips the tiles wholly above the diagonal and masks per element
 // on the tiles that cross it.
 //
-// K1 and K3 are warp specialised (FA3's shape). A CTA is three
+// All three are warp specialised (FA3's shape). A CTA is three
 // warpgroups: one producer warp issues TMA loads into shared memory, and
 // two consumer warpgroups, 64 rows each, run the products with wgmma
 // (setmaxnreg moves registers from the producer to them). Tiles are read
@@ -42,21 +41,27 @@
 //   accumulator layout of S is the A-operand layout) and V read MN-major
 //   from the tile the TMA wrote. On a causal diagonal tile warpgroup 0
 //   computes only the 64 keys its rows can see.
+// - K2: as K1, with Q and dO (and their lse and delta rows, in static
+//   shared arrays) loaded once a work tile and K and V walked in k-tiles
+//   of BK keys (128 up to D=64, 64 above) through a ring of kDqStages.
+//   S = Q.K^T and dP = dO.V^T with K-major operands; p and ds on the
+//   accumulators; ds rounded to bf16 goes from the accumulator layout
+//   into A-operand registers and dQ += dS.K reads K MN-major from the
+//   same ring stage. On a causal diagonal tile warpgroup 0 computes only
+//   the 64 keys its rows can see. dq stays a kernel of its own (not
+//   FA3's atomic f32 dq inside the dk/dv kernel): one owner per output
+//   tile keeps its sums in one order.
 // - K3: each work tile's 128 keys of K and V once, then Q and dO tiles of
 //   BQ queries (64 up to D=64, 32 above) and their lse/delta through a
 //   ring of kDkvStages. S^T = K.Q^T and dP^T = V.dO^T with K-major
 //   operands; p and ds on the accumulators; dV += P^T.dO (three products:
 //   the hi/mid/lo split of p) and dK += dS^T.Q with dO and Q read MN-major
 //   from the same tiles.
-// Neither kernel keeps a transposed copy of any tile. Their element-wise
+// No kernel keeps a transposed copy of any tile. Their element-wise
 // work is written without branches or conversions where it can be: the
 // exponentials are SFU ex2 (K1 queues on the SFU: 16 ex2 a clock per SM,
 // as many cycles as its products take on the tensor cores), masks are
 // selects on warp-uniform paths, and p's split is integer bit work.
-//
-// K2 keeps PR 3's design: four warps of 16 rows, mma.sync m16n8k16 with
-// hand-gathered fragments, tiles staged synchronously through shared
-// memory (k^T staged transposed).
 //
 // What bounds them on an H100: bytes. At the training shape (B=16,
 // S=512, H=16, D=64, causal) a kernel moves 68-102 MB and does 9-17
@@ -84,8 +89,8 @@
 //   p is split into three bf16 terms (hi + mid + lo carry p's 24-bit
 //   significand) and each goes through the tensor cores; ds is rounded
 //   to bf16 before ds^T.q;
-// - K1 and K3 take e^x as 2^(x log2 e) on the SFU (relative error about
-//   2^-22), K2 as expf.
+// - all three take e^x as 2^(x log2 e) on the SFU (relative error about
+//   2^-22).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -97,9 +102,6 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kThreads = 128;       // K2: four warps, 16 rows each
-constexpr int kRowsPerWarp = 16;
-constexpr int kPad = 8;             // bf16 padding of a staged row
 constexpr float kNegInf = -1e30f;
 
 struct Args {
@@ -120,46 +122,14 @@ struct Args {
   float scale;
 };
 
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
 __device__ __forceinline__ uint32_t pack(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// A operand (16 x 16) at (r0, c0) of a row-major shared tile X[r][c]
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* X,
-                                       int ld, int r0, int c0, int lane) {
-  const bf16* p = X + (r0 + (lane >> 2)) * ld + c0 + 2 * (lane & 3);
-  a[0] = ld32(p);
-  a[1] = ld32(p + 8 * ld);
-  a[2] = ld32(p + 8);
-  a[3] = ld32(p + 8 * ld + 8);
-}
-
-// B operand (k16 x n8) at (n0, k0) of a shared tile Y[n][k], k contiguous
-__device__ __forceinline__ void load_b(uint32_t& b0, uint32_t& b1,
-                                       const bf16* Y, int ld, int n0, int k0,
-                                       int lane) {
-  const bf16* p = Y + (n0 + (lane >> 2)) * ld + k0 + 2 * (lane & 3);
-  b0 = ld32(p);
-  b1 = ld32(p + 8);
-}
-
 // The A operand of columns [16kk, 16kk + 16) of a 16-row accumulator
 // tile c[n][4] (n-tiles of 8 columns): accumulator and A layouts match,
-// for mma.sync and, warp by warp, for wgmma.
+// warp by warp, for wgmma.
 template <int N>
 __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4],
                                          const float (&c)[N][4], int kk) {
@@ -174,41 +144,8 @@ __device__ __forceinline__ int64_t row_offset(int b, int s, int h, int S,
   return ((static_cast<int64_t>(b) * S + s) * H + h) * D;
 }
 
-// Rows [r0, r0 + R) of head h of batch row b of a [B, S, H, D] tensor
-// into X[R][D + kPad] and, when Xt is given, transposed into
-// Xt[D][R + kPad]; rows at or past S are zero.
-template <int D, int R>
-__device__ __forceinline__ void stage(bf16* X, bf16* Xt, const bf16* src,
-                                      int b, int h, int r0, int S, int H) {
-  constexpr int kVec = D / 8;
-  constexpr int ld = D + kPad;
-  constexpr int ldt = R + kPad;
-  for (int i = threadIdx.x; i < R * kVec; i += kThreads) {
-    const int r = i / kVec;
-    const int c = (i - r * kVec) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < S)
-      val = *reinterpret_cast<const uint4*>(
-          src + row_offset(b, r0 + r, h, S, H, D) + c);
-    if (X != nullptr) *reinterpret_cast<uint4*>(X + r * ld + c) = val;
-    if (Xt != nullptr) {
-      const bf16* e = reinterpret_cast<const bf16*>(&val);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) Xt[(c + j) * ldt + r] = e[j];
-    }
-  }
-}
-
-// K2's tiles by head dim: a CTA owns kFwdQ query rows and walks k-tiles
-// of kFwdK keys.
-template <int D>
-struct Tiles {
-  static constexpr int kFwdQ = 64;
-  static constexpr int kFwdK = D <= 64 ? 64 : 32;
-};
-
 // ---------------------------------------------------------------------------
-// Hopper building blocks of K1 and K3: mbarriers, TMA, wgmma
+// Hopper building blocks of K1-K3: mbarriers, TMA, wgmma
 // ---------------------------------------------------------------------------
 
 constexpr int kWarpgroup = 128;
@@ -216,8 +153,10 @@ constexpr int kWsThreads = 3 * kWarpgroup;   // producer + two consumers
 // 40 x 128 + 232 x 256 = 168 x 384: the register file one CTA holds
 constexpr int kProducerRegs = 40;
 constexpr int kConsumerRegs = 232;
-// the rings of walked tiles: K1's k-tiles, K3's q-tiles (measured best)
+// the rings of walked tiles: K1's and K2's k-tiles, K3's q-tiles
+// (measured best)
 constexpr int kFwdStages = 2;
+constexpr int kDqStages = 2;
 constexpr int kDkvStages = 3;
 constexpr int kBox = 64;                     // bf16 columns of a 128-byte row
 constexpr int kRowBytes = 128;
@@ -225,13 +164,15 @@ constexpr int kRowBytes = 128;
 // error the caller sees) rather than hang the card
 constexpr long long kHangCycles = 1LL << 34;
 
-// K1: 128 query rows a CTA, k-tiles of BK keys; K3: 128 keys a CTA,
-// q-tiles of BQ queries. PD is the head dim padded to whole 64-column
-// boxes.
+// K1 and K2: 128 query rows a CTA, k-tiles of BK keys; K3: 128 keys a
+// CTA, q-tiles of BQ queries. PD is the head dim padded to whole
+// 64-column boxes.
 template <int PD>
 struct WsTiles {
   static constexpr int kFwdQ = 128;
   static constexpr int kFwdK = PD == 64 ? 128 : 64;
+  static constexpr int kDqQ = 128;
+  static constexpr int kDqK = PD == 64 ? 128 : 64;
   static constexpr int kDkvK = 128;
   static constexpr int kDkvQ = PD == 64 ? 64 : 32;
 };
@@ -875,113 +816,266 @@ __global__ void __launch_bounds__(kWsThreads, 1)
 // K2: dq
 // ---------------------------------------------------------------------------
 
-template <int D, int BQ, int BK>
-__global__ void __launch_bounds__(kThreads) flash_dq_kernel(Args a) {
-  static_assert(BQ == 4 * kRowsPerWarp, "four warps of 16 rows");
-  constexpr int ld = D + kPad;
-  constexpr int ldt = BK + kPad;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem);          // [BQ][ld]
-  bf16* do_s = q_s + BQ * ld;                         // [BQ][ld]
-  bf16* k_s = do_s + BQ * ld;                         // [BK][ld]
-  bf16* v_s = k_s + BK * ld;                          // [BK][ld]
-  bf16* kt_s = v_s + BK * ld;                         // [D][ldt]
-  uint8_t* kv_s = reinterpret_cast<uint8_t*>(kt_s + D * ldt);   // [BK]
-
-  const int b = blockIdx.z, h = blockIdx.y;
-  const int q0 = blockIdx.x * BQ;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int t = lane & 3;
-  const int S = a.S, H = a.H;
-  const int row0 = q0 + warp * kRowsPerWarp + (lane >> 2);
-  const int warp_last = q0 + warp * kRowsPerWarp + kRowsPerWarp - 1;
-
-  stage<D, BQ>(q_s, nullptr, a.q, b, h, q0, S, H);
-  stage<D, BQ>(do_s, nullptr, a.dout, b, h, q0, S, H);
-  __syncthreads();
-  uint32_t qf[D / 16][4], df[D / 16][4];
+// K2's p and ds on one warpgroup's accumulators s = q.k^T and dp =
+// do.v^T of the k-tile at k0 (its first NC keys), with lse2 = lse
+// log2(e): p = 2^(s scale log2(e) - lse2), one FFMA and ex2, re-masked
+// per element only on a tile that crosses the diagonal of the warp's
+// rows, the end of S or a key mask (warp-uniform branches, selects
+// inside); a score at or under half the -1e30 mask value gives p = 0,
+// as in the reference. Leaves ds = p (dp - delta) scale in s.
+template <int NC>
+__device__ __forceinline__ void dq_ds(float (&s)[NC / 8][4],
+                                      const float (&dp)[NC / 8][4],
+                                      const float (&lse2)[2],
+                                      const float (&delta)[2],
+                                      const uint8_t* mask_t, const Args& a,
+                                      int t, int k0, int row0,
+                                      int warp_first) {
+  const float c2 = a.scale * kLog2e;
+  const float floor_s = 0.5f * kNegInf / a.scale;   // s scale > -5e29
+  const bool raw = k0 + NC <= a.S && a.mask == nullptr;
+  if (raw && !(a.causal && k0 + NC - 1 > warp_first)) {
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    load_a(qf[kk], q_s, ld, warp * kRowsPerWarp, kk * 16, lane);
-    load_a(df[kk], do_s, ld, warp * kRowsPerWarp, kk * 16, lane);
-  }
-  float lse_r[2], delta_r[2];
+    for (int n = 0; n < NC / 8; ++n)
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = row0 + i * 8;
-    const int64_t idx = (static_cast<int64_t>(b) * H + h) * S + row;
-    lse_r[i] = row < S ? a.lse[idx] : 0.f;
-    delta_r[i] = row < S ? a.delta[idx] : 0.f;
-  }
-
-  float dq[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) dq[n][j] = 0.f;
-
-  const int k_end = a.causal ? min(S, q0 + BQ) : S;
-  for (int k0 = 0; k0 < k_end; k0 += BK) {
-    __syncthreads();
-    stage<D, BK>(k_s, kt_s, a.k, b, h, k0, S, H);
-    stage<D, BK>(v_s, nullptr, a.v, b, h, k0, S, H);
-    if (a.mask != nullptr)
-      for (int i = threadIdx.x; i < BK; i += kThreads)
-        kv_s[i] = (k0 + i < S) ? a.mask[static_cast<int64_t>(b) * S + k0 + i]
-                               : 0;
-    __syncthreads();
-    if (a.causal && k0 > warp_last) continue;
-
-    float s[BK / 8][4], dp[BK / 8][4];
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[n][j] = dp[n][j] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-#pragma unroll
-      for (int n = 0; n < BK / 8; ++n) {
-        uint32_t b0, b1;
-        load_b(b0, b1, k_s, ld, n * 8, kk * 16, lane);
-        mma(s[n], qf[kk], b0, b1);
-        load_b(b0, b1, v_s, ld, n * 8, kk * 16, lane);
-        mma(dp[n], df[kk], b0, b1);
+      for (int j = 0; j < 4; ++j) {
+        const float e = ex2(fmaf(s[n][j], c2, -lse2[j >> 1]));
+        const float p = s[n][j] > floor_s ? e : 0.f;
+        s[n][j] = p * (dp[n][j] - delta[j >> 1]) * a.scale;
       }
+  } else {
+    uint32_t keep = ~0u;             // bit 2n + e: key k0 + 8n + 2t + e
+    if (a.mask != nullptr) {
+      keep = 0;
 #pragma unroll
-    for (int n = 0; n < BK / 8; ++n)
+      for (int n = 0; n < NC / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          keep |= static_cast<uint32_t>(mask_t[n * 8 + 2 * t + e] != 0)
+                  << (2 * n + e);
+    }
+#pragma unroll
+    for (int n = 0; n < NC / 8; ++n)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int col = k0 + n * 8 + 2 * t + (j & 1);
         const int row = row0 + (j >> 1) * 8;
-        const float x = s[n][j] * a.scale;
-        const bool valid = col < S && row < S && x > 0.5f * kNegInf &&
-                           !(a.causal && col > row) &&
-                           (a.mask == nullptr || kv_s[col - k0] != 0);
-        const float p = valid ? expf(x - lse_r[j >> 1]) : 0.f;
-        s[n][j] = p * (dp[n][j] - delta_r[j >> 1]) * a.scale;     // ds
+        // bitwise, not short-circuit: selects, no branches
+        const bool valid = (s[n][j] > floor_s) & (col < a.S) &
+                           ((keep >> (2 * n + (j & 1))) & 1u) &
+                           !(a.causal & (col > row));
+        const float e = ex2(fmaf(s[n][j], c2, -lse2[j >> 1]));
+        const float p = valid ? e : 0.f;
+        s[n][j] = p * (dp[n][j] - delta[j >> 1]) * a.scale;
       }
+  }
+}
+
+// One k-tile of K2 for one consumer warpgroup: s = q.k^T and dp = do.v^T
+// over the tile's first NC keys, ds, and dq += ds.k with k read MN-major
+// from the same tile. Releases Q and dO (q_empty) after the work tile's
+// last score products.
+template <int NC, int PD, int BQ, int BK>
+__device__ __forceinline__ void dq_tile(
+    float (&dq)[PD / 8][4], const float (&lse2)[2], const float (&delta)[2],
+    const unsigned char* q_s, const unsigned char* do_s,
+    const unsigned char* kt, const unsigned char* vt, const uint8_t* mask_t,
+    uint64_t* q_empty, const Args& a, int c, int lane, int k0, int row0,
+    int warp_first, bool last) {
+  float s[NC / 8][4], dp[NC / 8][4];
+  zero(s);
+  zero(dp);
+  wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t da[4];
-      acc_to_a(da, s, kk);                 // ds rounded to bf16 (k's dtype)
+  for (int kk = 0; kk < PD / 16; ++kk) {
+    wgmma_ss(s, kmajor(q_s, BQ, 64 * c, kk), kmajor(kt, BK, 0, kk), 1);
+    wgmma_ss(dp, kmajor(do_s, BQ, 64 * c, kk), kmajor(vt, BK, 0, kk), 1);
+  }
+  wgmma_commit();
+  wgmma_wait_all();
+  pin(s);
+  pin(dp);
+  if (last) warp_arrive(q_empty, lane);
+  dq_ds<NC>(s, dp, lse2, delta, mask_t, a, lane & 3, k0, row0, warp_first);
+  uint32_t da[NC / 16][4];
 #pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        uint32_t b0, b1;
-        load_b(b0, b1, kt_s, ldt, n * 8, kk * 16, lane);
-        mma(dq[n], da, b0, b1);
+  for (int kk = 0; kk < NC / 16; ++kk)
+    acc_to_a(da[kk], s, kk);             // ds rounded to bf16 (k's dtype)
+  pin(da);
+  pin(dq);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < NC / 16; ++kk)
+    wgmma_rs(dq, da[kk], mnmajor(kt, BK, kk), 1);
+  wgmma_commit();
+  wgmma_wait_all();
+  pin(dq);
+  pin(da);
+}
+
+struct DqParams {
+  CUtensorMap q;      // boxes of kDqQ rows
+  CUtensorMap dout;   // boxes of kDqQ rows
+  CUtensorMap k;      // boxes of kDqK rows
+  CUtensorMap v;
+  Args a;
+};
+
+template <int PD>
+__global__ void __launch_bounds__(kWsThreads, 1)
+    flash_dq_kernel(const __grid_constant__ DqParams p) {
+  constexpr int BQ = WsTiles<PD>::kDqQ, BK = WsTiles<PD>::kDqK;
+  constexpr int kQBytes = BQ * PD * 2, kKBytes = BK * PD * 2;
+  constexpr int kStages = kDqStages;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t q_full, q_empty, kv_full[kStages],
+      empty[kStages];
+  __shared__ uint8_t mask_s[kStages * BK];             // [kStages][BK]
+  __shared__ float lse_s[BQ], delta_s[BQ];
+  unsigned char* q_s = align_1k(smem_raw);             // [BQ][PD]
+  unsigned char* do_s = q_s + kQBytes;                 // [BQ][PD]
+  unsigned char* k_s = do_s + kQBytes;                 // [kStages][BK][PD]
+  unsigned char* v_s = k_s + kStages * kKBytes;        // [kStages][BK][PD]
+
+  const Args& a = p.a;
+  const int S = a.S;
+  const int n_q = (S + BQ - 1) / BQ;
+  const int n_work = n_q * a.B * a.H;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&q_full, 1);
+    mbar_init(&q_empty, 8);                            // the consumer warps
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&kv_full[s], 1);
+      mbar_init(&empty[s], 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / kWarpgroup;
+  if (wg == 0) {
+    // producer: one warp loads each work tile's Q, dO, lse and delta,
+    // then walks its k-tiles through the ring; `it` counts the ring's
+    // loads across work tiles
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      if (lane == 0) {
+        prefetch_map(&p.q);
+        prefetch_map(&p.dout);
+        prefetch_map(&p.k);
+        prefetch_map(&p.v);
+      }
+      int it = 0;
+      for (int w = blockIdx.x, nw = 0; w < n_work; w += gridDim.x, ++nw) {
+        const Work wk = work_tile(w, a.H, a.B, n_q, true);
+        const int q0 = wk.tile * BQ;
+        const int n_k = ((a.causal ? min(S, q0 + BQ) : S) + BK - 1) / BK;
+        const int64_t stat = (static_cast<int64_t>(wk.b) * a.H + wk.h) * S;
+        mbar_wait(&q_empty, (nw & 1) ^ 1);
+        for (int i = lane; i < BQ; i += 32) {
+          const bool in = q0 + i < S;
+          lse_s[i] = in ? a.lse[stat + q0 + i] : 0.f;
+          delta_s[i] = in ? a.delta[stat + q0 + i] : 0.f;
+        }
+        __syncwarp();
+        if (lane == 0) {
+          mbar_expect_tx(&q_full, 2 * kQBytes);
+          load_tile<PD>(q_s, BQ, &p.q, &q_full, wk.h, q0, wk.b);
+          load_tile<PD>(do_s, BQ, &p.dout, &q_full, wk.h, q0, wk.b);
+        }
+        for (int ti = 0; ti < n_k; ++ti, ++it) {
+          const int st = it % kStages;
+          const uint32_t ph = (it / kStages) & 1;
+          const int k0 = ti * BK;
+          mbar_wait(&empty[st], ph ^ 1);
+          if (a.mask != nullptr) {
+            for (int i = lane; i < BK; i += 32)
+              mask_s[st * BK + i] =
+                  k0 + i < S
+                      ? a.mask[static_cast<int64_t>(wk.b) * S + k0 + i]
+                      : 0;
+            __syncwarp();
+          }
+          if (lane == 0) {
+            mbar_expect_tx(&kv_full[st], 2 * kKBytes);
+            load_tile<PD>(k_s + st * kKBytes, BK, &p.k, &kv_full[st], wk.h,
+                          k0, wk.b);
+            load_tile<PD>(v_s + st * kKBytes, BK, &p.v, &kv_full[st], wk.h,
+                          k0, wk.b);
+          }
+        }
       }
     }
-  }
+  } else {
+    // consumers: warpgroup c owns query rows q0 + 64c .. q0 + 64c + 63 of
+    // each work tile
+    setmaxnreg_inc<kConsumerRegs>();
+    const int c = wg - 1;
+    const int tid = threadIdx.x - wg * kWarpgroup;
+    const int warp = tid >> 5, lane = tid & 31, t = lane & 3;
+    int it = 0;
+    for (int w = blockIdx.x, nw = 0; w < n_work; w += gridDim.x, ++nw) {
+      const Work wk = work_tile(w, a.H, a.B, n_q, true);
+      const int h = wk.h, b = wk.b, q0 = wk.tile * BQ;
+      const int n_k = ((a.causal ? min(S, q0 + BQ) : S) + BK - 1) / BK;
+      const int local0 = 64 * c + 16 * warp + (lane >> 2);     // and + 8
+      const int row0 = q0 + local0;
+      const int wg_last = q0 + 64 * c + 63;
+      const int warp_first = q0 + 64 * c + 16 * warp;
+
+      float dq[PD / 8][4];
+#pragma unroll
+      for (int n8 = 0; n8 < PD / 8; ++n8)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) dq[n8][j] = 0.f;
+
+      // lse and delta are read before this work tile's first product, so
+      // before q_empty lets the producer write the next tile's
+      mbar_wait(&q_full, nw & 1);
+      float lse2[2], delta[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        lse2[i] = lse_s[local0 + 8 * i] * kLog2e;
+        delta[i] = delta_s[local0 + 8 * i];
+      }
+      for (int ti = 0; ti < n_k; ++ti, ++it) {
+        const int st = it % kStages;
+        const uint32_t ph = (it / kStages) & 1;
+        const int k0 = ti * BK;
+        mbar_wait(&kv_full[st], ph);
+        const unsigned char* kt = k_s + st * kKBytes;
+        const unsigned char* vt = v_s + st * kKBytes;
+        const bool last = ti == n_k - 1;
+        if (a.causal && k0 > wg_last) {   // above every row of this warpgroup
+          if (last) warp_arrive(&q_empty, lane);
+        } else if (BK == 128 && a.causal && k0 + 64 > wg_last) {
+          // causal diagonal tile of warpgroup 0: its rows see only the
+          // tile's first 64 keys
+          dq_tile<64, PD, BQ, BK>(dq, lse2, delta, q_s, do_s, kt, vt,
+                                  mask_s + st * BK, &q_empty, a, c, lane, k0,
+                                  row0, warp_first, last);
+        } else {
+          dq_tile<BK, PD, BQ, BK>(dq, lse2, delta, q_s, do_s, kt, vt,
+                                  mask_s + st * BK, &q_empty, a, c, lane, k0,
+                                  row0, warp_first, last);
+        }
+        warp_arrive(&empty[st], lane);
+      }
 
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = row0 + i * 8;
-    if (row >= S) continue;
-    bf16* drow = a.dq + row_offset(b, row, h, S, H, D);
+      for (int i = 0; i < 2; ++i) {
+        const int row = row0 + i * 8;
+        if (row >= S) continue;
+        bf16* drow = a.dq + row_offset(b, row, h, S, a.H, a.D);
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<uint32_t*>(drow + n * 8 + 2 * t) =
-          pack(dq[n][2 * i], dq[n][2 * i + 1]);
+        for (int n8 = 0; n8 < PD / 8; ++n8)
+          if (n8 * 8 < a.D)
+            *reinterpret_cast<uint32_t*>(drow + n8 * 8 + 2 * t) =
+                pack(dq[n8][2 * i], dq[n8][2 * i + 1]);
+      }
+    }
   }
 }
 
@@ -1414,13 +1508,20 @@ int fwd(const Args& a, cudaStream_t s) {
   return launch(flash_fwd_kernel<PD>, grid, kWsThreads, smem, s, p);
 }
 
-template <int D>
+template <int PD>
 int dq(const Args& a, cudaStream_t s) {
-  constexpr int BQ = Tiles<D>::kFwdQ, BK = Tiles<D>::kFwdK;
-  const size_t smem = (2 * BQ + 2 * BK) * (D + kPad) * sizeof(bf16) +
-                      D * (BK + kPad) * sizeof(bf16) + BK;
-  return launch(flash_dq_kernel<D, BQ, BK>,
-                dim3((a.S + BQ - 1) / BQ, a.H, a.B), kThreads, smem, s, a);
+  constexpr int BQ = WsTiles<PD>::kDqQ, BK = WsTiles<PD>::kDqK;
+  DqParams p{};
+  p.a = a;
+  if (!encode_map(&p.q, a.q, a, BQ) || !encode_map(&p.dout, a.dout, a, BQ) ||
+      !encode_map(&p.k, a.k, a, BK) || !encode_map(&p.v, a.v, a, BK))
+    return kEncodeFailed;
+  const size_t smem = 1024 + 2 * BQ * PD * 2 + kDqStages * 2 * BK * PD * 2;
+  dim3 grid;
+  const int e = persistent_grid(
+      static_cast<int64_t>((a.S + BQ - 1) / BQ) * a.B * a.H, &grid);
+  if (e != 0) return e;
+  return launch(flash_dq_kernel<PD>, grid, kWsThreads, smem, s, p);
 }
 
 template <int PD>
@@ -1454,20 +1555,7 @@ int probe(const Args& a, float* s_out, float* o_out, cudaStream_t s) {
                 s_out, o_out);
 }
 
-// K2: one instantiation per head dim (multiples of 16 up to 128); K1 and
-// K3: one per padded width (64 up to D=64, 128 above)
-#define FLASH_DISPATCH(fn)                                 \
-  switch (D) {                                               \
-    case 16: return fn<16>(a, s);                            \
-    case 32: return fn<32>(a, s);                            \
-    case 48: return fn<48>(a, s);                            \
-    case 64: return fn<64>(a, s);                            \
-    case 80: return fn<80>(a, s);                            \
-    case 96: return fn<96>(a, s);                            \
-    case 112: return fn<112>(a, s);                          \
-    case 128: return fn<128>(a, s);                          \
-    default: return -1;                                      \
-  }
+// one instantiation per padded width: 64 up to D=64, 128 above
 #define WS_DISPATCH(fn) \
   return D <= 64 ? fn<64>(a, s) : fn<128>(a, s);
 
@@ -1528,7 +1616,7 @@ extern "C" int flash_dq_launch(const void* q, const void* k, const void* v,
   a.mask = static_cast<const uint8_t*>(mask);
   a.dq = static_cast<bf16*>(dq_out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  FLASH_DISPATCH(dq)
+  WS_DISPATCH(dq)
 }
 
 extern "C" int flash_dkv_launch(const void* q, const void* k, const void* v,

@@ -236,6 +236,133 @@ def test_paged_refusals_on_card(cuda_device):
     assert torch.isfinite(out[0]).all() and torch.isnan(out[1]).all()
 
 
+def _split_len(dev, B, KV, L, cache_dtype):
+    """The split length the wrappers pass the decode kernel."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return port.decode_split_len(L, B * KV, sms,
+                                 port.decode_tile(cache_dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [1, 2, 4, 8])
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_decode_split_edges_on_card(cuda_device, G, quantized, dtype):
+    """K4 and K5 at cursors on the split boundaries (split length - 1,
+    + 0 and + 1, twice that), at 1022 and 1023, and short rows whose
+    later splits lie wholly past their cursor, for every G the kernel is
+    built for: each against its plain version, K5 bit for bit against
+    K4 (pages of 16), and each bit for bit across two launches."""
+    B, KV, L, D = 8, 2, 1024, 64
+    H = KV * G
+    cache_dtype = torch.int8 if quantized else dtype
+    c = _split_len(cuda_device, B, KV, L, cache_dtype)
+    assert c < L, "the split policy should split this cache"
+    curs = [c - 1, c, c + 1, 2 * c - 1, 2 * c, 1022, 1023, 5]
+    q, kp, vp, ksp, vsp, table, (k, v, ks, vs) = paged_inputs(
+        B, H, KV, D, 16, L // 16, curs, quantized, seed=G, share=True)
+    args = _on_card(cuda_device, dtype, q, k, v, np.asarray(curs, np.int32),
+                    ks, vs)
+    out = port.decode_attention(*args)
+    torch.cuda.synchronize()
+    ref = port.decode_attention_ref(*args)
+    if dtype == torch.bfloat16:
+        torch.testing.assert_close(out.float(), ref.float(), atol=2e-2,
+                                   rtol=2e-2)
+    else:
+        torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
+    assert torch.equal(out, port.decode_attention(*args))
+    pargs = _on_card(cuda_device, dtype, q, kp, vp,
+                     np.asarray(curs, np.int32), ksp, vsp)
+    pt = torch.from_numpy(table).to(cuda_device)
+    paged = port.paged_decode_attention(*pargs[:4], pt, *pargs[4:])
+    assert torch.equal(paged, out)
+    assert torch.equal(paged, port.paged_decode_attention(*pargs[:4], pt,
+                                                          *pargs[4:]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ps", [64, 16])
+@pytest.mark.parametrize("quantized", [False, True])
+def test_paged_equals_contiguous_long_cursors_on_card(cuda_device, ps,
+                                                      quantized):
+    """K5 bit for bit against K4 on the gathered cache at long cursors
+    (896..1023, every split of every row live), gpt2-medium's head
+    layout, and both against the plain version."""
+    B, H, KV, D, L = 8, 16, 16, 64, 1024
+    curs = np.random.RandomState(ps).randint(896, 1024, B).tolist()
+    q, kp, vp, ksp, vsp, table, (k, v, ks, vs) = paged_inputs(
+        B, H, KV, D, ps, L // ps, curs, quantized, seed=ps, share=True)
+    args = _on_card(cuda_device, torch.bfloat16, q, k, v,
+                    np.asarray(curs, np.int32), ks, vs)
+    out = port.decode_attention(*args)
+    torch.testing.assert_close(out.float(),
+                               port.decode_attention_ref(*args).float(),
+                               atol=2e-2, rtol=2e-2)
+    pargs = _on_card(cuda_device, torch.bfloat16, q, kp, vp,
+                     np.asarray(curs, np.int32), ksp, vsp)
+    pt = torch.from_numpy(table).to(cuda_device)
+    assert torch.equal(port.paged_decode_attention(*pargs[:4], pt,
+                                                   *pargs[4:]), out)
+
+
+@pytest.mark.cuda
+def test_decode_workspace_regrows_on_card(cuda_device):
+    """The cached workspace gives the same bits for one call before and
+    after a smaller and then a larger shape (which grows it); its
+    tickets are left at 0 after every launch."""
+    def run(B, KV, L, seed):
+        curs = np.random.RandomState(seed).randint(0, L, B).tolist()
+        q, k, v, _, _ = poisoned_inputs(B, KV * 2, KV, L, 64, curs, False,
+                                        seed=seed)
+        return port.decode_attention(*_on_card(
+            cuda_device, torch.bfloat16, q, k, v,
+            np.asarray(curs, np.int32), None, None))
+    first = run(4, 4, 1024, 0)
+    run(2, 2, 256, 1)
+    run(16, 8, 2048, 2)
+    again = run(4, 4, 1024, 0)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+    _, tickets = port.decode_workspace(cuda_device, 1, 1, 1, 1, 16)
+    assert not tickets.any()
+
+
+@pytest.mark.parametrize("L,bkv,sms,tile,chunk", [
+    (1024, 128, 132, 64, 512),   # gpt2-medium heads, B=8: contiguous serving
+    (1024, 64, 132, 64, 256),    # llama-1b heads, B=8
+    (384, 128, 132, 64, 384),    # the paged serving phase's max_len: no split
+    (1024, 16, 132, 32, 64),     # f32 cache tiles
+    (4096, 8, 132, 64, 128),     # one llama-1b row, a long cache
+    (64, 2048, 132, 64, 64),     # more rows than the card has SMs
+    (1, 1, 132, 64, 64),
+    (100, 3, 7, 32, 128),
+])
+def test_decode_split_len_policy(L, bkv, sms, tile, chunk):
+    """The split policy: whole tiles that cover [0, L) with no empty
+    split; when it splits, no split under `decode_min_split_tiles`;
+    splits x B*KV reaching the SM count whenever the cache has enough
+    tiles for that; no cursor among its inputs (it is computed on the
+    host, where the cursors of an async decode step are not); and the
+    lengths the H100 sweep chose at the shapes the serving phases run."""
+    import inspect
+    assert list(inspect.signature(port.decode_split_len).parameters) == \
+        ["L", "bkv", "sms", "tile"]
+    got = port.decode_split_len(L, bkv, sms, tile)
+    assert got == chunk
+    splits = -(-L // got)
+    assert got % tile == 0 and got >= tile
+    assert (splits - 1) * got < L <= splits * got
+    n_tiles = -(-L // tile)
+    min_tiles = port.decode_min_split_tiles(bkv, sms)
+    assert splits == 1 or got >= min_tiles * tile
+    if n_tiles >= min_tiles * -(-sms // bkv):
+        assert splits * bkv >= sms
+    assert splits <= n_tiles
+    with pytest.raises(ValueError):
+        port.decode_split_len(0, bkv, sms, tile)
+
+
 FLASH_CASES = {
     # the training shape: gpt2-medium heads, B=16 x 512 tokens, causal
     "gpt2-medium": dict(B=16, S=512, H=16, D=64, causal=True, mask=None),
@@ -247,8 +374,8 @@ FLASH_CASES = {
     # a ragged S: the kernels mask the tail tile themselves
     "ragged": dict(B=2, S=500, H=4, D=64, causal=True, mask=None),
     "ragged-masked": dict(B=2, S=77, H=2, D=64, causal=False, mask="pad"),
-    # D=128: two 64-column boxes a tile; K1 walks 64-key tiles under
-    # 128-query CTAs, K2 32-key tiles, K3 32-query tiles under 128 keys
+    # D=128: two 64-column boxes a tile; K1 and K2 walk 64-key tiles
+    # under 128-query CTAs, K3 32-query tiles under 128 keys
     "unequal-tiles": dict(B=2, S=320, H=4, D=128, causal=True, mask=None),
     "unequal-tiles-ragged": dict(B=2, S=200, H=2, D=128, causal=False,
                                  mask="empty"),
@@ -274,8 +401,8 @@ def flash_inputs(B, S, H, D, mask, seed=0, device="cpu"):
 # the relative error limits of K1-K3 in bf16 (the same as chip_smoke.py's)
 FLASH_REL = {"flash_fwd": 4e-3, "flash_dq": 4e-4, "flash_dkv": 4e-4}
 # the tile each kernel walks at D <= 64, the unit a skipped-tile fault
-# drops: K1's k-tiles of 128 keys, K2's k-tiles of 64, K3's q-tiles of 64
-FLASH_TILE = {"flash_fwd": 128, "flash_dq": 64, "flash_dkv": 64}
+# drops: K1's and K2's k-tiles of 128 keys, K3's q-tiles of 64
+FLASH_TILE = {"flash_fwd": 128, "flash_dq": 128, "flash_dkv": 64}
 
 
 def rel_err(got, want) -> float:
@@ -405,9 +532,9 @@ def test_wgmma_layouts_on_card(cuda_device, layout, D):
 @pytest.mark.parametrize("D", [16, 32, 48, 64, 80, 96, 112, 128])
 def test_flash_every_head_dim_on_card(cuda_device, D):
     """Every head dim the wrapper takes, causal and with the pad mask:
-    K1 and K3 read D <= 64 through one 64-column box and D > 64 through
-    two, the columns past D arriving as zeros; K2 has one instantiation
-    per D. S=200 ends inside a tile at every D."""
+    K1-K3 read D <= 64 through one 64-column box and D > 64 through two,
+    the columns past D arriving as zeros. S=200 ends inside a tile at
+    every D."""
     for causal, mask in ((True, None), (False, "pad")):
         q, k, v, do, m = flash_inputs(2, 200, 3, D, mask, seed=D,
                                       device=cuda_device)
@@ -418,9 +545,9 @@ def test_flash_every_head_dim_on_card(cuda_device, D):
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("S", [1, 63, 65, 127, 129, 500, 512])
 def test_flash_tile_edges_on_card(cuda_device, S, causal):
-    """S at the tiles' edges: K1's 128-query CTAs and 128-key tiles, K2's
-    64-row tiles, K3's 128-key CTAs and 64-query tiles. Rows past S
-    arrive as zeros and are masked in the kernels."""
+    """S at the tiles' edges: K1's and K2's 128-query CTAs and 128-key
+    tiles, K3's 128-key CTAs and 64-query tiles. Rows past S arrive as
+    zeros and are masked in the kernels."""
     q, k, v, do, m = flash_inputs(2, S, 4, 64, None, seed=S,
                                   device=cuda_device)
     flash_against_plain(q, k, v, do, m, causal)
@@ -446,14 +573,17 @@ def test_flash_fully_masked_row_on_card(cuda_device):
 
 @pytest.mark.cuda
 def test_flash_fwd_and_dkv_repeat_bitwise_on_card(cuda_device):
-    """Two launches of K1 and of K3 at the training shape give the same
-    bits: every output tile has one owner and sums in one order."""
+    """Two launches of K1, of K2 and of K3 at the training shape give
+    the same bits: every output tile has one owner and sums in one
+    order."""
     q, k, v, do, _ = flash_inputs(16, 512, 16, 64, None, seed=4,
                                   device=cuda_device)
     out, lse = port.flash_fwd(q, k, v, True)
     out2, lse2 = port.flash_fwd(q, k, v, True)
     assert torch.equal(out, out2) and torch.equal(lse, lse2)
     delta = port.flash_delta(out, do)
+    assert torch.equal(port.flash_dq(q, k, v, do, lse, delta, True),
+                       port.flash_dq(q, k, v, do, lse, delta, True))
     first = port.flash_dkv(q, k, v, do, lse, delta, True)
     second = port.flash_dkv(q, k, v, do, lse, delta, True)
     assert all(torch.equal(a, b) for a, b in zip(first, second))
