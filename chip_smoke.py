@@ -41,12 +41,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
 5. Serving, contiguous: ServingEngine.run on gpt2-medium at full width
    and depth, bf16, decode_kernel=True, 8 slots, chunk buckets (32,
    128), 24 seeded requests (prompts of 32/64/128 tokens, 32 or 64 new
-   tokens; odd ids sample at temperature 0.8 with top_k=40). K4's launch
-   count must equal layers x decode steps, K5's must be 0; greedy tokens
-   are teacher-forced through the dense path (decode_kernel=False) and
-   must agree with it modulo bf16 near-ties. Then 20 decode steps of 8
-   requests under torch.profiler give the device's idle share and device
-   time by kernel group.
+   tokens; odd ids sample at temperature 0.8 with top_k=40). The engine
+   runs its decode steps and prefill chunks as CUDA graphs (the
+   default): every program is captured once, at most 3 step programs
+   and one prefill program a bucket. K4's launch count (replays
+   counted) must equal layers x decode steps, K5's must be 0; greedy
+   tokens are teacher-forced through the dense path (decode_kernel=
+   False) and must agree with it modulo bf16 near-ties. Then 20 decode
+   steps of 8 requests under torch.profiler give the device's idle
+   share, device time by kernel group and the host's runtime calls a
+   step, and the profiler's own count of K4 launches must equal layers
+   x steps.
 6. Llama: the same engine on llama-1b at full width, 2 layers, int8 KV
    cache — GQA, RoPE and int8 through K4.
 7. Serving, paged (this slice's main path, the JAX bench's
@@ -92,6 +97,22 @@ Phases, each of which fails the run (non-zero exit, no result line):
 11. Training, llama-1b at full width, 2 layers, batch 8 x 512: RoPE, GQA
    through the repeat, SwiGLU and RMSNorm in training, with the same
    launch and finiteness checks.
+12. (Run after 8.) The serving benchmark (examples/serve_benchmark.py)
+   at bench.py's
+   `serving` leg (gpt2-medium, 8 slots, 32 requests, prompts 32/64/128,
+   32/64 new tokens, buckets (32, 128), the sequential generate()
+   baseline and the sync A/B), the same leg with odd ids sampled, and
+   the `serving_paged` leg (pages of 64, a 128-token shared prefix).
+   Each: serving_no_recompile, every program captured once, and a
+   graphs-on/graphs-off A/B on the same trace and settings (runs
+   alternated, best of two an arm) whose tokens, greedy and sampled,
+   must be identical; tokens/s and TPOT p50/p99 of both arms, and
+   whether they moved beyond the arms' run-to-run spread. For the two
+   bench legs, with graphs on and off: every program built (a request
+   in each sampling mode, prompts reaching both buckets) and the memory
+   the engine reserved, then a profiled window of 20 steps: device time
+   a step, idle share, host launch calls a step, and the profiler's
+   K4/K5 count against layers x steps.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -536,14 +557,22 @@ def kernel_group(name: str) -> str:
     return name[:70]
 
 
-def profile_run(engine, trace, ticks=20):
+KERNEL_GROUPS = {"decode_attention": "K4 decode_attention",
+                 "paged_decode_attention": "K5 paged_decode_attention"}
+
+
+def profile_run(engine, trace, kernel=None, ticks=20):
     """Where a serving run's time goes: the engine takes `trace` again
     (after the measured run, so launch counts are untouched), runs until
     every request has finished prefilling, then `ticks` loop iterations
     (one decode step each) under torch.profiler. Prints the device's
-    busy and idle share of that window and device time by kernel group.
-    Kernels run on one stream and do not overlap, so their summed time
-    is the busy time."""
+    busy and idle share of that window, device time by kernel group and
+    the host's CUDA runtime calls a step (launch calls: kernels and
+    graphs). Kernels run on one stream and do not overlap, so their
+    summed time is the busy time. With `kernel`, the profiler's own count
+    of its launches in the window (graph replays included) must equal
+    layers x decode steps: a count that does not rest on the wrappers'
+    host counters. Returns the window's numbers."""
     from torch.profiler import ProfilerActivity, profile
     engine.reset()
     engine.start()
@@ -565,22 +594,43 @@ def profile_run(engine, trace, ticks=20):
     while engine.active:
         engine.tick()
     engine.finish()
-    groups = {}
+    groups, runtime = {}, {}
     for e in prof.events():
-        if (e.device_type != torch.autograd.DeviceType.CUDA
-                or e.is_user_annotation):
+        if e.is_user_annotation:
             continue
-        g = groups.setdefault(kernel_group(e.name), [0.0, 0])
-        g[0] += e.time_range.elapsed_us()
-        g[1] += 1
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            g = groups.setdefault(kernel_group(e.name), [0.0, 0])
+            g[0] += e.time_range.elapsed_us()
+            g[1] += 1
+        elif re.match(r"cu(da)?[A-Z]", e.name):
+            runtime[e.name] = runtime.get(e.name, 0) + 1
     busy = sum(g[0] for g in groups.values())
+    n = max(steps, 1)
+    launch_calls = sum(c for name, c in runtime.items() if "Launch" in name)
+    stats = dict(steps=steps, wall_ms_per_step=wall_us / 1e3 / n,
+                 device_ms_per_step=busy / 1e3 / n,
+                 idle_share=1 - busy / wall_us,
+                 launch_calls_per_step=launch_calls / n,
+                 runtime_calls_per_step=sum(runtime.values()) / n)
     log(f"  profile: {steps} decode steps, wall {wall_us / 1e3:.2f} ms "
-        f"({wall_us / 1e3 / max(steps, 1):.3f} ms a step), device busy "
-        f"{busy / 1e3:.2f} ms ({busy / 1e3 / max(steps, 1):.3f} ms a step), "
-        f"idle share {1 - busy / wall_us:.3f}")
-    for name, (us, n) in sorted(groups.items(), key=lambda kv: -kv[1][0])[:12]:
+        f"({stats['wall_ms_per_step']:.3f} ms a step), device busy "
+        f"{busy / 1e3:.2f} ms ({stats['device_ms_per_step']:.3f} ms a "
+        f"step), idle share {stats['idle_share']:.3f}, host launch calls "
+        f"{stats['launch_calls_per_step']:.1f} a step (CUDA runtime calls "
+        f"{stats['runtime_calls_per_step']:.1f})")
+    for name, (us, c) in sorted(groups.items(), key=lambda kv: -kv[1][0])[:12]:
         log(f"  profile: {us / 1e3:8.3f} ms {us / max(busy, 1e-9):6.1%} "
-            f"{n:5d} launches  {name}")
+            f"{c:5d} launches  {name}")
+    for name, c in sorted(runtime.items(), key=lambda kv: -kv[1])[:6]:
+        log(f"  profile host: {c / n:8.1f} calls a step  {name}")
+    if kernel is not None:
+        seen = groups.get(KERNEL_GROUPS[kernel], [0.0, 0])[1]
+        layers = engine.model_config.num_layers
+        check(steps > 0 and seen == layers * steps,
+              f"the profiler saw {seen} {kernel} launches over {steps} "
+              f"decode steps of {layers} layers")
+        stats["profiled_kernel_launches"] = seen
+    return stats
 
 
 def serve_phase(name, model, trace, ops, config, kernel,
@@ -612,6 +662,12 @@ def serve_phase(name, model, trace, ops, config, kernel,
           f"steps of {num_layers} layers")
     check(all(n == 0 for k, n in counts.items() if k != kernel),
           f"{name}: other kernels launched: {counts}")
+    programs = engine.compile_counts()
+    captured = engine.capture_counts()
+    check(programs["step"] <= 3
+          and programs["prefill"] <= len(config.chunk_buckets)
+          and captured == {k: programs[k] for k in captured},
+          f"{name}: programs {programs}, CUDA graphs {captured}")
     n_pos, n_exact, worst = check_results(engine, trace, results, name)
     new_tokens = sum(len(r.tokens) for r in results.values())
     ttft = [r.ttft for r in results.values()]
@@ -623,8 +679,9 @@ def serve_phase(name, model, trace, ops, config, kernel,
                  tpot_p50_ms=pct(tpot, 50), tpot_p99_ms=pct(tpot, 99),
                  decode_steps=steps, launches={kernel: launches},
                  greedy_positions=n_pos, greedy_exact_argmax=n_exact,
-                 max_logprob_dev=worst,
-                 peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+                 max_logprob_dev=worst, programs=programs, graphs=captured,
+                 peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+                 reserved_gib=torch.cuda.memory_reserved() / 2**30)
     if config.paged:
         alloc = engine.page_allocator
         cached = sorted({r.cached_tokens for r in results.values()})
@@ -646,7 +703,7 @@ def serve_phase(name, model, trace, ops, config, kernel,
             pages_usable=alloc.usable, occupancy_peak=engine.occupancy_peak)
     log(f"  {name}: {json.dumps(stats)}")
     if profile_requests:
-        profile_run(engine, trace[:profile_requests])
+        profile_run(engine, trace[:profile_requests], kernel)
     return launches
 
 
@@ -678,6 +735,146 @@ def ab_runs(model, trace, configs):
                    decode_steps=engine.steps_dispatched)
         log(f"  A/B: {json.dumps(row)}")
         out.append(row)
+    return out
+
+
+# the serving benchmark's legs (bench.py's `serving` and `serving_paged`
+# at full size), and a sampled variant of the first for the graphs A/B
+BENCH_COMMON = dict(size="medium", slots=8, num_requests=32,
+                    prompt_grid=(32, 64, 128), new_grid=(32, 64),
+                    chunk_buckets=(32, 128), compare_graphs=True)
+BENCH_LEGS = [
+    ("serving", dict(compare_sync=True), "decode_attention"),
+    ("serving-sampled", dict(temperature=0.8, baseline=False),
+     "decode_attention"),
+    ("serving_paged", dict(paged=True, page_size=64, shared_prefix_len=128,
+                           baseline=False), "paged_decode_attention"),
+]
+
+
+def build_every_program(engine):
+    """Serve one request a sampling mode (greedy; bounded: top_k 40;
+    full: top_k 0), each alone, with prompts that reach both chunk
+    buckets, so the engine builds all its programs: 3 step programs and
+    one prefill program a bucket, each captured once with graphs on."""
+    from mpi_operator_tpu_torch.serve import Request
+    rs = np.random.RandomState(5)
+    vocab = engine.model_config.vocab_size
+    small, big = engine.config.chunk_buckets[0], engine.config.chunk_buckets[-1]
+    for i, (p, temp, top_k) in enumerate([(big + small // 2 + 1, 0.0, 0),
+                                          (small // 2 + 1, 0.8, 40),
+                                          (small // 2 + 1, 0.8, 0)]):
+        engine.run([Request(900 + i, rs.randint(0, vocab, p).tolist(), 4,
+                            temperature=temp, top_k=top_k)])
+    want = {"step": 3, "prefill": len(engine.config.chunk_buckets)}
+    got = engine.compile_counts()
+    check({k: got[k] for k in want} == want
+          and engine.capture_counts() == (want if engine.cuda_graphs else
+                                          {"step": 0, "prefill": 0}),
+          f"programs {got}, graphs {engine.capture_counts()}; expected "
+          f"{want}")
+
+
+def moved(runs, key, higher_is_better):
+    """(best with graphs, best eager, spread, verdict) of `key`: the best
+    of each arm's two runs, the larger of the two arms' run-to-run
+    spreads, and whether the arms' bests differ by more than that."""
+    on = [r[key] for r in runs["graphs"]]
+    off = [r[key] for r in runs["eager"]]
+    pick = max if higher_is_better else min
+    spread = max(max(on) - min(on), max(off) - min(off))
+    diff = pick(on) - pick(off)
+    return pick(on), pick(off), spread, abs(diff) > spread
+
+
+def bench_phase():
+    """run_serving_benchmark at each BENCH_LEGS leg, graphs A/B included:
+    the programs within the no-recompile contract and every one captured
+    once, every token of the graphs arm equal to the eager arm's (greedy
+    and sampled), the sync A/B's greedy tokens equal. Prints tokens/s and
+    TPOT p50/p99 of both arms and whether they moved beyond the arms'
+    run-to-run spread. Then, for the two bench legs, with graphs on and
+    off: every program built (`build_every_program`) and the memory the
+    engine reserved, and a profiled window of 20 decode steps of 8
+    requests: device time a step, idle share, host launch calls a step,
+    and the profiler's count of K4/K5 launches (layers x steps).
+    Returns {leg: report}."""
+    from mpi_operator_tpu_torch.examples.serve_benchmark import (
+        run_serving_benchmark, serving_max_len, serving_trace)
+    from mpi_operator_tpu_torch.models import create_lm
+    from mpi_operator_tpu_torch.serve import EngineConfig, ServingEngine
+    out = {}
+    for leg, kw, kernel in BENCH_LEGS:
+        m = run_serving_benchmark(**BENCH_COMMON, **kw,
+                                  log=lambda line: log(f"  {line}"))
+        check(m["serving_no_recompile"]
+              and m["serving_step_captures"] == m["serving_step_compiles"]
+              and m["serving_prefill_captures"]
+              == m["serving_prefill_compiles"],
+              f"{leg}: programs {m['serving_step_compiles']} / "
+              f"{m['serving_prefill_compiles']}, graphs "
+              f"{m['serving_step_captures']} / "
+              f"{m['serving_prefill_captures']}")
+        check(m["serving_graphs_tokens_identical"],
+              f"{leg}: graphs and eager arms gave different tokens")
+        check(m.get("serving_async_greedy_identical", True),
+              f"{leg}: sync and async loops gave different greedy tokens")
+        runs = {arm: m[f"serving_{arm}_runs"] for arm in ("graphs", "eager")}
+        verdicts = {}
+        for metric, key, higher in (("tokens_per_s", "tokens_per_sec", True),
+                                    ("tpot_p50_ms", "run_tpot_p50_ms", False),
+                                    ("tpot_p99_ms", "run_tpot_p99_ms",
+                                     False)):
+            on, off, spread, beyond = moved(runs, key, higher)
+            verdicts[metric] = dict(graphs=on, eager=off, spread=spread,
+                                    moved_beyond_spread=beyond)
+        m["graphs_ab"] = verdicts
+        log(f"  [{leg}] graphs A/B: {json.dumps(verdicts)}")
+        if leg != "serving-sampled":
+            paged = kw.get("paged", False)
+            shared = kw.get("shared_prefix_len", 0)
+            page_size = kw.get("page_size", 64)
+            grids = BENCH_COMMON["prompt_grid"], BENCH_COMMON["new_grid"]
+            model = create_lm(f"gpt2-{BENCH_COMMON['size']}", seed=0,
+                              dtype=torch.bfloat16, decode_kernel=True,
+                              max_len=serving_max_len(*grids, shared, paged,
+                                                      page_size))
+            trace, _ = serving_trace(model.config.vocab_size,
+                                     BENCH_COMMON["slots"], *grids,
+                                     shared_prefix_len=shared)
+            for graphs in (True, False):
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                reserved = torch.cuda.memory_reserved()
+                engine = ServingEngine(model, EngineConfig(
+                    slots=BENCH_COMMON["slots"],
+                    chunk_buckets=BENCH_COMMON["chunk_buckets"],
+                    paged=paged, page_size=page_size, cuda_graphs=graphs))
+                build_every_program(engine)
+                torch.cuda.synchronize()
+                engine_gib = (torch.cuda.memory_reserved() - reserved) / 2**30
+                log(f"  [{leg}] graphs {graphs}: programs "
+                    f"{engine.compile_counts()}, graphs "
+                    f"{engine.capture_counts()}; memory reserved by the "
+                    f"engine (cache, programs, pools) {engine_gib:.3f} GiB")
+                m[f"profile_graphs_{graphs}"] = dict(
+                    profile_run(engine, trace, kernel),
+                    engine_reserved_gib=engine_gib)
+                del engine
+            del model
+            torch.cuda.empty_cache()
+        keys = ("serving_tokens_per_sec", "serving_tpot_p50_ms",
+                "serving_tpot_p99_ms", "serving_ttft_p50_ms",
+                "serving_ttft_p99_ms", "serving_eager_tokens_per_sec",
+                "serving_graphs_speedup", "serving_step_compiles",
+                "serving_prefill_compiles", "serving_no_recompile",
+                "sequential_tokens_per_sec", "serving_vs_sequential",
+                "serving_async_speedup", "serving_prefix_hit_rate",
+                "serving_ttft_cold_p50_ms", "serving_ttft_hit_p50_ms",
+                "serving_pages_in_use_peak", "profile_graphs_True",
+                "profile_graphs_False")
+        log(f"  [{leg}] {json.dumps({k: m[k] for k in keys if k in m})}")
+        out[leg] = m
     return out
 
 
@@ -1178,6 +1375,12 @@ def main() -> int:
     del llama
     torch.cuda.empty_cache()
     log(f"[paged-llama] {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    log("[bench] run_serving_benchmark: the serving and serving_paged legs "
+        "at full size, CUDA graphs on and off")
+    bench_phase()
+    log(f"[bench] {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     log("[train] gpt2-medium, bf16 over f32 masters, attention=flash, "

@@ -33,10 +33,23 @@ pages behind each row's logical blocks. A write of position t lands in
 page table[b, t // ps] at slot t % ps; page 0 is the trash page that
 unallocated entries point at. Positions >= max_len are DROPPED — the
 reference sends them to an out-of-range page id and its scatter drops
-them; here they are filtered on the host (`page_index`), since a torch
-scatter would raise instead. A clamp, as the contiguous single-token
-write does, could land inside a SHARED prefix page. Reads gather the
-pool back into the logical layout (dense path) or go through K5.
+them; a torch scatter would raise instead. A clamp, as the contiguous
+single-token write does, could land inside a SHARED prefix page. Reads
+gather the pool back into the logical layout (dense path) or go through
+K5.
+
+Decode mode has two forms with one body (`_decode`). `forward` takes
+host positions and host page tables (generate(), direct calls) and
+drops positions >= max_len on the host (`page_index`, `_write`).
+`forward_device` is the form the serving engine's programs run
+(serve/programs.py, CUDA graphs on the card): positions and page tables
+are device tensors, every shape is fixed by the call's shape, and no
+branch reads position data. It sends a paged write past max_len to the
+trash page (`page_index_device`); its multi-token contiguous writes
+must lie inside the cache, which the caller checks on the host; its
+single-token write clamps. Both forms clamp the learned-position lookup
+(the identity below max_len; the outputs at positions past it are
+discarded) and agree bit for bit on every input both take.
 
 Numerics mirror the flax modules op by op in the model dtype: matmuls
 round to it before the bias add, norms take their statistics in f32
@@ -146,8 +159,7 @@ def _layer_caches(cfg: TransformerConfig, shape, device) -> List[LayerCache]:
 
 class KVCache:
     """Per-layer caches of one decode batch (or of the serving engine's
-    slot rows). `rows(i, j)` is a view of rows [i, j): writes through it
-    land in this cache."""
+    slot rows)."""
 
     def __init__(self, layers: List[LayerCache]):
         self.layers = layers
@@ -158,11 +170,20 @@ class KVCache:
         return cls(_layer_caches(cfg, (batch, cfg.kv_heads, cfg.max_len),
                                  device))
 
-    def rows(self, start: int, stop: int) -> "KVCache":
-        return KVCache([LayerCache(*[None if t is None else t[start:stop]
+    def take_rows(self, idx: torch.Tensor) -> "KVCache":
+        """A copy of rows `idx` (a device index tensor), the reference's
+        dynamic_slice: one program serves every slot."""
+        return KVCache([LayerCache(*[None if t is None
+                                     else t.index_select(0, idx)
                                      for t in (c.k, c.v, c.k_scale,
                                                c.v_scale)])
                         for c in self.layers])
+
+    def put_rows(self, idx: torch.Tensor, rows: "KVCache") -> None:
+        """Write `rows` back at `idx`, in place (dynamic_update_slice)."""
+        for c, r in zip(self.layers, rows.layers):
+            for t, u in zip(c.tensors(), r.tensors()):
+                t.index_copy_(0, idx, u)
 
     def zero_(self) -> None:
         for c in self.layers:
@@ -197,9 +218,10 @@ class PageIndex:
     """One call's view of the page tables, made once per forward and
     read by every layer: `table` [B, nblk] int32 on the device (K5 and
     the dense gather read it) and the scatter targets of the call's
-    writes, resolved on the host — physical `page` and `slot` of each
-    written position, and `src`, the (row, column) of each kept position
-    in the call's [B, S] tokens (None: every position is kept)."""
+    writes — physical `page` and `slot` of each written position, and
+    `src`, the (row, column) of each kept position in the call's [B, S]
+    tokens (None: every position is written; always None from
+    `page_index_device`)."""
     table: torch.Tensor
     page: torch.Tensor
     slot: torch.Tensor
@@ -234,20 +256,42 @@ def page_index(pages, pos_host: torch.Tensor, page_size: int, max_len: int,
                      where[0], where[1], src)
 
 
+def page_index_device(table: torch.Tensor, pos: torch.Tensor,
+                      page_size: int, max_len: int) -> PageIndex:
+    """The PageIndex of a call at device positions `pos` [B, S] over the
+    device page tables `table` [B, max_len // page_size] int32, with no
+    host read and shapes fixed by [B, S]: a position >= max_len is sent
+    to slot pos % page_size of the trash page 0 (never read below a
+    cursor) instead of being dropped, which is `page_index` on every
+    position it keeps."""
+    nblk = max_len // page_size
+    if tuple(table.shape) != (pos.shape[0], nblk):
+        raise ValueError(f"pages must be [B, max_len // page_size]="
+                         f"{(pos.shape[0], nblk)}, got {tuple(table.shape)}")
+    blk = (pos // page_size).clamp(max=nblk - 1).long()
+    page = torch.where(pos < max_len, table.long().gather(1, blk), 0)
+    return PageIndex(table, page, pos % page_size)
+
+
 def _write(c: torch.Tensor, u: torch.Tensor, pos: torch.Tensor,
-           pos_host: torch.Tensor) -> None:
+           pos_host: Optional[torch.Tensor]) -> None:
     """c [B, KV, L(, D)] <- u [B, KV, S(, D)] at per-row positions, in
     place. A single-token write CLAMPS its position to L-1 (the
     reference's dynamic_update_slice); a multi-token write DROPS
     positions >= L (the reference's scatter with mode="drop") — chosen
-    on the host from `pos_host`, so no device sync."""
-    B, S = pos_host.shape
+    on the host from `pos_host`, so no device sync. With `pos_host`
+    None (`forward_device`) a multi-token write takes no branch: its
+    positions must lie below L, as the caller checks on the host."""
+    B, S = pos.shape
     L = c.shape[2]
     rows = torch.arange(B, device=c.device)
     if S == 1:
         c[rows, :, pos[:, 0].clamp(max=L - 1)] = u[:, :, 0]
         return
     u = u.transpose(1, 2)                     # [B, S, KV(, D)]
+    if pos_host is None:
+        c[rows[:, None], :, pos] = u
+        return
     keep = pos_host < L
     if bool(keep.all()):
         c[rows[:, None], :, pos] = u
@@ -595,7 +639,9 @@ class CausalLM(nn.Module):
     is decode mode: it writes the call's K/V into `cache` (a new one if
     None) at `positions`. Both return f32 logits [B, S, V] (or the final
     hidden state [B, S, E] with `with_head=False`). A `PagedKVCache`
-    needs `pages`, the host [B, max_len // page_size] page tables."""
+    needs `pages`, the host [B, max_len // page_size] page tables.
+    `forward_device` is decode mode over device operands (the serving
+    engine's programs)."""
 
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
@@ -629,8 +675,6 @@ class CausalLM(nn.Module):
                 pages=None):
         if positions is None and cache is None and pages is None:
             return self._train_forward(tokens, with_head)
-        cfg = self.config
-        dt = cfg.dtype
         B, S = tokens.shape
         if positions is None:
             positions = np.arange(S)[None]
@@ -638,22 +682,44 @@ class CausalLM(nn.Module):
         pos = pos_host.to(self.device, non_blocking=True)
         if cache is None:
             cache = self.new_cache(B)
+        index = (page_index(pages, pos_host, cache.page_size,
+                            self.config.max_len, self.device)
+                 if self._paged(cache, pages) else None)
+        return self._decode(tokens, pos, pos_host, cache, index, with_head)
+
+    def forward_device(self, tokens: torch.Tensor, pos: torch.Tensor,
+                       cache: KVCache, table: Optional[torch.Tensor] = None,
+                       with_head: bool = False):
+        """Decode mode over device operands only, the form a CUDA graph
+        holds: `pos` int64 [B, S] and, for a PagedKVCache, `table` int32
+        [B, max_len // page_size] on the model's device. No host read, no
+        branch on their values (see the module docstring); a contiguous
+        multi-token call must keep every position below max_len."""
+        index = (page_index_device(table, pos, cache.page_size,
+                                   self.config.max_len)
+                 if self._paged(cache, table) else None)
+        return self._decode(tokens, pos, None, cache, index, with_head)
+
+    @staticmethod
+    def _paged(cache: KVCache, pages) -> bool:
         paged = isinstance(cache, PagedKVCache)
         if paged != (pages is not None):
             raise ValueError("a paged cache needs pages= (the page tables) "
                              "and pages= needs a paged cache")
-        index = (page_index(pages, pos_host, cache.page_size, cfg.max_len,
-                            self.device) if paged else None)
+        return paged
+
+    def _decode(self, tokens, pos, pos_host, cache, index, with_head):
+        cfg = self.config
+        dt = cfg.dtype
         h = F.embedding(tokens, self.wte.weight.to(dt))
         if self.wpe is not None:
             # a paged prefill runs the rows outside its batch at their own
             # cursor, which can reach past max_len: those positions' K/V
             # writes are dropped and their outputs discarded, so their
             # table row only needs to exist (the reference reads a filled
-            # row there)
-            wpe_pos = (pos.clamp(max=cfg.max_len - 1)
-                       if bool((pos_host >= cfg.max_len).any()) else pos)
-            h = h + F.embedding(wpe_pos, self.wpe.weight.to(dt))
+            # row there); the clamp is the identity everywhere else
+            h = h + F.embedding(pos.clamp(max=cfg.max_len - 1),
+                                self.wpe.weight.to(dt))
         h = self.backbone(h, pos, pos_host, cache, index)
         if not with_head:
             return h
@@ -784,7 +850,7 @@ def create_lm(name: str = "gpt2-medium", device=None, seed: int = 0,
 
 __all__ = [
     "TransformerConfig", "LayerCache", "KVCache", "PagedKVCache",
-    "PageIndex", "page_index", "Attention", "Mlp",
+    "PageIndex", "page_index", "page_index_device", "Attention", "Mlp",
     "Norm", "Block", "Backbone", "CausalLM", "TiedHead", "attend",
     "dense_attention", "rope", "head_logits",
     "gpt2_config", "llama_config", "lm_config", "param_shapes", "build_lm",

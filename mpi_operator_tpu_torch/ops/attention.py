@@ -54,7 +54,10 @@ Two implementations of each function live here:
 
 `launch_counts[name]` counts kernel launches (and nothing else), so a
 run can show that its decode steps and its training steps went through
-the kernels.
+the kernels. A wrapper counts on the host as it launches; a CUDA graph
+that holds launches adds them again at each replay and takes back what
+its capture counted, since a capture launches nothing
+(serve/programs.py).
 """
 from __future__ import annotations
 
@@ -154,9 +157,13 @@ _sm_counts: Dict[int, int] = {}
 _workspaces: Dict[int, tuple] = {}
 
 
-def _sm_count(device) -> int:
-    idx = device.index if device.index is not None else \
+def _device_index(device) -> int:
+    return device.index if device.index is not None else \
         torch.cuda.current_device()
+
+
+def _sm_count(device) -> int:
+    idx = _device_index(device)
     if idx not in _sm_counts:
         _sm_counts[idx] = torch.cuda.get_device_properties(
             idx).multi_processor_count
@@ -171,12 +178,21 @@ def decode_workspace(device, B: int, KV: int, splits: int, G: int,
     shape arrives, so its addresses stay fixed from one decode step to
     the next (what a CUDA graph of the step needs). The kernel leaves the
     tickets at 0 after every launch; launches that share the workspace
-    run in order on one stream."""
-    idx = device.index if device.index is not None else \
-        torch.cuda.current_device()
+    run in order on one stream.
+
+    Growing it inside a CUDA graph capture raises: the new pair would be
+    zeroed only when the graph replays. A graph holds the pair it
+    captured (`current_workspace`), so a later, larger launch that grows
+    the cache's pair leaves the graph's own pair alive."""
+    idx = _device_index(device)
     n_part, n_tick = B * KV * splits * G * (D + 2), B * KV
     ws = _workspaces.get(idx)
     if ws is None or ws[0].numel() < n_part or ws[1].numel() < n_tick:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "decode_workspace: a launch inside a CUDA graph capture "
+                "needs a larger workspace; run the same launch eagerly "
+                "before capturing it")
         old = (0, 0) if ws is None else (ws[0].numel(), ws[1].numel())
         ws = (torch.zeros(max(n_part, old[0]), dtype=torch.float32,
                           device=device),
@@ -184,6 +200,14 @@ def decode_workspace(device, B: int, KV: int, splits: int, G: int,
                           device=device))
         _workspaces[idx] = ws
     return ws
+
+
+def current_workspace(device) -> Optional[tuple]:
+    """The decode workspace pair `device` has now (None before its first
+    decode launch): what a CUDA graph captured over it keeps alive."""
+    if device.type != "cuda":
+        return None
+    return _workspaces.get(_device_index(device))
 
 
 def _decode_plan(q, L, B, KV, H, D, cache_dtype):
@@ -196,7 +220,15 @@ def _decode_plan(q, L, B, KV, H, D, cache_dtype):
 
 
 def _cursors(cache_index, B: int, device) -> torch.Tensor:
-    """Scalar or [B] cursor → int32 [B] on `device`."""
+    """Scalar or [B] cursor → int32 [B] on `device`. Inside a CUDA graph
+    capture the cursor must already live on `device`: a host value would
+    be a host-to-device copy frozen into the graph."""
+    on_device = (isinstance(cache_index, torch.Tensor)
+                 and cache_index.device == device)
+    if (device.type == "cuda" and not on_device
+            and torch.cuda.is_current_stream_capturing()):
+        raise ValueError("cache_index must be a tensor on the device "
+                         "inside a CUDA graph capture")
     cur = torch.as_tensor(cache_index, dtype=torch.int32, device=device)
     if cur.ndim == 0:
         return cur.reshape(1).expand(B).contiguous()
@@ -730,7 +762,7 @@ def flash_attention(q, k, v, causal: bool = True, mask=None):
 
 __all__ = ["DECODE_CTAS_PER_SM", "DECODE_MIN_SPLIT_TILES",
            "DECODE_TILES_PER_COVER", "FlashAttention", "decode_attention",
-           "decode_attention_ref", "decode_block_k",
+           "current_workspace", "decode_attention_ref", "decode_block_k",
            "decode_min_split_tiles", "decode_split_len", "decode_tile",
            "decode_workspace", "flash_attention", "flash_delta", "flash_dkv",
            "flash_dkv_ref", "flash_dq", "flash_dq_ref", "flash_fwd",

@@ -44,15 +44,20 @@ this engine serves the same model the way a front end needs it served:
   (copy-on-write at page granularity). Prefill is BATCHED: every waiting
   slot whose next chunk has the same bucket advances in one [S, C] call.
   Decode steps read the cache through K5 (paged decode attention) with
-  `decode_kernel`. Each step's page table is a fresh host array, uploaded
-  with the step, so a table the host rebuilds can never change under a
-  step still in flight.
+  `decode_kernel`. Each step's page table is a fresh host array, staged
+  with the step's other inputs, so a table the host rebuilds can never
+  change under a step still in flight.
+- **Compiled programs** (serve/programs.py). The decode step (one
+  program per sampling mode) and prefill (one per chunk bucket) run as
+  CUDA graphs on the card, replayed over static device buffers: a step
+  is one host-to-device copy of its packed inputs from pinned memory
+  and one graph launch. `compile_counts()` holds the reference's
+  no-recompile contract over them; `EngineConfig.cuda_graphs=False`
+  runs the same programs eagerly, as the CPU always does.
 
 Not here (later slices of the port): speculative decoding and the
 telemetry / event-log / tracer hooks (with the paged mode's page
-gauges). PyTorch runs eagerly, so the reference's compile pins
-(`compile_counts`) have no counterpart yet; CUDA-graph capture counts
-take their place when the decode step is captured.
+gauges).
 
 Parity: at temperature 0 a request produces token-for-token the output
 of `generate()` — pinned against the port's generate() and the JAX
@@ -61,6 +66,7 @@ engine in tests/test_torch_serve.py.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -71,6 +77,7 @@ from ..models.generate import _categorical, cast_params, decode_model
 from ..models.transformer import CausalLM, head_logits
 from ..telemetry import span
 from ..utils.device import resolve_device
+from .programs import Program, Staging
 from .scheduler import Request, RequestState, Scheduler
 from .slots import PageAllocator, SlotManager
 
@@ -85,7 +92,8 @@ class EngineConfig:
     `request_timeout` (seconds, None = off) retires a request that
     outlives its deadline with finish_reason "timeout". `speculative`
     raises until its slice of the port lands (its draft knobs come with
-    it).
+    it). `cuda_graphs` False runs the engine's programs eagerly on the
+    card (the same programs, bit for bit; the CPU never captures).
 
     `paged` switches the cache to the page pool: `page_size` positions
     a page (must divide max_len; any size >= 1 runs K5), `num_pages`
@@ -105,6 +113,7 @@ class EngineConfig:
     admit_lookahead: int = 8
     request_timeout: Optional[float] = None
     speculative: Optional[str] = None
+    cuda_graphs: bool = True
 
 
 @dataclasses.dataclass
@@ -214,6 +223,7 @@ class ServingEngine:
         # params cast once, device-resident across every step
         self.dmodel = cast_params(decode_model(model, cfg.decode_kernel),
                                   mcfg.dtype)
+        self._casts = 1
         self._table = self.dmodel.wte.weight
         S = cfg.slots
         self.scheduler = Scheduler(cfg.chunk_buckets, mcfg.max_len,
@@ -234,9 +244,20 @@ class ServingEngine:
             self.cache = self.dmodel.new_paged_cache(NP, ps)
         else:
             self.cache = self.dmodel.new_cache(S)
+        self._cache_builds = 1
+        # the device-side token chain: every step program, of every mode,
+        # reads it at its start and writes its sampled tokens into it
         self._prev_tok = torch.zeros(S, dtype=torch.int64, device=self.device)
+        self._out_logp = torch.zeros(S, dtype=torch.float32,
+                                     device=self.device)
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(cfg.rng_seed)
+        self._capture = cfg.cuda_graphs and self.device.type == "cuda"
+        self._pool = torch.cuda.graph_pool_handle() if self._capture else None
+        self._stream = (torch.cuda.Stream(self.device) if self._capture
+                        else None)
+        self._programs: Dict[Tuple, Program] = {}
+        self._staging = Staging(self.device)
         # two host buffer pairs, used in turn: step N's copy lands in one
         # while step N-1's is still waiting to be read from the other
         pin = self.device.type == "cuda"
@@ -272,12 +293,39 @@ class ServingEngine:
             # the prefix cache goes with it
             self.page_allocator.reset()
         self.cache.zero_()
-        self._prev_tok = torch.zeros_like(self._prev_tok)
+        self._prev_tok.zero_()
+        self._out_logp.zero_()
         self._generator.manual_seed(self.config.rng_seed)
         self._steps_dispatched = 0
         self._session = None
         self.occupancy_peak = 0
         self.pages_in_use_peak = 0
+
+    def compile_counts(self) -> Dict[str, int]:
+        """Programs built, keyed as the reference's executable caches:
+        the contract is `step <= 3` (one program per sample_slots mode),
+        `prefill <= len(chunk_buckets)` (one per bucket) whatever trace
+        ran, and no growth across reset(); `verify` stays 0 until
+        speculative decoding is ported; the cache and the cast params
+        are built once (`init_cache`, `cast`)."""
+        kinds = [key[0] for key in self._programs]
+        return {"step": kinds.count("step"),
+                "prefill": kinds.count("prefill"), "verify": 0,
+                "init_cache": self._cache_builds, "cast": self._casts}
+
+    def capture_counts(self) -> Dict[str, int]:
+        """CUDA graphs captured, by program kind: equal to
+        compile_counts()' on the card with cuda_graphs on, 0 otherwise."""
+        kinds = [key[0] for key, p in self._programs.items()
+                 if p.graph is not None]
+        return {"step": kinds.count("step"),
+                "prefill": kinds.count("prefill")}
+
+    @property
+    def cuda_graphs(self) -> bool:
+        """True when the programs run as CUDA graphs (on the card, with
+        EngineConfig.cuda_graphs on)."""
+        return self._capture
 
     @property
     def steps_dispatched(self) -> int:
@@ -288,48 +336,101 @@ class ServingEngine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _to_device(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(a).to(self.device, non_blocking=True)
+    # -- device work: the programs ----------------------------------------
 
-    # -- device work ------------------------------------------------------
+    def _program(self, kind: str, arg) -> Program:
+        """The program ("step", mode) or ("prefill", bucket), built at
+        its first use and kept for the engine's life."""
+        key = (kind, self.config.paged, arg)
+        prog = self._programs.get(key)
+        if prog is not None:
+            return prog
+        S, i32, f32 = self.config.slots, np.int32, np.float32
+        table = ([("pages", (S, self._nblk), i32)] if self.config.paged
+                 else [])
+        if kind == "step":
+            layout = [("toks", (S,), i32), ("use_prev", (S,), i32),
+                      ("pos", (S,), i32), ("top_ks", (S,), i32),
+                      ("temps", (S,), f32), ("top_ps", (S,), f32)] + table
+            fn = functools.partial(self._step, arg)
+        elif self.config.paged:
+            layout = [("tokens", (S, arg), i32), ("starts", (S,), i32)] \
+                + table
+            fn = self._prefill_paged_program
+        else:
+            layout = [("tokens", (1, arg), i32), ("slot", (1,), i32),
+                      ("start", (1,), i32)]
+            fn = self._prefill_program
+        sampled = kind == "step" and arg != "greedy"
+        prog = Program(key, fn, layout, self.device, self._capture,
+                       self._pool, self._stream,
+                       self._generator if sampled else None)
+        self._programs[key] = prog
+        return prog
 
-    @torch.inference_mode()
-    def _prefill(self, slot: int, window: List[int], start: int) -> None:
-        """One chunk for one slot: the backbone over [1, C] tokens at
-        absolute positions start..start+C, writing the slot's cache row
-        in place (a view of the full cache); the hidden state is
-        discarded."""
-        toks = self._to_device(np.asarray([window], np.int64))
-        positions = (start + np.arange(len(window)))[None]
-        self.dmodel(toks, positions=positions,
-                    cache=self.cache.rows(slot, slot + 1), with_head=False)
+    def _prefill_program(self, x) -> None:
+        """One chunk for one slot: the slot's cache row sliced out, the
+        backbone over [1, C] tokens at positions start..start+C, the row
+        spliced back (the reference's dynamic slice and update, so one
+        program serves every slot); the hidden state is discarded."""
+        slot = x["slot"].long()
+        tokens = x["tokens"].long()
+        positions = (x["start"].long()[:, None]
+                     + torch.arange(tokens.shape[1], device=self.device))
+        row = self.cache.take_rows(slot)
+        self.dmodel.forward_device(tokens, positions, row)
+        self.cache.put_rows(slot, row)
 
-    @torch.inference_mode()
-    def _prefill_batched(self, toks: np.ndarray, starts: np.ndarray,
-                         pages: np.ndarray) -> None:
-        """One paged chunk for every slot row: [S, C] tokens at absolute
-        positions starts[b]..starts[b]+C, written into the pool through
-        the [S, nblk] page tables; the hidden state is discarded."""
-        positions = starts[:, None] + np.arange(toks.shape[1])[None]
-        self.dmodel(self._to_device(toks.astype(np.int64)),
-                    positions=positions, cache=self.cache, with_head=False,
-                    pages=pages)
+    def _prefill_paged_program(self, x) -> None:
+        """One paged chunk for every slot row: [S, C] tokens at positions
+        starts[b]..starts[b]+C, written into the pool through the [S,
+        nblk] page tables; the hidden state is discarded."""
+        tokens = x["tokens"].long()
+        positions = (x["starts"].long()[:, None]
+                     + torch.arange(tokens.shape[1], device=self.device))
+        self.dmodel.forward_device(tokens, positions, self.cache,
+                                   x["pages"])
 
-    @torch.inference_mode()
-    def _step(self, toks, use_prev, pos, temps, top_ks, top_ps, mode,
-              pages=None):
+    def _step(self, mode: str, x) -> None:
         """ONE token for ALL slots: [S] tokens at [S] cursors (through
         the [S, nblk] page tables in paged mode). A row's input is the
         previous step's device output (use_prev) or the host token (the
-        bonus token after prefill)."""
-        tokens = torch.where(self._to_device(use_prev), self._prev_tok,
-                             self._to_device(toks.astype(np.int64)))
-        h = self.dmodel(tokens[:, None], positions=pos[:, None],
-                        cache=self.cache, with_head=False, pages=pages)
+        bonus token after prefill). The sampled tokens go into the chain
+        `_prev_tok`, their logprobs into `_out_logp`."""
+        tokens = torch.where(x["use_prev"].bool(), self._prev_tok,
+                             x["toks"].long())
+        h = self.dmodel.forward_device(tokens[:, None],
+                                       x["pos"].long()[:, None], self.cache,
+                                       x.get("pages"))
         logits = head_logits(h[:, 0], self._table, self.model_config.dtype)
-        return sample_slots(logits, self._generator, self._to_device(temps),
-                            self._to_device(top_ks), self._to_device(top_ps),
-                            mode=mode)
+        tok, logp = sample_slots(logits, self._generator, x["temps"],
+                                 x["top_ks"], x["top_ps"], mode=mode)
+        self._prev_tok.copy_(tok)
+        self._out_logp.copy_(logp)
+
+    def _prefill(self, slot: int, window: List[int], start: int) -> None:
+        """Run the contiguous prefill program of this window's bucket.
+        Its multi-token cache write takes no drop branch, so the window
+        must end inside the cache; plan_chunks' windows always do in
+        contiguous mode (start 0: they end at the prompt or at the first
+        bucket)."""
+        end = start + len(window)
+        if end > self.model_config.max_len:
+            raise RuntimeError(f"prefill window [{start}, {end}) ends past "
+                               f"max_len={self.model_config.max_len}")
+        prog = self._program("prefill", len(window))
+        self._staging.upload(prog, {"tokens": window, "slot": [slot],
+                                    "start": [start]})
+        prog()
+
+    def _prefill_batched(self, toks: np.ndarray, starts: np.ndarray,
+                         pages: np.ndarray) -> None:
+        """Run the paged prefill program of this bucket over every slot
+        row ([S, C] tokens, [S] starts, [S, nblk] page tables)."""
+        prog = self._program("prefill", toks.shape[1])
+        self._staging.upload(prog, {"tokens": toks, "starts": starts,
+                                    "pages": pages})
+        prog()
 
     # -- the loop ---------------------------------------------------------
 
@@ -426,15 +527,18 @@ class ServingEngine:
             mode = "full"
         self._steps_dispatched += 1
         step_t0 = time.perf_counter()
-        pages = (self._page_table_array() if self.config.paged else None)
+        inputs = dict(toks=toks, use_prev=use_prev, pos=pos, top_ks=top_ks,
+                      temps=temps, top_ps=top_ps)
+        if self.config.paged:
+            inputs["pages"] = self._page_table_array()
+        prog = self._program("step", mode)
         with span("serve.decode_step"):
-            out_tok, out_logp = self._step(toks, use_prev, pos, temps,
-                                           top_ks, top_ps, mode, pages)
-            self._prev_tok = out_tok             # the device-side chain
+            self._staging.upload(prog, inputs)
+            prog()
             buf_tok, buf_lp = self._host_bufs[self._buf_i]
             self._buf_i ^= 1
-            buf_tok.copy_(out_tok, non_blocking=True)
-            buf_lp.copy_(out_logp, non_blocking=True)
+            buf_tok.copy_(self._prev_tok, non_blocking=True)
+            buf_lp.copy_(self._out_logp, non_blocking=True)
             event = None
             if self.device.type == "cuda":
                 event = torch.cuda.Event()

@@ -213,16 +213,13 @@ def test_no_real_page_written_by_two_rows_in_one_call(monkeypatch):
     _, _, tm = _models()
     seen = []
 
-    def recording(pages, pos_host, page_size, max_len, device):
-        index = tt_page_index(pages, pos_host, page_size, max_len, device)
-        rows = (index.src[0] if index.src is not None else
-                np.broadcast_to(np.arange(pos_host.shape[0])[:, None],
-                                pos_host.shape))
-        seen.append((np.asarray(index.page).ravel(),
-                     np.asarray(rows).ravel()))
+    def recording(table, pos, page_size, max_len):
+        index = tt_page_index(table, pos, page_size, max_len)
+        rows = np.broadcast_to(np.arange(pos.shape[0])[:, None], pos.shape)
+        seen.append((np.asarray(index.page).ravel(), rows.ravel()))
         return index
-    tt_page_index = tt.page_index
-    monkeypatch.setattr(tt, "page_index", recording)
+    tt_page_index = tt.page_index_device
+    monkeypatch.setattr(tt, "page_index_device", recording)
     rs = np.random.RandomState(5)
     shared = [int(t) for t in rs.randint(0, V, (24,))]
     trace = _mixed_trace() + [
@@ -239,16 +236,19 @@ def test_no_real_page_written_by_two_rows_in_one_call(monkeypatch):
 def test_prefill_beside_a_row_near_max_len(monkeypatch):
     """A batched prefill while another row decodes near max_len: that
     row runs the chunk at its own cursor, past max_len, where its writes
-    are dropped and its position lookups stay in the table; every
-    request still matches the contiguous engine."""
+    go to the trash page and its position lookups stay in the table;
+    every request still matches the contiguous engine."""
     _, _, tm = _models()
     dropped = []
 
-    def recording(pages, pos_host, page_size, max_len, device):
-        dropped.append(int((pos_host >= max_len).sum()))
-        return tt_page_index(pages, pos_host, page_size, max_len, device)
-    tt_page_index = tt.page_index
-    monkeypatch.setattr(tt, "page_index", recording)
+    def recording(table, pos, page_size, max_len):
+        index = tt_page_index(table, pos, page_size, max_len)
+        past = pos >= max_len
+        dropped.append(int(past.sum()))
+        assert not index.page[past].any()          # all to the trash page
+        return index
+    tt_page_index = tt.page_index_device
+    monkeypatch.setattr(tt, "page_index_device", recording)
     rs = np.random.RandomState(4)
     trace = [Request(i, [int(t) for t in rs.randint(0, V, (p,))], m)
              for i, (p, m) in enumerate([(2, 61), (2, 55), (20, 6)])]
