@@ -112,17 +112,45 @@ Phases, each of which fails the run (non-zero exit, no result line):
    in each sampling mode, prompts reaching both buckets) and the memory
    the engine reserved, then a profiled window of 20 steps: device time
    a step, idle share, host launch calls a step, and the profiler's
-   K4/K5 count against layers x steps.
+   K4/K5 count against layers x steps. The engine runs with its
+   telemetry and a tracer attached, as the benchmark always runs it:
+   every request's trace complete (hops tiling its end-to-end time) and
+   the host gap printed; the `serving` leg also logs its events to a
+   temporary directory (one slot_admit and one slot_retire a request)
+   and runs a hooks A/B (no telemetry, tracer or event log; alternated,
+   best of two an arm, greedy tokens identical).
+13. (Run after 12.) Speculative serving, the JAX bench's `serving_spec`
+   leg at full size through run_serving_benchmark: gpt2-medium, bf16,
+   decode_kernel=True, 8 slots, 32 greedy requests with a 128-token
+   shared prefix, buckets (32, 128), speculative="ngram", draft_k=4,
+   paged (pages of 64) and then contiguous (the trash row takes the
+   verify step's padded columns). Each: acceptance rate, effective
+   tokens a row-step, verify steps; tokens/s and TPOT p50/p99 with
+   speculation and without (alternated, best of two an arm) and whether
+   they moved beyond the arms' spread; at most len(_verify_buckets)
+   verify programs, each captured once; both arms' tokens and logprobs
+   against the teacher-forced dense path; every token where the arms
+   differ a near tie of the dense path (SPEC_MARGIN: the arms run other
+   kernels and GEMM shapes in bf16), and a planted fault (a draft token
+   accepted past the match) caught by that check; K4/K5 launched once a
+   layer a plain step and never in a verify step; profiled windows with
+   speculation on and off (device time a verify step against a plain
+   step, idle share). Then a contiguous f32 run with decode_kernel=False
+   (16 requests) whose greedy tokens must be identical between the arms.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
+import contextlib
 import dataclasses
+import gc
 import json
 import math
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -569,10 +597,12 @@ def profile_run(engine, trace, kernel=None, ticks=20):
     busy and idle share of that window, device time by kernel group and
     the host's CUDA runtime calls a step (launch calls: kernels and
     graphs). Kernels run on one stream and do not overlap, so their
-    summed time is the busy time. With `kernel`, the profiler's own count
-    of its launches in the window (graph replays included) must equal
-    layers x decode steps: a count that does not rest on the wrappers'
-    host counters. Returns the window's numbers."""
+    summed time is the busy time. A speculative engine's window mixes
+    verify steps (counted apart) with plain decode steps. With `kernel`,
+    the profiler's own count of its launches in the window (graph
+    replays included) must equal layers x plain decode steps: a count
+    that does not rest on the wrappers' host counters. Returns the
+    window's numbers."""
     from torch.profiler import ProfilerActivity, profile
     engine.reset()
     engine.start()
@@ -581,7 +611,7 @@ def profile_run(engine, trace, kernel=None, ticks=20):
     engine.tick()                                     # admits the trace
     while engine.scheduler.next_prefill() is not None:
         engine.tick()
-    steps0 = engine.steps_dispatched
+    steps0, verify0 = engine.steps_dispatched, engine.spec_steps
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -591,6 +621,7 @@ def profile_run(engine, trace, kernel=None, ticks=20):
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     steps = engine.steps_dispatched - steps0
+    verify = engine.spec_steps - verify0
     while engine.active:
         engine.tick()
     engine.finish()
@@ -607,12 +638,14 @@ def profile_run(engine, trace, kernel=None, ticks=20):
     busy = sum(g[0] for g in groups.values())
     n = max(steps, 1)
     launch_calls = sum(c for name, c in runtime.items() if "Launch" in name)
-    stats = dict(steps=steps, wall_ms_per_step=wall_us / 1e3 / n,
+    stats = dict(steps=steps, verify_steps=verify,
+                 device_busy_ms=busy / 1e3, wall_ms_per_step=wall_us / 1e3 / n,
                  device_ms_per_step=busy / 1e3 / n,
                  idle_share=1 - busy / wall_us,
                  launch_calls_per_step=launch_calls / n,
                  runtime_calls_per_step=sum(runtime.values()) / n)
-    log(f"  profile: {steps} decode steps, wall {wall_us / 1e3:.2f} ms "
+    log(f"  profile: {steps} decode steps ({verify} of them verify "
+        f"steps), wall {wall_us / 1e3:.2f} ms "
         f"({stats['wall_ms_per_step']:.3f} ms a step), device busy "
         f"{busy / 1e3:.2f} ms ({stats['device_ms_per_step']:.3f} ms a "
         f"step), idle share {stats['idle_share']:.3f}, host launch calls "
@@ -626,9 +659,9 @@ def profile_run(engine, trace, kernel=None, ticks=20):
     if kernel is not None:
         seen = groups.get(KERNEL_GROUPS[kernel], [0.0, 0])[1]
         layers = engine.model_config.num_layers
-        check(steps > 0 and seen == layers * steps,
-              f"the profiler saw {seen} {kernel} launches over {steps} "
-              f"decode steps of {layers} layers")
+        check(steps > 0 and seen == layers * (steps - verify),
+              f"the profiler saw {seen} {kernel} launches over "
+              f"{steps - verify} plain decode steps of {layers} layers")
         stats["profiled_kernel_launches"] = seen
     return stats
 
@@ -744,7 +777,8 @@ BENCH_COMMON = dict(size="medium", slots=8, num_requests=32,
                     prompt_grid=(32, 64, 128), new_grid=(32, 64),
                     chunk_buckets=(32, 128), compare_graphs=True)
 BENCH_LEGS = [
-    ("serving", dict(compare_sync=True), "decode_attention"),
+    ("serving", dict(compare_sync=True, compare_hooks=True),
+     "decode_attention"),
     ("serving-sampled", dict(temperature=0.8, baseline=False),
      "decode_attention"),
     ("serving_paged", dict(paged=True, page_size=64, shared_prefix_len=128,
@@ -766,25 +800,41 @@ def build_every_program(engine):
                                           (small // 2 + 1, 0.8, 0)]):
         engine.run([Request(900 + i, rs.randint(0, vocab, p).tolist(), 4,
                             temperature=temp, top_k=top_k)])
-    want = {"step": 3, "prefill": len(engine.config.chunk_buckets)}
+    want = {"step": 3, "prefill": len(engine.config.chunk_buckets),
+            "verify": 0}
     got = engine.compile_counts()
     check({k: got[k] for k in want} == want
           and engine.capture_counts() == (want if engine.cuda_graphs else
-                                          {"step": 0, "prefill": 0}),
+                                          dict.fromkeys(want, 0)),
           f"programs {got}, graphs {engine.capture_counts()}; expected "
           f"{want}")
 
 
-def moved(runs, key, higher_is_better):
-    """(best with graphs, best eager, spread, verdict) of `key`: the best
-    of each arm's two runs, the larger of the two arms' run-to-run
-    spreads, and whether the arms' bests differ by more than that."""
-    on = [r[key] for r in runs["graphs"]]
-    off = [r[key] for r in runs["eager"]]
+def moved(runs, key, higher_is_better, arms=("graphs", "eager")):
+    """(best of the first arm, best of the second, spread, verdict) of
+    `key`: the best of each arm's two runs, the larger of the two arms'
+    run-to-run spreads, and whether the arms' bests differ by more than
+    that."""
+    on = [r[key] for r in runs[arms[0]]]
+    off = [r[key] for r in runs[arms[1]]]
     pick = max if higher_is_better else min
     spread = max(max(on) - min(on), max(off) - min(off))
     diff = pick(on) - pick(off)
     return pick(on), pick(off), spread, abs(diff) > spread
+
+
+def ab_verdicts(m, arms):
+    """moved() of tokens/s and TPOT p50/p99 over the report's
+    serving_<arm>_runs of the two `arms`."""
+    runs = {arm: m[f"serving_{arm}_runs"] for arm in arms}
+    out = {}
+    for metric, key, higher in (("tokens_per_s", "tokens_per_sec", True),
+                                ("tpot_p50_ms", "run_tpot_p50_ms", False),
+                                ("tpot_p99_ms", "run_tpot_p99_ms", False)):
+        a, b, spread, beyond = moved(runs, key, higher, arms)
+        out[metric] = {arms[0]: a, arms[1]: b, "spread": spread,
+                       "moved_beyond_spread": beyond}
+    return out
 
 
 def bench_phase():
@@ -793,7 +843,14 @@ def bench_phase():
     once, every token of the graphs arm equal to the eager arm's (greedy
     and sampled), the sync A/B's greedy tokens equal. Prints tokens/s and
     TPOT p50/p99 of both arms and whether they moved beyond the arms'
-    run-to-run spread. Then, for the two bench legs, with graphs on and
+    run-to-run spread. The engine runs with ServeTelemetry and a
+    Tracer(sample=1.0) attached, as the benchmark always runs it: every
+    measured request's trace must be complete (its hops tile its
+    end-to-end time), and the host gap p50 is printed. The `serving` leg
+    also logs events to a temporary directory (a slot_admit and a
+    slot_retire a request) and runs the hooks A/B (the same settings with
+    no telemetry, tracer or event log, runs alternated, best of two an
+    arm). Then, for the two bench legs, with graphs on and
     off: every program built (`build_every_program`) and the memory the
     engine reserved, and a profiled window of 20 decode steps of 8
     requests: device time a step, idle share, host launch calls a step,
@@ -805,8 +862,30 @@ def bench_phase():
     from mpi_operator_tpu_torch.serve import EngineConfig, ServingEngine
     out = {}
     for leg, kw, kernel in BENCH_LEGS:
-        m = run_serving_benchmark(**BENCH_COMMON, **kw,
-                                  log=lambda line: log(f"  {line}"))
+        with tempfile.TemporaryDirectory() as tmp:
+            events = (os.path.join(tmp, "events.jsonl")
+                      if kw.get("compare_hooks") else None)
+            m = run_serving_benchmark(**BENCH_COMMON, **kw,
+                                      events_path=events,
+                                      log=lambda line: log(f"  {line}"))
+        check(m["serving_trace_complete"]
+              and m["serving_host_gap_p50_ms"] is not None,
+              f"{leg}: trace complete {m['serving_trace_complete']}, host "
+              f"gap p50 {m['serving_host_gap_p50_ms']}")
+        log(f"  [{leg}] hooks: host gap p50/p99 "
+            f"{m['serving_host_gap_p50_ms']}/{m['serving_host_gap_p99_ms']}"
+            f" ms, trace max gap {m['serving_trace_max_gap_ms']} ms, hops "
+            f"{json.dumps({k: v for k, v in m.items() if '_hop_' in k})}")
+        if kw.get("compare_hooks"):
+            n = BENCH_COMMON["num_requests"]
+            check(m["serving_events_logged"] == 2 * n
+                  and m["serving_hooks_greedy_identical"],
+                  f"{leg}: {m['serving_events_logged']} events for {n} "
+                  f"requests, tokens identical with and without hooks "
+                  f"{m['serving_hooks_greedy_identical']}")
+            m["hooks_ab"] = ab_verdicts(m, ("hooks", "nohooks"))
+            log(f"  [{leg}] hooks A/B: {json.dumps(m['hooks_ab'])}, cost "
+                f"{m['serving_hooks_cost']:.4f} of the hooks arm's wall")
         check(m["serving_no_recompile"]
               and m["serving_step_captures"] == m["serving_step_compiles"]
               and m["serving_prefill_captures"]
@@ -819,17 +898,8 @@ def bench_phase():
               f"{leg}: graphs and eager arms gave different tokens")
         check(m.get("serving_async_greedy_identical", True),
               f"{leg}: sync and async loops gave different greedy tokens")
-        runs = {arm: m[f"serving_{arm}_runs"] for arm in ("graphs", "eager")}
-        verdicts = {}
-        for metric, key, higher in (("tokens_per_s", "tokens_per_sec", True),
-                                    ("tpot_p50_ms", "run_tpot_p50_ms", False),
-                                    ("tpot_p99_ms", "run_tpot_p99_ms",
-                                     False)):
-            on, off, spread, beyond = moved(runs, key, higher)
-            verdicts[metric] = dict(graphs=on, eager=off, spread=spread,
-                                    moved_beyond_spread=beyond)
-        m["graphs_ab"] = verdicts
-        log(f"  [{leg}] graphs A/B: {json.dumps(verdicts)}")
+        m["graphs_ab"] = ab_verdicts(m, ("graphs", "eager"))
+        log(f"  [{leg}] graphs A/B: {json.dumps(m['graphs_ab'])}")
         if leg != "serving-sampled":
             paged = kw.get("paged", False)
             shared = kw.get("shared_prefix_len", 0)
@@ -843,6 +913,10 @@ def bench_phase():
                                      BENCH_COMMON["slots"], *grids,
                                      shared_prefix_len=shared)
             for graphs in (True, False):
+                # engines are freed by the cycle collector (their
+                # programs hold bound methods): collect them before the
+                # memory baseline, so the delta is this engine's alone
+                gc.collect()
                 torch.cuda.synchronize()
                 torch.cuda.empty_cache()
                 reserved = torch.cuda.memory_reserved()
@@ -871,10 +945,232 @@ def bench_phase():
                 "sequential_tokens_per_sec", "serving_vs_sequential",
                 "serving_async_speedup", "serving_prefix_hit_rate",
                 "serving_ttft_cold_p50_ms", "serving_ttft_hit_p50_ms",
-                "serving_pages_in_use_peak", "profile_graphs_True",
-                "profile_graphs_False")
+                "serving_pages_in_use_peak", "serving_host_gap_p50_ms",
+                "serving_host_gap_p99_ms", "serving_trace_complete",
+                "serving_nohooks_tokens_per_sec", "serving_hooks_cost",
+                "profile_graphs_True", "profile_graphs_False")
         log(f"  [{leg}] {json.dumps({k: m[k] for k in keys if k in m})}")
         out[leg] = m
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the speculative serving phase
+# ---------------------------------------------------------------------------
+
+# the JAX bench's serving_spec leg at full size (bench.py:558-583): the
+# paged serving leg with prompt-lookup drafting, then the same contiguous
+SPEC_COMMON = dict(size="medium", slots=8, num_requests=32,
+                   prompt_grid=(32, 64, 128), new_grid=(32, 64),
+                   chunk_buckets=(32, 128), shared_prefix_len=128,
+                   decode_kernel=True, speculative="ngram", draft_k=4,
+                   compare_spec=True, baseline=False)
+SPEC_LEGS = [
+    ("spec_paged", dict(paged=True, page_size=64), "paged_decode_attention"),
+    ("spec_contiguous", {}, "decode_attention"),
+]
+# where the spec and no-spec arms choose different greedy tokens, in
+# nats of the dense path's log-softmax: the verify step runs dense
+# attention and a W-row GEMM, the plain step K4/K5 and a 1-row GEMM, all
+# in bf16, and each arm stays within LOGPROB_TOL of the dense path
+# (check_results). So two tokens can differ only where the dense path's
+# top-2 margin is under that tolerance, and both must lie within it of
+# its argmax. A token accepted without a match lies far below it.
+SPEC_MARGIN = LOGPROB_TOL
+
+
+@contextlib.contextmanager
+def recorded_runs():
+    """Record every ServingEngine.run in the block as (engine, requests,
+    results, speculative)."""
+    from mpi_operator_tpu_torch.serve import ServingEngine
+    runs = []
+    run = ServingEngine.run
+
+    def recording(self, requests=(), on_token=None):
+        results = run(self, requests, on_token)
+        runs.append((self, list(requests), results,
+                     self.config.speculative))
+        return results
+    ServingEngine.run = recording
+    try:
+        yield runs
+    finally:
+        ServingEngine.run = run
+
+
+def first_divergences(dense, trace, got, want):
+    """For each greedy request whose tokens differ between the runs
+    `got` and `want`: the first index i where they do, the dense path's
+    top-2 margin at it (given the prompt and want's tokens before i) and
+    how far below the dense argmax each run's token lies, in nats."""
+    out = []
+    for req in trace:
+        if req.temperature > 0:
+            continue
+        a, b = got[req.id].tokens, want[req.id].tokens
+        i = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if i is None:
+            continue
+        logp = teacher_forced_logp(dense, req, b[:i + 1])[-1]
+        top2 = torch.topk(logp, 2).values
+        out.append(dict(request=req.id, index=i,
+                        margin=float(top2[0] - top2[1]),
+                        gap=float(top2[0] - logp[a[i]]),
+                        want_gap=float(top2[0] - logp[b[i]])))
+    return out
+
+
+def near_tie(d) -> bool:
+    return max(d["margin"], d["gap"], d["want_gap"]) <= SPEC_MARGIN
+
+
+def planted_fault_engine():
+    """A ServingEngine whose greedy acceptance takes one draft token more
+    than matched: the fault the identity check must catch. `planted`
+    counts the verify rows where the fault changed what was accepted."""
+    from mpi_operator_tpu_torch.serve import ServingEngine
+
+    class AcceptOneMore(ServingEngine):
+        planted = 0
+
+        def _accepted(self, draft, targets):
+            n = ServingEngine._accepted(draft, targets)
+            if n < len(draft):
+                self.planted += 1
+                return n + 1
+            return n
+    return AcceptOneMore
+
+
+def spec_phase(ops):
+    """run_serving_benchmark at each SPEC_LEGS leg, the spec A/B included
+    (no-spec, spec, no-spec after the measured spec run; best of two an
+    arm). Prints the acceptance rate, effective tokens a row-step, verify
+    steps, tokens/s and TPOT p50/p99 of both arms and whether they moved
+    beyond the arms' spread. Checks: the no-recompile contract with at
+    most len(_verify_buckets) verify programs (one sampling mode: the
+    trace is greedy), each captured once; both arms' tokens and logprobs
+    against the teacher-forced dense path (check_results); every token
+    where the arms differ a near tie (SPEC_MARGIN), and a planted fault
+    (one draft token accepted past the match) caught by that check; K4 /
+    K5 launched layers x plain decode steps in a spec run, no other
+    kernel. Then profiled windows with speculation on and off: device
+    time a verify step against a plain step, and the idle share. Last, a
+    decode_kernel=False contiguous run in f32 (16 requests) must give
+    the same greedy tokens with speculation and without."""
+    from mpi_operator_tpu_torch.examples.serve_benchmark import (
+        run_serving_benchmark)
+    from mpi_operator_tpu_torch.models import decode_model
+    out = {}
+    n = SPEC_COMMON["num_requests"]
+    for leg, kw, kernel in SPEC_LEGS:
+        with recorded_runs() as runs:
+            m = run_serving_benchmark(**SPEC_COMMON, **kw,
+                                      log=lambda line: log(f"  {line}"))
+        measured = [r for r in runs if len(r[1]) == n]
+        engine, trace, spec_res, _ = next(r for r in measured if r[3])
+        nospec_res = next(r for r in measured if r[3] is None)[2]
+        del runs, measured
+        counts, caps = engine.compile_counts(), engine.capture_counts()
+        check(m["serving_no_recompile"]
+              and 1 <= counts["verify"] <= len(engine._verify_buckets)
+              and caps == {k: counts[k] for k in caps},
+              f"{leg}: programs {counts}, CUDA graphs {caps}")
+        stats = {k: m[f"serving_spec_{k}"] for k in (
+            "acceptance_rate", "effective_tokens_per_step", "verify_steps",
+            "proposed", "accepted")}
+        m["spec_ab"] = ab_verdicts(m, ("spec", "nospec"))
+        log(f"  [{leg}] speculation: {json.dumps(stats)}; programs "
+            f"{counts}, graphs {caps}")
+        log(f"  [{leg}] spec A/B: {json.dumps(m['spec_ab'])}, spec over "
+            f"no-spec {m['serving_spec_speedup']:.4f}x in tokens/s, "
+            f"greedy tokens identical {m['serving_spec_greedy_identical']}")
+        dense = decode_model(engine.dmodel, decode_kernel=False)
+        for arm, res in (("spec", spec_res), ("nospec", nospec_res)):
+            n_pos, n_exact, worst = check_results(engine, trace, res,
+                                                  f"{leg}-{arm}")
+            log(f"  [{leg}] {arm} arm against the dense path: {n_exact} "
+                f"of {n_pos} greedy tokens its argmax, worst logprob "
+                f"deviation {worst:.4f}")
+        div = first_divergences(dense, trace, spec_res, nospec_res)
+        bad = [d for d in div if not near_tie(d)]
+        check(not bad, f"{leg}: spec and no-spec arms diverge off a near "
+              f"tie: {bad}")
+        log(f"  [{leg}] arms diverge in {len(div)} of {n} requests, each "
+            f"at a near tie (margins "
+            f"{sorted(round(d['margin'], 4) for d in div)})")
+        # the main path's launches: K4/K5 in the plain steps only
+        layers = engine.model_config.num_layers
+        engine.reset()
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        engine.run(trace)
+        torch.cuda.synchronize()
+        launched = dict(ops.launch_counts)
+        steps, verify = engine.steps_dispatched, engine.spec_steps
+        check(verify > 0 and launched[kernel] == layers * (steps - verify)
+              and all(c == 0 for k, c in launched.items() if k != kernel),
+              f"{leg}: launches {launched} over {steps} steps, {verify} of "
+              f"them verify steps, {layers} layers")
+        m["launches"] = {kernel: launched[kernel], "steps": steps,
+                         "verify_steps": verify}
+        log(f"  [{leg}] a spec run: {kernel} launched {launched[kernel]} "
+            f"times = {layers} layers x {steps - verify} plain steps "
+            f"({verify} verify steps run no kernel)")
+        # where a verify step's time goes: windows with speculation on
+        # (verify and plain steps) and off (plain steps only)
+        prof_spec = profile_run(engine, trace[:8], kernel)
+        engine.config.speculative = None
+        prof_plain = profile_run(engine, trace[:8], kernel)
+        engine.config.speculative = SPEC_COMMON["speculative"]
+        plain_ms = prof_plain["device_ms_per_step"]
+        v = prof_spec["verify_steps"]
+        verify_ms = ((prof_spec["device_busy_ms"] - plain_ms
+                      * (prof_spec["steps"] - v)) / v if v else None)
+        m["profile"] = dict(spec=prof_spec, nospec=prof_plain,
+                            verify_device_ms=verify_ms,
+                            plain_device_ms=plain_ms)
+        log(f"  [{leg}] device time a verify step {verify_ms} ms against "
+            f"{plain_ms:.4f} ms a plain step; idle share "
+            f"{prof_spec['idle_share']:.3f} with speculation, "
+            f"{prof_plain['idle_share']:.3f} without")
+        # the planted fault must fail the divergence check
+        fault = planted_fault_engine()(engine.dmodel, engine.config)
+        fault.run(trace[:2])
+        fault.reset()
+        fault_div = first_divergences(dense, trace, fault.run(trace),
+                                      nospec_res)
+        caught = [d for d in fault_div if not near_tie(d)]
+        check(fault.planted and caught, f"{leg}: a planted fault (one "
+              f"draft token accepted past the match, {fault.planted} "
+              f"times) passed the identity check: {fault_div}")
+        log(f"  [{leg}] planted fault ({fault.planted} rows accepted one "
+            f"draft token past the match) caught: {len(caught)} requests "
+            f"diverge off a near tie (first: {caught[0]})")
+        del fault, engine, dense, spec_res, nospec_res
+        torch.cuda.empty_cache()
+        keys = ("serving_tokens_per_sec", "serving_nospec_tokens_per_sec",
+                "serving_spec_speedup", "serving_tpot_p50_ms",
+                "serving_tpot_p99_ms", "serving_nospec_tpot_p50_ms",
+                "serving_nospec_tpot_p99_ms", "serving_ttft_p50_ms",
+                "serving_host_gap_p50_ms", "serving_verify_compiles",
+                "serving_verify_captures", "serving_step_compiles",
+                "serving_prefill_compiles", "serving_no_recompile",
+                "serving_trace_complete", "serving_prefix_hit_rate",
+                "launches", "profile")
+        log(f"  [{leg}] {json.dumps({k: m[k] for k in keys if k in m})}")
+        out[leg] = m
+    m = run_serving_benchmark(**dict(SPEC_COMMON, num_requests=16,
+                                     dtype_name="float32",
+                                     decode_kernel=False),
+                              log=lambda line: log(f"  {line}"))
+    check(m["serving_spec_greedy_identical"],
+          "f32, decode_kernel=False: spec and no-spec arms gave different "
+          "greedy tokens")
+    log(f"  [spec_f32_dense] greedy tokens identical between the arms; "
+        f"acceptance {m['serving_spec_acceptance_rate']:.4f}")
+    out["spec_f32_dense"] = m
     return out
 
 
@@ -1381,6 +1677,12 @@ def main() -> int:
         "at full size, CUDA graphs on and off")
     bench_phase()
     log(f"[bench] {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    log("[spec] run_serving_benchmark: the serving_spec leg at full size "
+        "(ngram drafts, draft_k 4), paged and contiguous, against no-spec")
+    spec_phase(ops)
+    log(f"[spec] {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     log("[train] gpt2-medium, bf16 over f32 masters, attention=flash, "

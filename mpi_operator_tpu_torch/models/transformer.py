@@ -45,11 +45,25 @@ drops positions >= max_len on the host (`page_index`, `_write`).
 (serve/programs.py, CUDA graphs on the card): positions and page tables
 are device tensors, every shape is fixed by the call's shape, and no
 branch reads position data. It sends a paged write past max_len to the
-trash page (`page_index_device`); its multi-token contiguous writes
-must lie inside the cache, which the caller checks on the host; its
-single-token write clamps. Both forms clamp the learned-position lookup
-(the identity below max_len; the outputs at positions past it are
-discarded) and agree bit for bit on every input both take.
+trash page (`page_index_device`). Its contiguous multi-token writes
+past max_len go to the TRASH ROW: the serving engine allocates its
+contiguous cache with one row more than it has slots
+(`new_cache(slots, trash_row=True)`), and a write at a position >=
+max_len lands in that last row instead of its own, the part page 0
+plays in paged mode (the reference's scatter drops such writes; its
+verify step sends a row's padded tail there). Which row a write takes
+depends on its position only on the device, and which rule applies
+only on the cache's shape, so a write at max_len - 1 and a padded
+write never land on the same element. A call of B rows reads the
+first B rows of the cache (`c[:B]`, a view with the strides of a
+B-row cache), so K4 and the dense path see exactly the rows they saw
+without the trash row. A cache with no trash row takes multi-token
+writes inside the cache only, which the caller checks on the host.
+The single-token write clamps its position to max_len - 1, as the
+reference's dynamic_update_slice does. Both forms clamp the
+learned-position lookup (the identity below max_len; the outputs at
+positions past it are discarded) and agree bit for bit on every input
+both take.
 
 Numerics mirror the flax modules op by op in the model dtype: matmuls
 round to it before the bias add, norms take their statistics in f32
@@ -165,9 +179,13 @@ class KVCache:
         self.layers = layers
 
     @classmethod
-    def zeros(cls, cfg: TransformerConfig, batch: int,
-              device) -> "KVCache":
-        return cls(_layer_caches(cfg, (batch, cfg.kv_heads, cfg.max_len),
+    def zeros(cls, cfg: TransformerConfig, batch: int, device,
+              trash_row: bool = False) -> "KVCache":
+        """`batch` zeroed rows, plus the trash row that takes device-form
+        multi-token writes past max_len when `trash_row` (see the module
+        docstring)."""
+        rows = batch + 1 if trash_row else batch
+        return cls(_layer_caches(cfg, (rows, cfg.kv_heads, cfg.max_len),
                                  device))
 
     def take_rows(self, idx: torch.Tensor) -> "KVCache":
@@ -275,13 +293,15 @@ def page_index_device(table: torch.Tensor, pos: torch.Tensor,
 
 def _write(c: torch.Tensor, u: torch.Tensor, pos: torch.Tensor,
            pos_host: Optional[torch.Tensor]) -> None:
-    """c [B, KV, L(, D)] <- u [B, KV, S(, D)] at per-row positions, in
-    place. A single-token write CLAMPS its position to L-1 (the
+    """c [B(+1), KV, L(, D)] <- u [B, KV, S(, D)] at per-row positions,
+    in place. A single-token write CLAMPS its position to L-1 (the
     reference's dynamic_update_slice); a multi-token write DROPS
     positions >= L (the reference's scatter with mode="drop") — chosen
     on the host from `pos_host`, so no device sync. With `pos_host`
-    None (`forward_device`) a multi-token write takes no branch: its
-    positions must lie below L, as the caller checks on the host."""
+    None (`forward_device`) a multi-token write takes no branch on the
+    data: into a cache with a trash row (B + 1 rows) a position >= L
+    goes to that row, into a B-row cache every position must lie below
+    L, as the caller checks on the host."""
     B, S = pos.shape
     L = c.shape[2]
     rows = torch.arange(B, device=c.device)
@@ -290,7 +310,12 @@ def _write(c: torch.Tensor, u: torch.Tensor, pos: torch.Tensor,
         return
     u = u.transpose(1, 2)                     # [B, S, KV(, D)]
     if pos_host is None:
-        c[rows[:, None], :, pos] = u
+        if c.shape[0] > B:                    # the trash row, row B
+            keep = pos < L
+            c[torch.where(keep, rows[:, None], B), :,
+              torch.where(keep, pos, pos % L)] = u
+        else:
+            c[rows[:, None], :, pos] = u
         return
     keep = pos_host < L
     if bool(keep.all()):
@@ -452,8 +477,8 @@ class Attention(nn.Module):
             def write(c, u):
                 _write(c, u, pos, pos_host)
 
-            def read(c):
-                return c
+            def read(c):                      # the call's rows: never
+                return None if c is None else c[:B]   # the trash row
         if cfg.kv_cache_dtype == "int8":
             k8, k_sc = _quantize_int8(k_t)
             v8, v_sc = _quantize_int8(v_t)
@@ -471,9 +496,10 @@ class Attention(nn.Module):
                     q[:, 0], cache.k, cache.v, pos[:, 0], pages.table,
                     k_scale=cache.k_scale, v_scale=cache.v_scale)
             else:
-                out = decode_attention(q[:, 0], cache.k, cache.v, pos[:, 0],
-                                       k_scale=cache.k_scale,
-                                       v_scale=cache.v_scale)
+                out = decode_attention(q[:, 0], read(cache.k),
+                                       read(cache.v), pos[:, 0],
+                                       k_scale=read(cache.k_scale),
+                                       v_scale=read(cache.v_scale))
             return out[:, None]
         if cache.k_scale is not None:
             keys = read(cache.k).to(dt) * read(cache.k_scale)[..., None].to(dt)
@@ -660,8 +686,8 @@ class CausalLM(nn.Module):
     def device(self) -> torch.device:
         return self.wte.weight.device
 
-    def new_cache(self, batch: int) -> KVCache:
-        return KVCache.zeros(self.config, batch, self.device)
+    def new_cache(self, batch: int, trash_row: bool = False) -> KVCache:
+        return KVCache.zeros(self.config, batch, self.device, trash_row)
 
     def new_paged_cache(self, num_pages: int,
                         page_size: int) -> PagedKVCache:
@@ -694,7 +720,8 @@ class CausalLM(nn.Module):
         holds: `pos` int64 [B, S] and, for a PagedKVCache, `table` int32
         [B, max_len // page_size] on the model's device. No host read, no
         branch on their values (see the module docstring); a contiguous
-        multi-token call must keep every position below max_len."""
+        multi-token call sends positions >= max_len to the cache's trash
+        row, and into a cache without one must keep them below max_len."""
         index = (page_index_device(table, pos, cache.page_size,
                                    self.config.max_len)
                  if self._paged(cache, table) else None)

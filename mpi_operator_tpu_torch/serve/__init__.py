@@ -11,11 +11,11 @@ See engine.py for the architecture notes; generate() remains the
 fixed-batch oracle the engine is parity-tested against.
 """
 from .engine import (  # noqa: F401
-    EngineConfig, RequestResult, ServingEngine, sample_slots,
+    EngineConfig, RequestResult, ServingEngine, propose_ngram, sample_slots,
 )
 from .scheduler import Request, RequestState, Scheduler, plan_chunks  # noqa: F401
 from .slots import PageAllocator, SlotManager  # noqa: F401
 
 __all__ = ["EngineConfig", "PageAllocator", "Request", "RequestResult",
            "RequestState", "Scheduler", "ServingEngine", "SlotManager",
-           "plan_chunks", "sample_slots"]
+           "plan_chunks", "propose_ngram", "sample_slots"]

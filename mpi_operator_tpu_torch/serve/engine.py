@@ -54,10 +54,29 @@ this engine serves the same model the way a front end needs it served:
   and one graph launch. `compile_counts()` holds the reference's
   no-recompile contract over them; `EngineConfig.cuda_graphs=False`
   runs the same programs eagerly, as the CPU always does.
-
-Not here (later slices of the port): speculative decoding and the
-telemetry / event-log / tracer hooks (with the paged mode's page
-gauges).
+- **Speculative decoding** (`EngineConfig.speculative`). A host-side
+  drafter proposes up to `draft_k` tokens a greedy row ("ngram":
+  prompt lookup in the request's own history, `propose_ngram`;
+  "draft": any callable handed to the engine), and ONE verify program
+  scores every row's [next input, drafts...] at consecutive cursors,
+  bucketed to <= 2 widths (`_verify_buckets`). Greedy acceptance keeps
+  the longest draft prefix equal to the previous column's argmax, then
+  the model's own next token: speculation changes when tokens are
+  computed, never which. The rejected tail is a cursor rewind
+  (SlotManager.rewind). A row's padded columns sit at max_len: paged,
+  their writes go to trash page 0; contiguous, to the cache's trash row
+  (models/transformer.py). The verify step attends through the dense
+  multi-token path, as the reference's does (its kernel gate is one
+  token a call); the plain steps between verify steps keep K4/K5.
+- **Hooks.** `telemetry=` (a telemetry.ServeTelemetry: TTFT, TPOT,
+  prefill, decode step and host-gap histograms, queue, slot and page
+  gauges, prefix and speculation counters), `events=` (a
+  telemetry.EventLog: slot_admit, slot_retire, request_timeout) and
+  `tracer=` (a telemetry.Tracer: per-request hop chains admission ->
+  prefill -> decode and a session span holding the decode and verify
+  step spans), all host bookkeeping: no program changes with them, and
+  tokens and program counts are the same with them on or off.
+  `set_heartbeat` installs a rate-limited load reporter.
 
 Parity: at temperature 0 a request produces token-for-token the output
 of `generate()` — pinned against the port's generate() and the JAX
@@ -75,6 +94,7 @@ import torch
 
 from ..models.generate import _categorical, cast_params, decode_model
 from ..models.transformer import CausalLM, head_logits
+from ..telemetry import events as ev
 from ..telemetry import span
 from ..utils.device import resolve_device
 from .programs import Program, Staging
@@ -91,8 +111,12 @@ class EngineConfig:
     the admission scan past a head-of-queue that does not fit;
     `request_timeout` (seconds, None = off) retires a request that
     outlives its deadline with finish_reason "timeout". `speculative`
-    raises until its slice of the port lands (its draft knobs come with
-    it). `cuda_graphs` False runs the engine's programs eagerly on the
+    (None = off) turns on multi-token verify: "ngram" self-drafts by
+    prompt lookup (`spec_ngram` caps the match length), "draft" calls
+    the engine's `drafter`; `draft_k` caps the tokens proposed a row a
+    verify step, and the verify program runs at <= 2 widths from {2,
+    draft_k + 1}. Sampling rows never draft; they ride along in column
+    0. `cuda_graphs` False runs the engine's programs eagerly on the
     card (the same programs, bit for bit; the CPU never captures).
 
     `paged` switches the cache to the page pool: `page_size` positions
@@ -112,7 +136,9 @@ class EngineConfig:
     prefix_cache: bool = True
     admit_lookahead: int = 8
     request_timeout: Optional[float] = None
-    speculative: Optional[str] = None
+    speculative: Optional[str] = None     # None | "ngram" | "draft"
+    draft_k: int = 4
+    spec_ngram: int = 3
     cuda_graphs: bool = True
 
 
@@ -181,6 +207,28 @@ def sample_slots(logits: torch.Tensor, generator: Optional[torch.Generator],
     return tok, logp.gather(-1, tok[:, None])[:, 0]
 
 
+def propose_ngram(history: Sequence[int], k: int,
+                  max_n: int = 3) -> List[int]:
+    """Prompt-lookup self-drafting: up to `k` tokens copied from what
+    followed the most recent EARLIER occurrence of the longest suffix
+    n-gram (n = max_n down to 1) of `history`; [] when nothing matches.
+    Wrong proposals cost a verify column, never a token."""
+    L = len(history)
+    out: List[int] = []
+    if k < 1 or L < 2:
+        return out
+    for n in range(min(max_n, L - 1), 0, -1):
+        pat = list(history[L - n:])
+        # right to left: the latest occurrence predicts a repeating tail
+        for s in range(L - n - 1, -1, -1):
+            if list(history[s:s + n]) == pat:
+                out = [int(t) for t in history[s + n:s + n + k]]
+                break
+        if out:
+            break
+    return out
+
+
 class ServingEngine:
     """Continuous-batching inference over a CausalLM.
 
@@ -193,20 +241,29 @@ class ServingEngine:
     decode-step loop to completion; `start`/`submit`/`tick`/`finish` are
     the same loop one iteration at a time."""
 
+    #: the hop a request's trace enters when its prompt finishes
+    #: prefilling (telemetry/trace.py taxonomy)
+    POST_PREFILL_HOP = "serve.decode"
+
     def __init__(self, model: CausalLM, config: Optional[EngineConfig] = None,
-                 device=None, telemetry=None, events=None, tracer=None):
+                 device=None, telemetry=None, events=None, drafter=None,
+                 tracer=None):
+        """telemetry: a telemetry.ServeTelemetry; events: a
+        telemetry.EventLog; tracer: a telemetry.Tracer (see the module
+        docstring; each None costs nothing). drafter: the
+        speculative="draft" proposal hook, callable(history, k) -> up to
+        k tokens (history = prompt + generated so far); correctness never
+        depends on what it returns."""
         cfg = config or EngineConfig()
-        for name, hook in (("telemetry", telemetry), ("events", events),
-                           ("tracer", tracer)):
-            if hook is not None:
-                raise NotImplementedError(
-                    f"{name}= is not ported yet: the engine's telemetry, "
-                    f"event-log and tracer hooks come with a later slice "
-                    f"of the PyTorch port")
-        if cfg.speculative is not None:
-            raise NotImplementedError(
-                "speculative decoding comes with a later slice of the "
-                "PyTorch port")
+        if cfg.speculative not in (None, "ngram", "draft"):
+            raise ValueError(f"speculative={cfg.speculative!r}: expected "
+                             f"None, 'ngram' or 'draft'")
+        if cfg.speculative is not None and cfg.draft_k < 1:
+            raise ValueError(f"draft_k={cfg.draft_k}: speculation needs "
+                             f"at least one proposed token")
+        if cfg.speculative == "draft" and drafter is None:
+            raise ValueError("speculative='draft' needs a drafter "
+                             "callable (history, k) -> tokens")
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model lives on {model.device}, the engine "
@@ -218,8 +275,20 @@ class ServingEngine:
             if b > mcfg.max_len:
                 raise ValueError(f"chunk bucket {b} exceeds "
                                  f"max_len={mcfg.max_len}")
+        self._drafter = drafter
+        # <= 2 verify widths: a narrow one for single-token proposals and
+        # the full draft_k + 1 (compile_counts pins this)
+        self._verify_buckets = tuple(sorted({min(2, cfg.draft_k + 1),
+                                             cfg.draft_k + 1}))
         self.config = cfg
         self.model_config = mcfg
+        self.telemetry = telemetry
+        self.events = events
+        self.tracer = tracer
+        # the session clock trace hops are stamped on, set while a
+        # session is open (tracing is inert without it)
+        self._trace_now: Optional[Callable[[], float]] = None
+        self._session_span = None
         # params cast once, device-resident across every step
         self.dmodel = cast_params(decode_model(model, cfg.decode_kernel),
                                   mcfg.dtype)
@@ -243,8 +312,14 @@ class ServingEngine:
             self._nblk = mcfg.max_len // ps
             self.cache = self.dmodel.new_paged_cache(NP, ps)
         else:
-            self.cache = self.dmodel.new_cache(S)
+            # one row more than the slots: the trash row that a verify
+            # step's padded columns write into (models/transformer.py)
+            self.cache = self.dmodel.new_cache(S, trash_row=True)
         self._cache_builds = 1
+        if telemetry is not None:
+            telemetry.slots.set(S)
+            if cfg.paged:
+                telemetry.pages_total.set(self.page_allocator.usable)
         # the device-side token chain: every step program, of every mode,
         # reads it at its start and writes its sampled tokens into it
         self._prev_tok = torch.zeros(S, dtype=torch.int64, device=self.device)
@@ -266,14 +341,22 @@ class ServingEngine:
              torch.zeros(S, dtype=torch.float32, pin_memory=pin))
             for _ in range(2)]
         self._buf_i = 0
+        # each verify width's static outputs (targets int64, logprobs
+        # f32, [S, W]) and their pinned host copies, made with its first
+        # program
+        self._verify_bufs: Dict[int, Tuple[torch.Tensor, ...]] = {}
         self._steps_dispatched = 0
         self._session: Optional[Dict] = None
+        # push-based load reporting (set_heartbeat): (hook, interval)
+        self._heartbeat = None
+        self._heartbeat_last: Optional[float] = None
         # high-water marks over a run: paged mode sustains more slots
         # than contiguous at equal cache bytes exactly when
         # pages_in_use_peak stays under the pool while occupancy_peak
         # exceeds the contiguous slot count
         self.occupancy_peak = 0
         self.pages_in_use_peak = 0
+        self._reset_spec_counters()
 
     # -- bookkeeping ------------------------------------------------------
 
@@ -298,19 +381,31 @@ class ServingEngine:
         self._generator.manual_seed(self.config.rng_seed)
         self._steps_dispatched = 0
         self._session = None
+        self._session_span = None
+        self._trace_now = None
         self.occupancy_peak = 0
         self.pages_in_use_peak = 0
+        self._reset_spec_counters()
+
+    def _reset_spec_counters(self) -> None:
+        # speculation run counters (spec_stats() derives the rates)
+        self.spec_proposed = 0       # draft tokens sent to verify
+        self.spec_accepted = 0       # draft tokens that matched argmax
+        self.spec_steps = 0          # verify steps run
+        self.spec_rows = 0           # consumer rows across verify steps
+        self.spec_tokens = 0         # tokens emitted by verify steps
 
     def compile_counts(self) -> Dict[str, int]:
         """Programs built, keyed as the reference's executable caches:
         the contract is `step <= 3` (one program per sample_slots mode),
-        `prefill <= len(chunk_buckets)` (one per bucket) whatever trace
-        ran, and no growth across reset(); `verify` stays 0 until
-        speculative decoding is ported; the cache and the cast params
-        are built once (`init_cache`, `cast`)."""
+        `prefill <= len(chunk_buckets)` (one per bucket) and `verify <=
+        len(_verify_buckets)` per sampling mode whatever trace ran, and
+        no growth across reset(); the cache and the cast params are
+        built once (`init_cache`, `cast`)."""
         kinds = [key[0] for key in self._programs]
         return {"step": kinds.count("step"),
-                "prefill": kinds.count("prefill"), "verify": 0,
+                "prefill": kinds.count("prefill"),
+                "verify": kinds.count("verify"),
                 "init_cache": self._cache_builds, "cast": self._casts}
 
     def capture_counts(self) -> Dict[str, int]:
@@ -318,8 +413,23 @@ class ServingEngine:
         compile_counts()' on the card with cuda_graphs on, 0 otherwise."""
         kinds = [key[0] for key, p in self._programs.items()
                  if p.graph is not None]
-        return {"step": kinds.count("step"),
-                "prefill": kinds.count("prefill")}
+        return {k: kinds.count(k) for k in ("step", "prefill", "verify")}
+
+    def spec_stats(self) -> Dict[str, float]:
+        """Speculation accounting since construction/reset().
+        effective_tokens_per_step is tokens emitted PER ROW per verify
+        step: 1.0 means drafts never helped, > 1.0 is sequential
+        forwards saved."""
+        return {
+            "proposed": self.spec_proposed,
+            "accepted": self.spec_accepted,
+            "verify_steps": self.spec_steps,
+            "spec_tokens": self.spec_tokens,
+            "acceptance_rate": (self.spec_accepted / self.spec_proposed
+                                if self.spec_proposed else 0.0),
+            "effective_tokens_per_step": (self.spec_tokens / self.spec_rows
+                                          if self.spec_rows else 0.0),
+        }
 
     @property
     def cuda_graphs(self) -> bool:
@@ -336,11 +446,29 @@ class ServingEngine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    # -- tracing ----------------------------------------------------------
+
+    def _trace(self, rid: int):
+        """The open RequestTrace of request `rid`, or None (no tracer,
+        id sampled out, or no session clock)."""
+        if self.tracer is None or self._trace_now is None:
+            return None
+        return self.tracer.active(rid)
+
+    def trace_abandon(self, now: float) -> None:
+        """The engine is dropped mid-session: close its session span so
+        the batch spans already recorded keep a parent."""
+        if self._session_span is not None:
+            self._session_span.abandon(now)
+            self._session_span = None
+        self._trace_now = None
+
     # -- device work: the programs ----------------------------------------
 
     def _program(self, kind: str, arg) -> Program:
-        """The program ("step", mode) or ("prefill", bucket), built at
-        its first use and kept for the engine's life."""
+        """The program ("step", mode), ("prefill", bucket) or ("verify",
+        (mode, width)), built at its first use and kept for the engine's
+        life."""
         key = (kind, self.config.paged, arg)
         prog = self._programs.get(key)
         if prog is not None:
@@ -353,6 +481,22 @@ class ServingEngine:
                       ("pos", (S,), i32), ("top_ks", (S,), i32),
                       ("temps", (S,), f32), ("top_ps", (S,), f32)] + table
             fn = functools.partial(self._step, arg)
+        elif kind == "verify":
+            mode, W = arg
+            layout = [("toks", (S, W), i32), ("pos", (S, W), i32),
+                      ("top_ks", (S,), i32), ("temps", (S,), f32),
+                      ("top_ps", (S,), f32)] + table
+            if W not in self._verify_bufs:
+                pin = self.device.type == "cuda"
+                self._verify_bufs[W] = (
+                    torch.zeros((S, W), dtype=torch.int64,
+                                device=self.device),
+                    torch.zeros((S, W), dtype=torch.float32,
+                                device=self.device),
+                    torch.zeros((S, W), dtype=torch.int64, pin_memory=pin),
+                    torch.zeros((S, W), dtype=torch.float32,
+                                pin_memory=pin))
+            fn = functools.partial(self._verify, mode, W)
         elif self.config.paged:
             layout = [("tokens", (S, arg), i32), ("starts", (S,), i32)] \
                 + table
@@ -361,7 +505,8 @@ class ServingEngine:
             layout = [("tokens", (1, arg), i32), ("slot", (1,), i32),
                       ("start", (1,), i32)]
             fn = self._prefill_program
-        sampled = kind == "step" and arg != "greedy"
+        sampled = ((kind == "step" and arg != "greedy")
+                   or (kind == "verify" and arg[0] != "greedy"))
         prog = Program(key, fn, layout, self.device, self._capture,
                        self._pool, self._stream,
                        self._generator if sampled else None)
@@ -408,6 +553,35 @@ class ServingEngine:
         self._prev_tok.copy_(tok)
         self._out_logp.copy_(logp)
 
+    def _verify(self, mode: str, W: int, x) -> None:
+        """ONE pass over [S, W] tokens at explicit [S, W] cursors (through
+        the page tables in paged mode): column 0 is each row's real next
+        input, columns 1.. its drafts, padded columns sit at max_len and
+        write into the trash row or page. Every column's K/V is written
+        before attention reads it and each query attends to positions <=
+        its own, so a rejected tail never reaches an accepted position.
+        One tied-head GEMM over S * W rows; column 0 through sample_slots
+        (a sampled row draws as in a plain step), columns 1.. through an
+        f32 argmax and log_softmax, the reduction sample_slots' greedy
+        branch runs, which token exactness rests on. Targets and
+        logprobs go into this width's static [S, W] buffers."""
+        h = self.dmodel.forward_device(x["toks"].long(), x["pos"].long(),
+                                       self.cache, x.get("pages"))
+        Sv, Wv, E = h.shape
+        logits = head_logits(h.reshape(Sv * Wv, E), self._table,
+                             self.model_config.dtype).reshape(Sv, Wv, -1)
+        tok0, lp0 = sample_slots(logits[:, 0], self._generator, x["temps"],
+                                 x["top_ks"], x["top_ps"], mode=mode)
+        f32 = logits.float()
+        greedy = torch.argmax(f32, dim=-1)
+        glp = torch.log_softmax(f32, dim=-1).gather(
+            -1, greedy[..., None])[..., 0]
+        targets, logprobs = self._verify_bufs[W][:2]
+        targets.copy_(greedy)
+        targets[:, 0].copy_(tok0)
+        logprobs.copy_(glp)
+        logprobs[:, 0].copy_(lp0)
+
     def _prefill(self, slot: int, window: List[int], start: int) -> None:
         """Run the contiguous prefill program of this window's bucket.
         Its multi-token cache write takes no drop branch, so the window
@@ -439,9 +613,18 @@ class ServingEngine:
         p1 = len(st.req.prompt) - 1
         window = list(st.req.prompt[w:min(w + size, p1)])
         window += [0] * (size - len(window))     # right-pad short prompts
+        t0 = time.perf_counter()
         with span("serve.prefill"):
             self._prefill(st.slot, window, w)
+        if self.telemetry is not None:
+            # the host's dispatch time: the next step's sync absorbs the
+            # device work still queued
+            self.telemetry.prefill_seconds.observe(time.perf_counter() - t0)
         st.pos = min(p1, w + size)
+        if not st.chunks:
+            rt = self._trace(st.req.id)
+            if rt is not None:
+                rt.begin_hop(self.POST_PREFILL_HOP, self._trace_now())
 
     def _page_table_array(self) -> np.ndarray:
         """[S, nblk] physical-page tables for every slot row, built anew
@@ -477,10 +660,17 @@ class ServingEngine:
             toks[st.slot, :len(window)] = window
             starts[st.slot] = w
             done.append((st, w, p1))
+        t0 = time.perf_counter()
         with span("serve.prefill"):
             self._prefill_batched(toks, starts, self._page_table_array())
+        if self.telemetry is not None:
+            self.telemetry.prefill_seconds.observe(time.perf_counter() - t0)
         for st, w, p1 in done:
             st.pos = max(st.pos, min(p1, w + size))
+            if not st.chunks:
+                rt = self._trace(st.req.id)
+                if rt is not None:
+                    rt.begin_hop(self.POST_PREFILL_HOP, self._trace_now())
             if self.config.prefix_cache:
                 self._publish_prompt_pages(st)
 
@@ -507,6 +697,50 @@ class ServingEngine:
             st.published_pages = k + 1
             st.publish_parent = page
 
+    def _launch(self, name: str, prog: Program, inputs: Dict,
+                copies) -> Optional["torch.cuda.Event"]:
+        """Stage `inputs`, run `prog`, queue the copies of its outputs
+        into pinned host buffers (`copies`: (host, device) pairs) and
+        return the event behind them (None on the CPU, where they are
+        done)."""
+        with span(name):
+            self._staging.upload(prog, inputs)
+            prog()
+            for host, dev in copies:
+                host.copy_(dev, non_blocking=True)
+            if self.device.type != "cuda":
+                return None
+            event = torch.cuda.Event()
+            event.record()
+            return event
+
+    def _wait(self, event, step_t0: float, *host: torch.Tensor):
+        """The loop's one blocking device wait: block on `event`, read
+        the `host` buffers (copies, as the buffers are reused), and feed
+        the telemetry how long the host was blocked and the step's
+        dispatch-to-sync time (in async mode it spans the iteration
+        hidden under the step). Returns the arrays and the sync time."""
+        gap_t0 = time.perf_counter()
+        if event is not None:
+            event.synchronize()
+        arrays = [h.numpy().copy() for h in host]
+        t_sync = time.perf_counter()
+        tel = self.telemetry
+        if tel is not None:
+            tel.host_gap_seconds.observe(t_sync - gap_t0)
+            tel.decode_step_seconds.observe(t_sync - step_t0)
+        return (*arrays, t_sync)
+
+    @staticmethod
+    def _mode(consumers: List[RequestState]) -> str:
+        """The cheapest sample_slots mode the consuming rows allow."""
+        sampling = [st.req for st in consumers if st.req.temperature > 0.0]
+        if not sampling:
+            return "greedy"
+        if all(1 <= r.top_k <= SAMPLE_POOL for r in sampling):
+            return "bounded"
+        return "full"
+
     def _dispatch_decode_step(self):
         """Build the step arrays and dispatch ONE decode step without
         waiting for its result. Returns the pending sync handle (host
@@ -518,31 +752,18 @@ class ServingEngine:
             self.slots.step_arrays()
         if not consumers:
             return None
-        sampling = [st.req for st in consumers if st.req.temperature > 0.0]
-        if not sampling:
-            mode = "greedy"
-        elif all(1 <= r.top_k <= SAMPLE_POOL for r in sampling):
-            mode = "bounded"
-        else:
-            mode = "full"
+        mode = self._mode(consumers)
         self._steps_dispatched += 1
         step_t0 = time.perf_counter()
         inputs = dict(toks=toks, use_prev=use_prev, pos=pos, top_ks=top_ks,
                       temps=temps, top_ps=top_ps)
         if self.config.paged:
             inputs["pages"] = self._page_table_array()
-        prog = self._program("step", mode)
-        with span("serve.decode_step"):
-            self._staging.upload(prog, inputs)
-            prog()
-            buf_tok, buf_lp = self._host_bufs[self._buf_i]
-            self._buf_i ^= 1
-            buf_tok.copy_(self._prev_tok, non_blocking=True)
-            buf_lp.copy_(self._out_logp, non_blocking=True)
-            event = None
-            if self.device.type == "cuda":
-                event = torch.cuda.Event()
-                event.record()
+        buf_tok, buf_lp = self._host_bufs[self._buf_i]
+        self._buf_i ^= 1
+        event = self._launch("serve.decode_step", self._program("step", mode),
+                             inputs, ((buf_tok, self._prev_tok),
+                                      (buf_lp, self._out_logp)))
         for st in consumers:
             st.pos += 1                          # the step wrote at pos
             st.dispatched += 1
@@ -556,23 +777,196 @@ class ServingEngine:
                 st.slot_released = True
         return buf_tok, buf_lp, event, consumers, step_t0
 
+    def _plan_drafts(self) -> Dict[int, List[int]]:
+        """{slot: draft tokens} for every row that can speculate this
+        step: decoding, temperature 0 (a sampled row's next token is a
+        draw, so there is nothing to verify), and >= 2 tokens of budget
+        left. Drafts are clamped to the budget, so a verify step's writes
+        stay inside the span the scheduler reserved, and cut at the first
+        id outside the vocabulary. The caller has synced any step in
+        flight: drafting reads the request's whole host history."""
+        cfg = self.config
+        planned: Dict[int, List[int]] = {}
+        vocab = self.model_config.vocab_size
+        for st in self.slots.states:
+            if st is None or st.prefilling or st.done:
+                continue
+            if st.req.temperature > 0.0:
+                continue
+            budget = st.req.max_new_tokens - st.dispatched - 1
+            if budget < 1:
+                continue
+            k = min(cfg.draft_k, budget)
+            hist = list(st.req.prompt) + st.generated
+            if cfg.speculative == "ngram":
+                raw = propose_ngram(hist, k, cfg.spec_ngram)
+            else:
+                raw = self._drafter(hist, k)
+            draft: List[int] = []
+            for t in raw[:k]:
+                t = int(t)
+                if not 0 <= t < vocab:
+                    break          # a garbage id: keep the prefix
+                draft.append(t)
+            if draft:
+                planned[st.slot] = draft
+        return planned
+
+    @staticmethod
+    def _accepted(draft: Sequence[int], targets: np.ndarray) -> int:
+        """Greedy acceptance: how many leading draft tokens equal the
+        verify step's targets (draft[j] is checked against the target of
+        the column before it, targets[j])."""
+        n = 0
+        while n < len(draft) and draft[n] == int(targets[n]):
+            n += 1
+        return n
+
+    def _spec_step(self, planned: Dict[int, List[int]], now_fn,
+                   on_token=None) -> List[RequestState]:
+        """Run ONE verify step over every decoding row and sync it:
+        drafting rows carry [next_input, drafts...] at consecutive
+        cursors, the other rows ride along in column 0, padded columns
+        sit at max_len. Greedy acceptance a row: the longest draft prefix
+        equal to the previous column's target, then the model's own next
+        token (every verify step emits >= 1 token a row), cut at an EOS.
+        The cursor advances over every written column and the rejected
+        tail is rewound (pure host bookkeeping: the dead K/V lies past
+        the cursor and the next write overwrites it). Synchronous:
+        acceptance decides the next step's inputs; host_next makes the
+        next plain step read the host token, not the device chain."""
+        cfg = self.config
+        Sn = cfg.slots
+        L = self.model_config.max_len
+        max_k = max((len(d) for d in planned.values()), default=0)
+        W = next(b for b in self._verify_buckets if b >= max_k + 1)
+        toks = np.zeros((Sn, W), np.int32)
+        posn = np.full((Sn, W), L, np.int32)   # max_len: a dropped write
+        temps = np.zeros((Sn,), np.float32)
+        top_ks = np.zeros((Sn,), np.int32)
+        top_ps = np.ones((Sn,), np.float32)
+        consumers: List[RequestState] = []
+        for st in self.slots.states:
+            if st is None or st.prefilling or st.done:
+                continue
+            if st.dispatched >= st.req.max_new_tokens:
+                continue                       # drained: final sync only
+            toks[st.slot, 0] = st.next_input
+            posn[st.slot, 0] = st.pos
+            temps[st.slot] = st.req.temperature
+            top_ks[st.slot] = st.req.top_k
+            top_ps[st.slot] = st.req.top_p
+            d = planned.get(st.slot, ())
+            if d:
+                toks[st.slot, 1:1 + len(d)] = d
+                posn[st.slot, 1:1 + len(d)] = \
+                    st.pos + 1 + np.arange(len(d))
+            consumers.append(st)
+        if not consumers:
+            return []
+        mode = self._mode(consumers)
+        self._steps_dispatched += 1
+        step_t0 = time.perf_counter()
+        inputs = dict(toks=toks, pos=posn, top_ks=top_ks, temps=temps,
+                      top_ps=top_ps)
+        if cfg.paged:
+            inputs["pages"] = self._page_table_array()
+        prog = self._program("verify", (mode, W))
+        dev_tg, dev_lp, host_tg, host_lp = self._verify_bufs[W]
+        event = self._launch("serve.verify_step", prog, inputs,
+                             ((host_tg, dev_tg), (host_lp, dev_lp)))
+        tg, lp, t_sync = self._wait(event, step_t0, host_tg, host_lp)
+        tel = self.telemetry
+        now = now_fn()
+        ps = cfg.page_size if cfg.paged else None
+        finished: List[RequestState] = []
+        self.spec_steps += 1
+        spec_p0, spec_a0 = self.spec_proposed, self.spec_accepted
+        for st in consumers:
+            d = planned.get(st.slot, [])
+            row_t, row_l = tg[st.slot], lp[st.slot]
+            accepted = self._accepted(d, row_t)
+            emit = accepted + 1          # the model's own token is free
+            eos = st.req.eos_id
+            if eos is not None:
+                for j in range(emit):    # nothing streams past an EOS
+                    if int(row_t[j]) == eos:
+                        emit = j + 1
+                        break
+            written = len(d) + 1         # columns this row really wrote
+            st.pos += written
+            if written > emit:
+                self.slots.rewind(st.slot, written - emit, page_size=ps)
+            st.dispatched += emit
+            if d:
+                self.spec_proposed += len(d)
+                self.spec_accepted += accepted
+                if tel is not None:
+                    tel.spec_proposed_total.inc(len(d))
+                    tel.spec_accepted_total.inc(accepted)
+                    tel.spec_acceptance_ratio.observe(accepted / len(d))
+            self.spec_rows += 1
+            self.spec_tokens += emit
+            if tel is not None:
+                tel.spec_tokens_per_step.observe(emit)
+            for j in range(emit):
+                t = int(row_t[j])
+                if tel is not None:
+                    if st.token_times:
+                        tel.tpot_seconds.observe(now - st.token_times[-1])
+                    else:
+                        tel.ttft_seconds.observe(now - st.req.arrival)
+                    tel.tokens_total.inc()
+                st.generated.append(t)
+                st.logprobs.append(float(row_l[j]))
+                st.token_times.append(now)
+                if on_token is not None:
+                    on_token(st.req, t)
+            st.next_input = int(row_t[emit - 1])
+            st.host_next = True          # the device chain token is stale
+            if (eos is not None and st.generated
+                    and st.generated[-1] == eos):
+                st.finish_reason = "eos"
+            elif len(st.generated) >= st.req.max_new_tokens:
+                st.finish_reason = "length"
+            if st.done:
+                finished.append(st)
+        if self._session_span is not None:
+            # a batch span under the session root, stamped at the sync
+            dur = t_sync - step_t0
+            self._session_span.child(
+                "serve.verify_step", now - dur, dur,
+                batch=len(consumers),
+                proposed=self.spec_proposed - spec_p0,
+                accepted=self.spec_accepted - spec_a0)
+        return finished
+
     def _sync_decode_step(self, pending, now_fn, on_token=None) \
             -> List[RequestState]:
         """Host-sync a dispatched step: wait for its event (the only
         blocking device wait in the loop), stream its tokens, mark
         EOS/length retirements. A consumer already done at sync time took
         its one post-EOS junk step; its junk token is discarded here."""
-        buf_tok, buf_lp, event, consumers, _ = pending
-        if event is not None:
-            event.synchronize()
-        out_tok = buf_tok.numpy().copy()
-        out_logp = buf_lp.numpy().copy()
+        buf_tok, buf_lp, event, consumers, step_t0 = pending
+        out_tok, out_logp, t_sync = self._wait(event, step_t0, buf_tok,
+                                               buf_lp)
+        tel = self.telemetry
         now = now_fn()
+        if self._session_span is not None:
+            dur = t_sync - step_t0
+            self._session_span.child("serve.decode_step", now - dur, dur,
+                                     batch=len(consumers))
         finished = []
         for st in consumers:
             if st.done:
                 continue
             t = int(out_tok[st.slot])
+            if tel is not None:
+                if st.token_times:
+                    tel.tpot_seconds.observe(now - st.token_times[-1])
+                else:
+                    tel.ttft_seconds.observe(now - st.req.arrival)
+                tel.tokens_total.inc()
             st.next_input = t
             st.generated.append(t)
             st.logprobs.append(float(out_logp[st.slot]))
@@ -588,11 +982,35 @@ class ServingEngine:
         return finished
 
     def _note_admissions(self, admitted: List[RequestState]) -> None:
+        """Bind newly admitted states to their rows and record the
+        admission: the trace's hop, the slot_admit event and the prefix
+        cache's page counters."""
+        alloc = self.page_allocator
+        tel = self.telemetry
         timeout = self.config.request_timeout
         for st in admitted:
             if timeout is not None:
                 st.deadline = st.admitted_at + timeout
             self.slots.bind(st)
+            rt = self._trace(st.req.id)
+            if rt is not None:
+                # admission ends where the scheduler stamped it; a fully
+                # cached prompt skips straight to the post-prefill hop
+                rt.begin_hop("serve.prefill" if st.chunks
+                             else self.POST_PREFILL_HOP,
+                             st.admitted_at,
+                             cached_tokens=st.cached_tokens)
+            if self.events is not None:
+                self.events.emit(ev.SLOT_ADMIT, request=st.req.id,
+                                 slot=st.slot,
+                                 prompt_len=len(st.req.prompt),
+                                 cached_tokens=st.cached_tokens)
+            if tel is not None and alloc is not None:
+                ps = alloc.page_size
+                full = (len(st.req.prompt) - 1) // ps
+                hit = st.cached_tokens // ps
+                tel.prefix_hit_pages.inc(hit)
+                tel.prefix_miss_pages.inc(full - hit)
 
     def _retire_state(self, st: RequestState,
                       results: Dict[int, RequestResult]) -> None:
@@ -609,6 +1027,20 @@ class ServingEngine:
             for p in st.owned_pages:
                 self.page_allocator.release(p)
             st.owned_pages = []
+        if self.events is not None:
+            self.events.emit(
+                ev.SLOT_RETIRE, request=st.req.id, slot=st.slot,
+                finish_reason=st.finish_reason,
+                new_tokens=len(st.generated))
+        if self.telemetry is not None:
+            self.telemetry.requests_total.inc()
+        rt = self._trace(st.req.id)
+        if rt is not None:
+            rt.attrs.update(finish_reason=st.finish_reason,
+                            new_tokens=len(st.generated),
+                            cached_tokens=st.cached_tokens)
+            rt.finish("timeout" if st.finish_reason == "timeout"
+                      else "ok", self._trace_now())
         results[st.req.id] = RequestResult(
             id=st.req.id, tokens=list(st.generated),
             logprobs=list(st.logprobs),
@@ -631,6 +1063,13 @@ class ServingEngine:
                 continue
             st.finish_reason = "timeout"
             st.chunks = []
+            if self.events is not None:
+                self.events.emit(ev.REQUEST_TIMEOUT, request=st.req.id,
+                                 slot=st.slot,
+                                 new_tokens=len(st.generated),
+                                 deadline_seconds=self.config
+                                 .request_timeout,
+                                 trace=st.req.id)
             self._retire_state(st, results)
 
     # -- steppable session ------------------------------------------------
@@ -648,6 +1087,37 @@ class ServingEngine:
             now_fn = lambda: time.perf_counter() - t0   # noqa: E731
         self._session = {"results": {}, "pending": None,
                          "on_token": on_token, "now_fn": now_fn}
+        self._trace_now = now_fn
+        if self.tracer is not None:
+            self._session_span = self.tracer.begin_session(
+                now_fn(), slots=self.config.slots)
+
+    def set_heartbeat(self, hook: Callable[..., None],
+                      interval: float) -> None:
+        """Install a push-based load reporter: at most once per
+        `interval` seconds of session time, tick() calls
+        ``hook(now=..., queue_depth=..., free_slots=..., free_pages=...)``
+        with this engine's load."""
+        if interval <= 0:
+            raise ValueError(f"heartbeat interval must be > 0, got "
+                             f"{interval}")
+        self._heartbeat = (hook, float(interval))
+        self._heartbeat_last = None
+
+    def _maybe_heartbeat(self, now: float) -> None:
+        """The rate-limited report of set_heartbeat, if one is set."""
+        if self._heartbeat is None:
+            return
+        hook, interval = self._heartbeat
+        last = self._heartbeat_last
+        if last is not None and now - last < interval:
+            return
+        self._heartbeat_last = now
+        alloc = self.page_allocator
+        hook(now=now,
+             queue_depth=len(self.scheduler.queue),
+             free_slots=len(self.slots.free),
+             free_pages=alloc.available if alloc is not None else 0)
 
     def submit(self, req: Request) -> None:
         """Queue one request into the open session; raises ValueError for
@@ -665,6 +1135,14 @@ class ServingEngine:
                     f"pages but the pool has {alloc.usable} usable "
                     f"(raise num_pages or lower max_new_tokens)")
         self.scheduler.submit(req)
+        if self.tracer is not None:
+            # open (or join) this request's trace; admission begins now
+            rt = self.tracer.begin_request(
+                req.id, t0=req.arrival, prompt_len=len(req.prompt),
+                max_new_tokens=req.max_new_tokens)
+            if rt is not None:
+                rt.begin_hop("serve.admission",
+                             max(req.arrival, self._session["now_fn"]()))
 
     @property
     def active(self) -> bool:
@@ -693,6 +1171,7 @@ class ServingEngine:
         now = now_fn()
         self._sweep_timeouts(now, results)
         alloc = self.page_allocator
+        tel = self.telemetry
         with span("serve.schedule"):
             self._note_admissions(self.scheduler.admit(
                 self.slots.free, now, allocator=alloc))
@@ -700,6 +1179,14 @@ class ServingEngine:
         if alloc is not None:
             self.pages_in_use_peak = max(self.pages_in_use_peak,
                                          alloc.in_use)
+        if tel is not None:
+            tel.queue_depth.set(len(self.scheduler.queue))
+            tel.slot_occupancy.set(self.slots.occupied)
+            if alloc is not None:
+                tel.pages_in_use.set(alloc.in_use)
+                tel.pages_cached.set(alloc.cached_pages)
+        # after admission: the queue that still waits behind the slots
+        self._maybe_heartbeat(now)
         pending = sess["pending"]
         if self.slots.occupied == 0 and pending is None:
             nxt = self.scheduler.next_arrival()
@@ -711,8 +1198,23 @@ class ServingEngine:
                 self._run_prefill_batched(st)
             else:
                 self._run_prefill_chunk(st)
-        new_pending = (self._dispatch_decode_step()
-                       if self.scheduler.decoding() else None)
+        planned = {}
+        if (self.config.speculative is not None
+                and self.scheduler.decoding()):
+            # drafting reads the host-known history and acceptance decides
+            # the next step's inputs: drain the step in flight first
+            if pending is not None:
+                retire(self._sync_decode_step(pending, now_fn, on_token))
+                pending = None
+            planned = self._plan_drafts()
+        if planned:
+            retire(self._spec_step(planned, now_fn, on_token))
+            new_pending = None
+        else:
+            # no row drafted (novel text, sampled rows, spent budgets):
+            # a plain step, its dispatch overlap intact
+            new_pending = (self._dispatch_decode_step()
+                           if self.scheduler.decoding() else None)
         if pending is not None:
             retire(self._sync_decode_step(pending, now_fn, on_token))
             pending = None
@@ -728,6 +1230,17 @@ class ServingEngine:
         sess = self._session
         if sess is None:
             raise RuntimeError("finish() outside a session")
+        tel = self.telemetry
+        if tel is not None:
+            counts = self.compile_counts()
+            tel.step_compiles.set(counts["step"])
+            tel.prefill_compiles.set(counts["prefill"])
+            tel.queue_depth.set(len(self.scheduler.queue))
+            tel.slot_occupancy.set(self.slots.occupied)
+        if self._session_span is not None:
+            self._session_span.end(sess["now_fn"]())
+            self._session_span = None
+        self._trace_now = None
         self._session = None
         return sess["results"]
 
@@ -748,10 +1261,12 @@ class ServingEngine:
                     if nxt is not None and nxt > now:
                         time.sleep(min(nxt - now, 0.05))
         except BaseException:
+            if self._session is not None:
+                self.trace_abandon(self._session["now_fn"]())
             self._session = None
             raise
         return self.finish()
 
 
 __all__ = ["EngineConfig", "RequestResult", "SAMPLE_POOL", "ServingEngine",
-           "sample_slots"]
+           "propose_ngram", "sample_slots"]

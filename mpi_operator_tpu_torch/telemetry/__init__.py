@@ -1,5 +1,27 @@
-"""Telemetry of the PyTorch port: profiler spans (the engine's live
-metrics, event log and tracer hooks come with a later slice)."""
-from .spans import span  # noqa: F401
+"""Telemetry of the PyTorch port: the metrics core, the Prometheus
+/metrics exporter, the event log, the per-request tracer, the worker's
+instrument bundles (the port's own copies of the JAX package's
+framework-free modules) and profiler/NVTX spans."""
+from .core import Counter, Gauge, Histogram, Registry
+from .events import (BoundEventLog, EventLog, read_events,
+                     REQUEST_TIMEOUT, SLOT_ADMIT, SLOT_RETIRE)
+from .prometheus import (CONTENT_TYPE, TelemetryServer, escape_label_value,
+                         format_value, histogram_lines, render_registry)
+from .spans import span
+from .trace import (RequestTrace, SessionSpan, Tracer, build_trees,
+                    hop_percentiles, hop_spans, orphan_spans,
+                    read_trace_spans, render_tree, trace_sum_gap)
+from .worker import ServeTelemetry, TrainTelemetry, WorkerTelemetry
 
-__all__ = ["span"]
+__all__ = [
+    "Counter", "Gauge", "Histogram", "Registry",
+    "BoundEventLog", "EventLog", "read_events",
+    "REQUEST_TIMEOUT", "SLOT_ADMIT", "SLOT_RETIRE",
+    "CONTENT_TYPE", "TelemetryServer", "escape_label_value", "format_value",
+    "histogram_lines", "render_registry",
+    "span",
+    "RequestTrace", "SessionSpan", "Tracer", "build_trees",
+    "hop_percentiles", "hop_spans", "orphan_spans", "read_trace_spans",
+    "render_tree", "trace_sum_gap",
+    "ServeTelemetry", "TrainTelemetry", "WorkerTelemetry",
+]

@@ -20,7 +20,11 @@ the capture counts stay fixed over two traces and a reset(); a replay
 draws new noise and a rewound generator replays the same draws; kernel
 launches inside replays are counted; a graph survives a later, larger
 launch that regrows the decode workspace; and an EOS costs the async
-loop one junk step under replay, as it does eagerly.
+loop one junk step under replay, as it does eagerly. Speculative
+decoding's verify programs keep the same: replayed bit-equal to eager,
+greedy and sampled, captured once and never again across reset(); and
+K4 over the first `slots` rows of the contiguous cache with its trash
+row reads exactly what it read without one.
 """
 import numpy as np
 import pytest
@@ -87,9 +91,10 @@ def test_replay_is_bit_equal_to_eager(cuda_device, family, kv, paged):
     assert on.compile_counts() == off.compile_counts()
     counts = on.compile_counts()
     assert on.capture_counts() == {"step": counts["step"],
-                                   "prefill": counts["prefill"]}
+                                   "prefill": counts["prefill"],
+                                   "verify": 0}
     assert counts["step"] == 3                 # the trace ran every mode
-    assert off.capture_counts() == {"step": 0, "prefill": 0}
+    assert off.capture_counts() == {"step": 0, "prefill": 0, "verify": 0}
 
 
 @pytest.mark.cuda
@@ -255,3 +260,96 @@ def test_eos_costs_one_junk_step_under_replay(cuda_device):
     for r in trace:
         assert a[r.id].tokens == b[r.id].tokens == c[r.id].tokens
         assert a[r.id].finish_reason == c[r.id].finish_reason
+
+
+def _spec_trace(seed, n=10, sampled=True):
+    """Repetitive prompts (a short motif repeated) so prompt lookup
+    drafts from the first step; with `sampled`, every other request
+    samples (bounded pool) and rides the verify steps in column 0."""
+    rs = np.random.RandomState(seed)
+    out = []
+    for i in range(n):
+        motif = [int(t) for t in rs.randint(0, V, (int(rs.randint(2, 5)),))]
+        prompt = (motif * 12)[:int(rs.randint(6, 30))]
+        temp = 0.8 if sampled and i % 2 else 0.0
+        out.append(Request(i, prompt, max_new_tokens=int(rs.randint(6, 16)),
+                           temperature=temp, top_k=20 if temp else 0))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sampled", [False, True])
+@pytest.mark.parametrize("paged", [False, True])
+def test_verify_replay_is_bit_equal_to_eager(cuda_device, paged, sampled):
+    """Speculative engines with graphs and without on the same trace:
+    every token and logprob equal, greedy and sampled rows; verify steps
+    ran, each verify program captured once with graphs on and none
+    without."""
+    model = _model("gpt2")
+    trace = _spec_trace(7, sampled=sampled)
+    on = _engine(model, True, paged, speculative="ngram")
+    off = _engine(model, False, paged, speculative="ngram")
+    a, b = on.run(trace), off.run(trace)
+    assert on.spec_stats()["verify_steps"] > 0
+    assert on.spec_stats() == off.spec_stats()
+    for r in trace:
+        assert a[r.id].tokens == b[r.id].tokens, f"request {r.id}"
+        assert a[r.id].logprobs == b[r.id].logprobs, f"request {r.id}"
+    counts = on.compile_counts()
+    assert counts == off.compile_counts()
+    assert 1 <= counts["verify"] <= len(on._verify_buckets) * 3
+    assert on.capture_counts() == {k: counts[k]
+                                   for k in ("step", "prefill", "verify")}
+    assert off.capture_counts() == {"step": 0, "prefill": 0, "verify": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paged", [False, True])
+def test_verify_capture_counts_fixed_across_reset(cuda_device, paged):
+    model = _model("gpt2")
+    engine = _engine(model, True, paged, speculative="ngram")
+    a = engine.run(_spec_trace(8))
+    first = (engine.compile_counts(), engine.capture_counts())
+    assert first[1]["verify"] >= 1
+    engine.reset()
+    b = engine.run(_spec_trace(8))
+    assert (engine.compile_counts(), engine.capture_counts()) == first
+    for rid in a:                       # a reset engine replays its draws
+        assert a[rid].tokens == b[rid].tokens
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", [None, "int8"])
+def test_decode_kernel_over_the_slot_rows_ignores_the_trash_row(
+        cuda_device, kv):
+    """K4 over cache[:slots] of the engine's contiguous cache (slots + 1
+    rows) is bit-equal to K4 over a cache of exactly `slots` rows with
+    the same contents, whatever the trash row holds."""
+    model = _model("gpt2", kv=kv, max_len=512)
+    S = 4
+    with_trash = model.new_cache(S, trash_row=True)
+    plain = model.new_cache(S)
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    for a, b in zip(with_trash.layers, plain.layers):
+        for t, u in zip(a.tensors(), b.tensors()):
+            if t.dtype == torch.int8:
+                t.copy_(torch.randint(-127, 128, t.shape, generator=g,
+                                      device=cuda_device))
+            else:
+                t.copy_(torch.rand(t.shape, generator=g,
+                                   device=cuda_device))
+            u.copy_(t[:S])
+            t[S:].fill_(1e4 if t.is_floating_point() else 127)
+    cfg = model.config
+    q = torch.randn(S, cfg.num_heads, cfg.head_dim, generator=g,
+                    device=cuda_device).bfloat16()
+    cur = torch.tensor([0, 100, 311, 511], device=cuda_device)
+    a, b = with_trash.layers[0], plain.layers[0]
+    got = ops.decode_attention(
+        q, a.k[:S], a.v[:S], cur,
+        k_scale=None if a.k_scale is None else a.k_scale[:S],
+        v_scale=None if a.v_scale is None else a.v_scale[:S])
+    want = ops.decode_attention(q, b.k, b.v, cur, k_scale=b.k_scale,
+                                v_scale=b.v_scale)
+    assert a.k[:S].stride() == b.k.stride()
+    assert torch.equal(got, want)

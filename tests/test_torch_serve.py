@@ -219,15 +219,25 @@ def test_engine_sampling_in_support_and_reproducible():
 
 
 def test_engine_refuses_what_is_not_ported():
+    """Every engine option of the reference is ported now: the paged
+    cache, speculative decoding and the telemetry hooks each run one
+    request token-exact; what the engine still refuses is what the
+    reference refuses (an unknown speculative mode, a span past
+    max_len)."""
+    from mpi_operator_tpu_torch.telemetry import ServeTelemetry
     _, _, tm = _pair()
-    # the paged cache is ported: one request runs, token-exact
     req = Request(0, [5, 9, 2, 7], max_new_tokens=4)
     paged = _engine(tm, paged=True, page_size=8)
     assert paged.run([req])[0].tokens == _oracle(tm, req)
     assert paged.page_allocator.in_use == 0
-    with pytest.raises(NotImplementedError, match="speculative"):
-        _engine(tm, speculative="ngram")
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        ServingEngine(tm, EngineConfig(), device="cpu", telemetry=object())
+    spec = _engine(tm, speculative="ngram")
+    assert spec.run([req])[0].tokens == _oracle(tm, req)
+    tel = ServeTelemetry()
+    hooked = ServingEngine(tm, EngineConfig(slots=4, chunk_buckets=(4, 8)),
+                           device="cpu", telemetry=tel)
+    assert hooked.run([req])[0].tokens == _oracle(tm, req)
+    assert tel.requests_total.value == 1
+    with pytest.raises(ValueError, match="speculative"):
+        _engine(tm, speculative="turbo")
     with pytest.raises(ValueError, match="max_len"):
         _engine(tm).run([Request(0, [1] * 60, max_new_tokens=10)])

@@ -1,14 +1,19 @@
 """The port's serving benchmark (examples/serve_benchmark.py) against
 the JAX one, on the CPU at a tiny size: gpt2-test, f32, two slots, four
-requests, contiguous (with the sequential baseline and the sync A/B)
-and paged with a shared prefix. Both report the same keys under the
-same names, except the ones whose slices are not ported yet (the host
-gap and the tracer's fields; none is emitted with a made-up value) and
-the port's own (captures, the device, the graphs A/B); the programs
-stay within the no-recompile contract; the sequential generate()
-baseline produces the engine's greedy tokens; the arguments of later
-slices raise NotImplementedError.
+requests, contiguous (with the sequential baseline and the sync A/B),
+paged with a shared prefix, and speculative with the spec A/B. Both
+report the same keys under the same names (the host gap, the tracer's
+hop fields and trace completeness included), besides the port's own
+(captures, the device, the A/B runs); the programs stay within the
+no-recompile contract; the sequential generate() baseline produces the
+engine's greedy tokens; /metrics serves the engine's live series while
+the trace replays; the hooks A/B and the event log count what they
+should; `profile_dir` (a later slice) raises NotImplementedError.
 """
+import json
+import re
+import urllib.request
+
 import numpy as np
 import pytest
 
@@ -21,11 +26,13 @@ SMALL = dict(size="test", slots=2, num_requests=4, prompt_grid=(4, 8),
              new_grid=(3, 5), chunk_buckets=(4, 8), dtype_name="float32")
 LEGS = {"contiguous": dict(baseline=True, compare_sync=True),
         "paged": dict(baseline=False, paged=True, page_size=8,
-                      shared_prefix_len=8)}
-#: keys of slices still to port (telemetry and tracing: ROADMAP step 5)
-WAITING = ("serving_host_gap_", "serving_hop_", "serving_trace_")
+                      shared_prefix_len=8),
+        "spec": dict(baseline=False, speculative="ngram",
+                     compare_spec=True)}
 PORT_ONLY = {"serving_step_captures", "serving_prefill_captures",
-             "serving_cuda_graphs", "serving_device"}
+             "serving_cuda_graphs", "serving_device",
+             "serving_verify_captures", "serving_spec_verify_steps",
+             "serving_spec_runs", "serving_nospec_runs"}
 
 
 @pytest.mark.parametrize("leg", sorted(LEGS))
@@ -49,8 +56,10 @@ def test_report_keys_contract_and_baseline(leg, monkeypatch):
                                     log=lambda s: None)
     theirs = jax_run_serving_benchmark(**SMALL, **LEGS[leg],
                                        log=lambda s: None)
-    kept = {k for k in theirs if not k.startswith(WAITING)}
-    assert set(ours) - PORT_ONLY == kept
+    assert set(ours) - PORT_ONLY == set(theirs)
+    assert ours["serving_trace_complete"] is True
+    assert ours["serving_host_gap_p50_ms"] >= 0
+    assert 0 <= ours["serving_trace_max_gap_ms"] < 1.0
     assert ours["serving_no_recompile"] is True
     assert ours["serving_step_compiles"] == 1            # all greedy
     assert ours["serving_prefill_compiles"] <= 2
@@ -64,6 +73,13 @@ def test_report_keys_contract_and_baseline(leg, monkeypatch):
     if leg == "paged":
         assert ours["serving_prefix_hit_requests"] > 0
         assert ours["serving_pages_in_use_peak"] > 0
+    elif leg == "spec":
+        assert 1 <= ours["serving_verify_compiles"] <= 2
+        assert ours["serving_verify_captures"] == 0      # the CPU
+        assert ours["serving_spec_greedy_identical"] is True
+        assert ours["serving_spec_speedup"] > 0
+        assert len(ours["serving_spec_runs"]) == 2
+        assert len(ours["serving_nospec_runs"]) == 2
     else:
         assert ours["serving_async_greedy_identical"] is True
         trace, measured = next((reqs, res) for reqs, res in engine_results
@@ -89,11 +105,66 @@ def test_graphs_ab_on_the_cpu_runs_the_same_programs():
 
 
 @pytest.mark.parametrize("kw,step", [
-    (dict(speculative="ngram"), 4), (dict(compare_spec=True), 4),
-    (dict(metrics_port=0), 5), (dict(profile_dir="/nonexistent"), 6)])
+    (dict(profile_dir="/nonexistent"), 6)])
 def test_later_slices_raise(kw, step):
+    """Only the profiler window (ROADMAP step 6) is still to port; the
+    speculative, compare_spec and metrics_port arguments run (the tests
+    below and the `spec` leg above)."""
     with pytest.raises(NotImplementedError, match=f"step {step}"):
         sb.run_serving_benchmark(**SMALL, device="cpu", **kw)
+    with pytest.raises(ValueError, match="compare_spec requires"):
+        sb.run_serving_benchmark(**SMALL, device="cpu", compare_spec=True)
+
+
+def test_metrics_port_serves_the_live_engine(monkeypatch):
+    """metrics_port=0 starts /metrics on a free port: scraped on
+    localhost right after the measured run, it shows the engine's
+    tpu_worker_* series with that run's counts."""
+    scraped = []
+    port = []
+    run = ServingEngine.run
+
+    def scraping_run(self, requests=(), on_token=None):
+        results = run(self, requests, on_token)
+        if len(requests) == SMALL["num_requests"] and not scraped:
+            url = f"http://127.0.0.1:{port[0]}/metrics"
+            with urllib.request.urlopen(url, timeout=10) as resp:
+                scraped.append(resp.read().decode())
+        return results
+    monkeypatch.setattr(ServingEngine, "run", scraping_run)
+
+    def log(line):
+        m = re.search(r"listening on port (\d+)", line)
+        if m:
+            port.append(int(m.group(1)))
+    out = sb.run_serving_benchmark(**SMALL, baseline=False, metrics_port=0,
+                                   device="cpu", log=log)
+    assert port and scraped
+    text = scraped[0]
+    warm = len(set(SMALL["prompt_grid"]))
+    assert (f"tpu_worker_requests_total {SMALL['num_requests'] + warm}"
+            in text)
+    assert "tpu_worker_ttft_seconds_bucket" in text
+    assert "tpu_worker_host_gap_seconds_count" in text
+    assert out["serving_trace_complete"] is True
+
+
+def test_hooks_ab_and_event_log(tmp_path):
+    """compare_hooks runs the trace through an engine with no hooks as
+    well (alternated, best of two): greedy tokens identical; the event
+    log holds one slot_admit and one slot_retire a measured request."""
+    path = tmp_path / "events.jsonl"
+    m = sb.run_serving_benchmark(**SMALL, baseline=False, compare_hooks=True,
+                                 events_path=str(path), device="cpu",
+                                 log=lambda s: None)
+    assert m["serving_hooks_greedy_identical"] is True
+    assert m["serving_events_logged"] == 2 * SMALL["num_requests"]
+    assert m["serving_nohooks_tokens_per_sec"] > 0
+    assert len(m["serving_hooks_runs"]) == len(m["serving_nohooks_runs"]) \
+        == 2
+    kinds = [json.loads(line)["event"]
+             for line in path.read_text().splitlines()]
+    assert set(kinds) == {"slot_admit", "slot_retire"}
 
 
 def test_cache_length_rounds_as_the_reference():

@@ -115,7 +115,8 @@ def test_compile_counts_stay_fixed_and_equal_jax(paged, guarded_programs):
     assert second["init_cache"] == 1 and second["cast"] == 1
     assert second["verify"] == 0
     assert _counts(ours) == {k: theirs.compile_counts()[k] for k in PINNED}
-    assert ours.capture_counts() == {"step": 0, "prefill": 0}   # CPU
+    assert ours.capture_counts() == {"step": 0, "prefill": 0,
+                                     "verify": 0}              # CPU
     ours.reset()
     b = ours.run(t0)
     assert ours.compile_counts() == second
