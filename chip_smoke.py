@@ -137,6 +137,26 @@ Phases, each of which fails the run (non-zero exit, no result line):
    speculation on and off (device time a verify step against a plain
    step, idle share). Then a contiguous f32 run with decode_kernel=False
    (16 requests) whose greedy tokens must be identical between the arms.
+14. (Run after 11.) Training that survives preemption, gpt2-medium at
+   full width, bf16, attention="flash", 16 x 512, through
+   run_lm_benchmark's resilient path in a temporary directory (at least
+   20 GB free, or the phase fails): periodic async checkpoints every 12
+   steps keeping 2 (torch.distributed.checkpoint). A and A': two
+   uninterrupted runs to step 25, compared bit for bit (params, mu,
+   nu, losses). B1: TPU_FAULT_INJECT=sigterm-at-step:18 must end in
+   Preempted (exit code 215) with step_18 committed and preemption_drain
+   then emergency_checkpoint in events.jsonl. B2: stop_at_step=25
+   resumes from step_18 (checkpoint_restore and first_resume_step
+   logged) and must end equal to A — params, mu, nu and opt.count bit
+   for bit and the losses of the steps it ran — or, if A and A' differ,
+   within twice their difference. Each run's K1-K3 launches equal 24 x
+   the steps it executed (warmup included). Prints, with the card's name
+   and power limit: the emergency save's seconds and bytes, step time
+   in windows holding a periodic save against windows without one, the
+   device clone against a pinned host copy of the state, restore and
+   first-resumed-step seconds, the writer's thread count. Then the CLI
+   at 2 layers: sigterm-at-step:5 exits 215 with step_5, and the resume
+   with --stop-at-step 8 exits 0 with step_8.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -1502,6 +1522,266 @@ def profile_train(trainer, state, batch, step_ms, steps=2):
             f"a step self CPU, {e.count // steps:5d} calls a step  {e.key[:60]}")
 
 
+# ---------------------------------------------------------------------------
+# the train-resume phase
+# ---------------------------------------------------------------------------
+
+# gpt2-medium at the bench's gpt2 leg, through run_lm_benchmark's
+# resilient path: uninterrupted to RESUME_T twice (A, A'), then SIGTERM
+# at RESUME_KILL (between the periodic saves at 12 and 24) and a resume
+# to RESUME_T. Windows of 10 timed steps after 3 warmup steps cover
+# global steps 4-13 (the save at 12) and 14-23 (none).
+RESUME_T, RESUME_KILL, RESUME_EVERY, RESUME_KEEP = 25, 18, 12, 2
+RESUME_COMMON = dict(workload="gpt2", size="medium", batch_per_device=16,
+                     seq_len=512, warmup_steps=3, attention="flash",
+                     ckpt_every=RESUME_EVERY, ckpt_keep=RESUME_KEEP)
+# a run writes up to keep + 2 checkpoints of ~4.25 GB (keep_last, the
+# in-flight periodic write, the final or emergency save)
+RESUME_DISK_BYTES = 20e9
+
+
+def resumed_run(name, ops, train_dir, resumed_from=0, **kw):
+    """One run_lm_benchmark of the drill with the kernel counts zeroed
+    just before and read just after: K1-K3 each once a layer for every
+    step THIS run executed (warmup included), the decode kernels never,
+    and every update applied (opt.count == step). Returns (state,
+    metrics or the Preempted, log lines)."""
+    from mpi_operator_tpu_torch.examples.lm_benchmark import run_lm_benchmark
+    from mpi_operator_tpu_torch.models.transformer import lm_config
+    from mpi_operator_tpu_torch.train.resilience import Preempted
+    lines = []
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    state = None
+    try:
+        state, out = run_lm_benchmark(train_dir=train_dir, log=lines.append,
+                                      **RESUME_COMMON, **kw)
+        end = state.step
+        check(int(state.opt.count) == end,
+              f"{name}: opt.count {int(state.opt.count)} != step {end}")
+    except Preempted as p:      # the state stays inside the run
+        out, end = p.with_traceback(None), p.step
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(ops.launch_counts)
+    layers = lm_config(f"{RESUME_COMMON['workload']}-"
+                       f"{RESUME_COMMON['size']}").num_layers
+    ran = end - resumed_from
+    check(all(counts[k] == layers * ran for k in FLASH_KERNELS),
+          f"{name}: flash launches {counts} over the {ran} steps "
+          f"({resumed_from} -> {end}) of {layers} layers it ran")
+    check(all(n == 0 for k, n in counts.items() if k not in FLASH_KERNELS),
+          f"{name}: other kernels launched: {counts}")
+    log(f"  {name}: steps {resumed_from} -> {end} in {wall:.2f} s, "
+        f"K1-K3 {counts['flash_fwd']} launches each = {layers} x {ran}")
+    return state, out, lines
+
+
+def window_step_ms(lines, base, every, tokens_per_step):
+    """(window's last global step, ms a step, holds a save dispatch) for
+    each window line of a benchmark log ("<i>\ttokens/sec: <tps>\t...");
+    `base` is the global step before the first timed step."""
+    out, prev = [], 0
+    for line in lines:
+        m = re.match(r"(\d+)\ttokens/sec: (\d+)", line)
+        if m:
+            i, tps = int(m.group(1)), float(m.group(2))
+            lo, hi = base + prev + 1, base + i
+            out.append((hi, tokens_per_step / tps * 1e3,
+                        any(s % every == 0 for s in range(lo, hi + 1))))
+            prev = i
+    return out
+
+
+def flat_state(state):
+    return {"params": state.params, "mu": state.opt.mu, "nu": state.opt.nu}
+
+
+def max_diff(a, b):
+    return {k: float((a[k] - b[k]).abs().max()) for k in a}
+
+
+def snapshot_costs(state):
+    """What a save's snapshot costs the training stream, the two designs
+    timed on the same 4.25 GB: a device clone (kept) against a copy into
+    pinned host memory on the critical path, CUDA events, after one
+    untimed pass of each."""
+    tensors = list(flat_state(state).values())
+    pinned = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+              for t in tensors]
+    costs = {}
+    for name, fn in (("clone", lambda: [t.clone() for t in tensors]),
+                     ("pinned", lambda: [h.copy_(t, non_blocking=True)
+                                         for h, t in zip(pinned, tensors)])):
+        fn()
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        got = fn()
+        end.record()
+        torch.cuda.synchronize()
+        costs[name] = start.elapsed_time(end)
+        del got
+    del pinned
+    torch.cuda.empty_cache()
+    return costs
+
+
+def cli_leg(train_dir, fault=None, *extra):
+    """python -m mpi_operator_tpu_torch.examples.lm_benchmark as the
+    controller starts a worker: gpt2-medium width, 2 layers, 16 x 512."""
+    env = dict(os.environ)
+    env.pop("TPU_FAULT_INJECT", None)
+    if fault:
+        env["TPU_FAULT_INJECT"] = fault
+    cmd = [sys.executable, "-m", "mpi_operator_tpu_torch.examples."
+           "lm_benchmark", "--size", "medium", "--num-layers", "2",
+           "--batch-per-device", "16", "--seq-len", "512", "--attention",
+           "flash", "--warmup-steps", "1", "--num-steps", "20",
+           "--train-dir", train_dir, *extra]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
+                         env=env)
+    return out, time.perf_counter() - t0
+
+
+def train_resume_phase(ops):
+    """The preemption drill at full gpt2-medium width on the card: A and
+    A' uninterrupted (bit-equal, or the op that is not deterministic is
+    named and the resume held to their difference), B1 preempted by
+    TPU_FAULT_INJECT=sigterm-at-step:RESUME_KILL (Preempted with step_k
+    committed, preemption_drain then emergency_checkpoint logged), B2
+    resumed to RESUME_T (first_resume_step logged; params, mu, nu,
+    opt.count and its losses equal A's); each run's launch counts are
+    layers x its own steps. Then the CLI pair at 2 layers: 215 with
+    step_5, 0 with step_8. Prints the save, restore and first-step
+    seconds with the card's name and power limit."""
+    import shutil
+    from mpi_operator_tpu_torch.telemetry import read_events
+    from mpi_operator_tpu_torch.train import checkpoint as ck
+    from mpi_operator_tpu_torch.train.resilience import (
+        PREEMPTED_EXIT, Preempted, drain_latency_from_events)
+
+    root = tempfile.mkdtemp(prefix="train-resume-")
+    try:
+        free = shutil.disk_usage(root).free
+        check(free >= RESUME_DISK_BYTES,
+              f"[train-resume] needs {RESUME_DISK_BYTES / 1e9:.0f} GB free "
+              f"under {root} for its checkpoints, has {free / 1e9:.1f} GB")
+        log(f"  {device_line()}; {free / 1e9:.1f} GB free under the temp "
+            f"dir; DCP FileSystemWriter thread_count {ck.WRITER_THREADS}")
+        tokens_per_step = (RESUME_COMMON["batch_per_device"]
+                           * RESUME_COMMON["seq_len"])
+        runs, windows = {}, []
+        for name in ("A", "A'"):
+            d = os.path.join(root, name.replace("'", "2"))
+            state, m, lines = resumed_run(
+                name, ops, d, num_steps=RESUME_T - 3)
+            check(state.step == RESUME_T, f"{name}: ended at {state.step}")
+            windows += window_step_ms(lines, 3, RESUME_EVERY,
+                                      tokens_per_step)
+            info = ck.last_save_info()
+            log(f"  {name}: final save {info['bytes']} bytes, to host "
+                f"{info['to_host_seconds']:.3f} s, write "
+                f"{info['write_seconds']:.3f} s; periodic saves "
+                f"{[l for l in lines if 'async checkpoint' in l]}")
+            runs[name] = ({k: v.clone() for k, v in flat_state(state).items()},
+                          m["step_losses"])
+            if name == "A":
+                costs = snapshot_costs(state)
+                log(f"  snapshot of {info['bytes']} bytes: device clone "
+                    f"{costs['clone']:.3f} ms, pinned host copy "
+                    f"{costs['pinned']:.3f} ms (CUDA events)")
+            del state
+            shutil.rmtree(d, ignore_errors=True)
+            torch.cuda.empty_cache()
+        (fa, la), (fa2, la2) = runs["A"], runs["A'"]
+        det = all(torch.equal(fa[k], fa2[k]) for k in fa) and la == la2
+        diff_aa = max_diff(fa, fa2)
+        log(f"  A vs A': bit-equal {det}; max |A - A'| {diff_aa}; losses "
+            f"equal {la == la2}")
+        with_save = [ms for _, ms, s in windows if s]
+        without = [ms for _, ms, s in windows if not s]
+        log(f"  periodic async save: step time {with_save} ms in windows "
+            f"holding a save dispatch, {without} ms in windows without "
+            f"one ({device_line()})")
+
+        d = os.path.join(root, "B")
+        os.environ["TPU_FAULT_INJECT"] = f"sigterm-at-step:{RESUME_KILL}"
+        try:
+            state, p, lines = resumed_run(
+                "B1", ops, d, num_steps=RESUME_T - 3)
+        finally:
+            del os.environ["TPU_FAULT_INJECT"]
+        check(isinstance(p, Preempted) and p.step == RESUME_KILL
+              and p.exit_code == PREEMPTED_EXIT,
+              f"B1: expected Preempted at {RESUME_KILL}, got {p!r}")
+        check(ck.latest_checkpoint(d).endswith(f"step_{RESUME_KILL}"),
+              f"B1: newest checkpoint {ck.latest_checkpoint(d)}")
+        kinds = [e["event"] for e in read_events(
+            os.path.join(d, "events.jsonl"))]
+        check(kinds[-2:] == ["preemption_drain", "emergency_checkpoint"],
+              f"B1: events {kinds}")
+        info = ck.last_save_info()
+        drain, _ = drain_latency_from_events(os.path.join(d, "events.jsonl"))
+        log(f"  B1: blocking emergency save of step {info['step']}: "
+            f"{drain:.3f} s drain (preemption_drain -> emergency_checkpoint),"
+            f" {info['bytes']} bytes, to host {info['to_host_seconds']:.3f} "
+            f"s, write {info['write_seconds']:.3f} s ({device_line()})")
+        ck.reset_saved_state()
+
+        state, m, lines = resumed_run(
+            "B2", ops, d, resumed_from=RESUME_KILL, num_steps=100,
+            stop_at_step=RESUME_T)
+        check(any(f"resumed from" in l and f"step_{RESUME_KILL}" in l
+                  for l in lines), "B2 did not resume from the drill's step")
+        events = read_events(os.path.join(d, "events.jsonl"))
+        restore = [e for e in events if e["event"] == "checkpoint_restore"]
+        first = [e for e in events if e["event"] == "first_resume_step"]
+        check(restore and first, f"B2: events {[e['event'] for e in events]}")
+        got = flat_state(state)
+        diff = max_diff(got, fa)
+        ran = m["step_losses"]
+        want = la[-len(ran):]
+        if det:
+            check(all(torch.equal(got[k], fa[k]) for k in fa)
+                  and int(state.opt.count) == RESUME_T and ran == want,
+                  f"B2 differs from A: max |B - A| {diff}, losses {ran} "
+                  f"vs {want}")
+        else:
+            check(all(diff[k] <= 2 * diff_aa[k] for k in diff),
+                  f"B2 vs A {diff} beyond twice A vs A' {diff_aa}")
+        log(f"  B2: resumed from step {restore[0]['step']}, restore "
+            f"{restore[0]['seconds']:.3f} s ({restore[0]['leaves']} leaves, "
+            f"{ck.last_restore_info()['bytes']} bytes), first resumed step "
+            f"{first[0]['step']} after {first[0]['seconds']:.3f} s; final "
+            f"state vs A bit-equal {all(diff[k] == 0 for k in diff)}, max "
+            f"|B - A| {diff}; losses of steps {RESUME_T - len(ran) + 1}-"
+            f"{RESUME_T} equal A's {ran == want} ({device_line()})")
+        del state, runs, fa, fa2, got
+        shutil.rmtree(d, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+        d = os.path.join(root, "cli")
+        out, secs = cli_leg(d, "sigterm-at-step:5")
+        check(out.returncode == PREEMPTED_EXIT
+              and os.path.isdir(os.path.join(d, "step_5")),
+              f"CLI preempted leg: rc {out.returncode}\n{out.stdout[-1500:]}"
+              f"\n{out.stderr[-1500:]}")
+        out2, secs2 = cli_leg(d, None, "--stop-at-step", "8")
+        check(out2.returncode == 0 and os.path.isdir(os.path.join(d, "step_8"))
+              and "step_5" in out2.stdout,
+              f"CLI resume leg: rc {out2.returncode}\n{out2.stdout[-1500:]}"
+              f"\n{out2.stderr[-1500:]}")
+        log(f"  CLI (2 layers): sigterm-at-step:5 exit {out.returncode} with "
+            f"step_5 in {secs:.1f} s; --stop-at-step 8 exit 0 with step_8 in "
+            f"{secs2:.1f} s; {out2.stdout.strip().splitlines()[-1]}")
+    finally:
+        ck.wait_for_checkpoints()
+        shutil.rmtree(root, ignore_errors=True)
+
+
 # the warp-specialised flash kernels: 384 threads at 168 registers fill
 # the register file, which setmaxnreg splits 40/232 between the producer
 # and the consumer warpgroups
@@ -1709,6 +1989,13 @@ def main() -> int:
                 batch_per_device=8, seq_len=512, num_layers=2, num_steps=10,
                 warmup_steps=2, attention="flash")
     log(f"[train-llama] {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    log(f"[train-resume] gpt2-medium, bf16, attention=flash, 16 x 512: "
+        f"uninterrupted to step {RESUME_T} twice, SIGTERM at step "
+        f"{RESUME_KILL}, resume; the CLI pair at 2 layers")
+    train_resume_phase(ops)
+    log(f"[train-resume] {time.perf_counter() - t0:.1f} s")
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
 
     source = "mpi_operator_tpu_torch/ops/csrc/decode_attention.cu"
@@ -1716,7 +2003,7 @@ def main() -> int:
     flash_lines = {"flash_fwd": 137, "flash_dq": 305, "flash_dkv": 344}
     print(json.dumps({"kernels": [
         dict(name="decode_attention", route="cuda", source=source,
-             replaces="mpi_operator_tpu/ops/attention.py:458",
+             replaces="mpi_operator_tpu/ops/attention.py:621",
              launches=launches, max_abs_err=err, **row),
         dict(name="paged_decode_attention", route="cuda", source=source,
              replaces="mpi_operator_tpu/ops/attention.py:724",

@@ -10,7 +10,10 @@ Ported so far: the continuous-batching serving engine, contiguous and
 paged (serve/engine.py), over the decode-mode CausalLM (models/), with
 the decode-attention kernels K4 and K5; and single-device LM training
 (train/lm_trainer.py, examples/lm_benchmark.py) over the training
-forward, with the flash-attention kernels K1-K3 (ops/attention.py).
+forward, with the flash-attention kernels K1-K3 (ops/attention.py),
+that survives preemption: checkpoints (train/checkpoint.py), the
+resilience runtime (train/resilience.py), token shards (data/) and the
+profiler window (utils/profiling.py).
 Entry points run on the CUDA card unless the caller passes
 device="cpu".
 """

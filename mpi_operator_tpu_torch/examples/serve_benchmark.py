@@ -37,9 +37,10 @@ an arm. `metrics_port` serves the engine's live series on /metrics
 while the trace replays. The report names the device it ran on; on the
 CPU (`device="cpu"`) its times are the CPU's.
 
-Not here yet: `profile_dir` raises NotImplementedError (ROADMAP step
-6); the fleet legs (router, live scaling, disaggregation: step 9) have
-no arguments here.
+`profile_dir` writes a torch.profiler chrome trace of the measured
+trace's replay (utils/profiling.py), stopped after the closing
+timestamp. Not here yet: the fleet legs (router, live scaling,
+disaggregation: ROADMAP step 9) have no arguments here.
 
     python -m mpi_operator_tpu_torch.examples.serve_benchmark --paged \\
         --shared-prefix-len 128 --no-baseline --speculative ngram \\
@@ -60,6 +61,7 @@ from ..telemetry import EventLog, WorkerTelemetry, read_events
 from ..telemetry.trace import (Tracer, build_trees, hop_percentiles,
                                trace_sum_gap)
 from ..utils.device import DeviceLike, resolve_device
+from ..utils.profiling import WindowProfiler
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -173,10 +175,6 @@ def run_serving_benchmark(
     telemetry, tracer or event log: what the hooks cost), `events_path`
     (an EventLog there receives the engine's events; the report counts
     them) and `device`."""
-    if profile_dir is not None:
-        raise NotImplementedError(
-            "profile_dir: not in the PyTorch port yet (ROADMAP.md Queue 1, "
-            "step 6)")
     if compare_spec and speculative is None:
         raise ValueError("compare_spec requires speculative")
     if dtype_name not in _DTYPES:
@@ -215,13 +213,20 @@ def run_serving_benchmark(
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
-    def timed_run(eng):
+    def timed_run(eng, profiler=None):
         eng.reset()
         sync()
+        if profiler is not None:
+            profiler.start()
         t0 = time.perf_counter()
         out = eng.run(trace)
         sync()
-        return out, time.perf_counter() - t0
+        wall = time.perf_counter() - t0
+        if profiler is not None:
+            # AFTER the closing timestamp: the trace export is real I/O
+            # and must never be charged to serving throughput
+            profiler.stop_if_active()
+        return out, wall
 
     # warm-up: one request per distinct prompt length (every prefill
     # bucket the trace can hit) and the step program; then reset, so the
@@ -230,9 +235,10 @@ def run_serving_benchmark(
             for j, p in enumerate(sorted(set(int(r) for r in prompt_grid)))]
     # the /metrics server, if any, and the event log stay up for every
     # run below (the hooks arm pays for them in each of its runs)
+    profiler = WindowProfiler(profile_dir, log, dev)
     try:
         engine.run(warm)
-        results, wall = timed_run(engine)
+        results, wall = timed_run(engine, profiler)
         total_new = sum(len(r.tokens) for r in results.values())
         tps = total_new / wall
         counts = engine.compile_counts()
@@ -501,6 +507,7 @@ def run_serving_benchmark(
                 f"-> continuous batching {tps / base_tps:.2f}x")
         return out
     finally:
+        profiler.stop_if_active()
         wtel.close()
 
 

@@ -23,8 +23,10 @@ What it keeps of the reference, step for step:
 - the divergence guard (train/resilience.py) on the loss and the norm of
   the unclipped gradients;
 - `benchmark`: the windowed tokens/s protocol (one host sync a window),
-  step time p50/p99 over the window averages, MFU against the card's
-  peak (utils/flops.py).
+  step time and host gap p50/p99 from TrainTelemetry's histograms,
+  goodput, MFU against the card's peak (utils/flops.py), the profiler
+  window, the periodic checkpoint hook and the resilience context
+  (train/checkpoint.py, train/resilience.py).
 
 The state is PyTorch's, updated IN PLACE: every f32 master parameter is
 a view of one flat buffer (`LMTrainState.params`), which the optimizer
@@ -33,8 +35,7 @@ sync; the model the trainer builds reads its parameters through those
 views, in the model dtype (bf16 casts per use, like flax's `dtype`).
 
 Not here yet (later slices): the mesh and its shardings (tp/sp/pp/ep),
-`tp_overlap_lm_loss`, MoE aux losses, remat, the BERT objective,
-checkpoints, the rest of train/resilience.py and TrainTelemetry.
+`tp_overlap_lm_loss`, MoE aux losses, remat, the BERT objective.
 """
 from __future__ import annotations
 
@@ -43,15 +44,16 @@ import math
 import time
 from typing import Callable, Dict, Iterable, Optional, Tuple
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..models.transformer import (CausalLM, TiedHead, TransformerConfig,
                                   param_shapes)
+from ..telemetry import TrainTelemetry, span
 from ..utils import flops
 from ..utils.device import DeviceLike, resolve_device
+from ..utils.profiling import WindowProfiler
 from .resilience import guard_nonfinite_update
 
 ADAM_EPS = 1e-8          # optax.adamw's eps (eps_root 0)
@@ -408,6 +410,10 @@ class LMTrainer:
     def benchmark(self, state: LMTrainState, dataset: Iterable,
                   num_steps: int = 50, warmup_steps: int = 5,
                   log: Callable[[str], None] = print,
+                  profile_dir: Optional[str] = None,
+                  step_hook: Optional[Callable] = None,
+                  resilience=None,
+                  telemetry: Optional[TrainTelemetry] = None,
                   ) -> Tuple[LMTrainState, Dict[str, object]]:
         """tokens/sec over windows of `log_every` steps, the reference's
         protocol: the loop dispatches steps without waiting for the
@@ -417,64 +423,111 @@ class LMTrainer:
         not timed; the first window is dropped from the mean when there
         are several.
 
+        step_hook(state, step) fires after every timed step (periodic
+        checkpoints: train/checkpoint.periodic_saver). resilience: an
+        entered train.resilience.ResilienceContext — per-step stop check
+        (emergency checkpoint + Preempted on a drain) and divergence
+        rollback at window fetches. telemetry: a TrainTelemetry to feed;
+        when None a private one still runs, so step time p50/p99, the
+        host gap and goodput always come from its histograms. The step
+        counter is a host int, so none of this syncs the device between
+        window fetches. profile_dir: a torch.profiler chrome trace of the
+        first window.
+
         Returns the reference's keys (tokens_per_sec, step_time_p50_ms /
-        p99 over the window averages, host_gap_*, final_loss,
-        flops_per_step, tflops_per_sec_per_device, mfu, ...) and
-        `step_losses`, every timed step's loss."""
+        p99, host_gap_*, goodput, final_loss, flops_per_step,
+        tflops_per_sec_per_device, mfu, ...) and `step_losses`, every
+        timed step's loss."""
+        from .resilience import Preempted
+
         cfg = self.config
+        tel = telemetry if telemetry is not None else TrainTelemetry()
+        if resilience is not None and resilience.telemetry is None:
+            resilience.telemetry = tel    # rollback accounting -> goodput
         it = iter(dataset)
         state, metrics = self.train_step(state, *next(it))
         flops_per_step = self._step_flops(state)
         for _ in range(max(0, warmup_steps - 1)):
             state, metrics = self.train_step(state, *next(it))
         float(metrics["loss"])
+        base_step = state.step
         tokens_per_step = cfg.global_batch_size * cfg.seq_len
         log_every = max(1, min(cfg.log_every, num_steps))
-        windows, step_times, gaps, losses = [], [], [], []
+        windows, losses = [], []
+        profiler = WindowProfiler(profile_dir, log, self.device)
+        profiler.start()
         t0 = time.perf_counter()
         wall0 = t0
-        for i in range(1, num_steps + 1):
-            state, metrics = self.train_step(state, *next(it))
-            losses.append(metrics["loss"])
-            if i % log_every == 0:
-                g0 = time.perf_counter()
-                loss = float(metrics["loss"])        # the window's one sync
-                t1 = time.perf_counter()
-                gaps.append(t1 - g0)
-                tps = tokens_per_step * log_every / (t1 - t0)
-                windows.append(tps)
-                step_times += [(t1 - t0) / log_every] * log_every
-                streak = int(metrics["nonfinite_streak"])
-                log(f"{i}\ttokens/sec: {tps:.0f}\tloss: {loss:.3f}"
-                    + (f"\tnon-finite streak: {streak}" if streak else ""))
-                t0 = time.perf_counter()
+        try:
+            for i in range(1, num_steps + 1):
+                batch = next(it)
+                with span("train.step"):
+                    state, metrics = self.train_step(state, *batch)
+                losses.append(metrics["loss"])
+                if step_hook is not None:
+                    step_hook(state, base_step + i)
+                if resilience is not None \
+                        and resilience.on_step(base_step + i):
+                    log(f"preemption drain: stopping the gang at step "
+                        f"{base_step + i}")
+                    resilience.emergency_save(state)
+                    raise Preempted(base_step + i)
+                if i % log_every == 0:
+                    g0 = time.perf_counter()
+                    loss = float(metrics["loss"])   # the window's one sync
+                    t1 = time.perf_counter()        # BEFORE the trace write
+                    tel.host_gap_seconds.observe(t1 - g0)
+                    profiler.stop_if_active()
+                    tps = tokens_per_step * log_every / (t1 - t0)
+                    windows.append(tps)
+                    tel.observe_steps((t1 - t0) / log_every, log_every)
+                    tel.update_window(
+                        tokens_per_sec=tps,
+                        mfu=flops.throughput_stats(
+                            flops_per_step, tps / tokens_per_step, 1,
+                            self.device)["mfu"],
+                        step=base_step + i)
+                    streak = int(metrics["nonfinite_streak"])
+                    if streak:
+                        tel.record_streak(streak)
+                    log(f"{i}\ttokens/sec: {tps:.0f}\tloss: {loss:.3f}"
+                        + (f"\tnon-finite streak: {streak}" if streak
+                           else ""))
+                    if resilience is not None \
+                            and streak >= resilience.config.divergence_k:
+                        state = resilience.rollback(state)
+                        base_step = state.step - i
+                    t0 = time.perf_counter()
+        finally:
+            profiler.stop_if_active()
         steady = windows[1:] if len(windows) > 1 else windows
         tps = sum(steady) / len(steady)
         stats = flops.throughput_stats(flops_per_step, tps / tokens_per_step,
                                        1, self.device)
-        pct = lambda xs, q: (float(np.percentile(xs, q)) * 1e3  # noqa: E731
-                             if xs else None)
-        out = {
+        p50_ms, p99_ms = tel.step_percentiles_ms()
+        gap50_ms, gap99_ms = tel.host_gap_percentiles_ms()
+        log("-" * 40)
+        log(f"total tokens/sec: {tps:.0f}")
+        if p50_ms is not None:
+            log(f"step time: p50 {p50_ms:.1f} ms, p99 {p99_ms:.1f} ms, "
+                f"goodput {tel.goodput.value:.1%}")
+        if stats["mfu"] is not None:
+            log(f"per-device: {stats['tflops_per_sec_per_device']:.1f} "
+                f"TFLOP/s, MFU {stats['mfu']:.1%}")
+        log("-" * 40)
+        return state, {
             "tokens_per_sec": tps,
             "tokens_per_sec_per_device": tps,
             "wall_seconds": time.perf_counter() - wall0,
             "final_loss": float(metrics["loss"]),
             "step_losses": torch.stack(losses).tolist(),
-            "step_time_p50_ms": pct(step_times, 50),
-            "step_time_p99_ms": pct(step_times, 99),
-            "host_gap_p50_ms": pct(gaps, 50),
-            "host_gap_p99_ms": pct(gaps, 99),
+            "step_time_p50_ms": p50_ms,
+            "step_time_p99_ms": p99_ms,
+            "host_gap_p50_ms": gap50_ms,
+            "host_gap_p99_ms": gap99_ms,
+            "goodput": tel.goodput.value,
             **stats,
         }
-        log("-" * 40)
-        log(f"total tokens/sec: {tps:.0f}")
-        log(f"step time: p50 {out['step_time_p50_ms']:.1f} ms, p99 "
-            f"{out['step_time_p99_ms']:.1f} ms")
-        if stats["mfu"] is not None:
-            log(f"per-device: {stats['tflops_per_sec_per_device']:.1f} "
-                f"TFLOP/s, MFU {stats['mfu']:.1%}")
-        log("-" * 40)
-        return state, out
 
 
 __all__ = ["ADAM_EPS", "AdamWState", "LMTrainState", "LMTrainer",

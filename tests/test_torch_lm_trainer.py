@@ -372,10 +372,11 @@ def test_eval_step_and_evaluate_match_the_reference():
     assert state.step == 0 and int(state.opt.count) == 0
 
 
-def test_run_lm_benchmark_on_the_cpu():
+def test_run_lm_benchmark_on_the_cpu(monkeypatch):
     """The entry point at test size: the reference's metric keys, every
     step's loss finite, warmup + timed steps taken, eval continuing the
-    stream; the parts not ported raise instead of being ignored."""
+    stream; the parts not ported (tp/pp/sp/ep meshes, remat, MoE, BERT,
+    a resharding restore) raise instead of being ignored."""
     logs = []
     state, m = bench.run_lm_benchmark(
         "gpt2", "test", batch_per_device=2, seq_len=16, num_steps=4,
@@ -389,14 +390,57 @@ def test_run_lm_benchmark_on_the_cpu():
     assert all(math.isfinite(x) for x in m["step_losses"])
     assert state.step == 6 and state.model.config.max_len == 32
     assert any("tokens/sec" in line for line in logs)
-    for bad in (dict(tp=2), dict(pp=2), dict(sp=2), dict(remat=True),
-                dict(moe_experts=4), dict(data_dir="/data"),
-                dict(train_dir="/ckpt"), dict(workload="bert")):
-        kw = dict(workload="gpt2", size="test", batch_per_device=2,
-                  seq_len=16, num_steps=1, device="cpu", log=logs.append)
-        kw.update(bad)
+    kw = dict(workload="gpt2", size="test", batch_per_device=2,
+              seq_len=16, num_steps=1, device="cpu", log=logs.append)
+    for bad in (dict(tp=2), dict(pp=2), dict(sp=2), dict(ep=2),
+                dict(remat=True), dict(moe_experts=4),
+                dict(workload="bert")):
         with pytest.raises(ValueError):
-            bench.run_lm_benchmark(**kw)
+            bench.run_lm_benchmark(**{**kw, **bad})
+    monkeypatch.setenv("TPU_RESHARD_RESTORE", "1")
+    with pytest.raises(ValueError, match="reshard"):
+        bench.run_lm_benchmark(**kw)
+
+
+def test_benchmark_reports_the_reference_keys_and_goodput():
+    """The same run shape through LMTrainer.benchmark on both sides (one
+    warmup step, four timed steps in windows of two, the second timed
+    step's mask NaN so the guard skips it): the port returns the JAX
+    benchmark's keys (plus `step_losses`), and goodput from
+    TrainTelemetry equals the reference's. Both refresh goodput only
+    when a skip or a rollback is recorded, so it reads 1 - 1 skipped / 2
+    steps observed at that fetch, not / 4 (ROADMAP.md Queue 3, G1)."""
+    jcfg, tcfg = _configs("gpt2")
+    tree = _perturbed_params(jt.CausalLM(jcfg))
+    mesh = jpar.make_mesh(jpar.MeshConfig(dp=1), devices=jax.devices()[:1])
+    jtrainer = jtr.LMTrainer(jt.CausalLM(jcfg), mesh, jtr.LMTrainerConfig(
+        global_batch_size=B, seq_len=S, warmup_steps=2, log_every=2))
+    jstate = jtrainer.init_state(jax.random.PRNGKey(0))
+    jstate = jstate.replace(params=jax.tree.map(
+        lambda ref, x: jax.device_put(jnp.asarray(x), ref.sharding),
+        jstate.params, tree))
+    trainer, state = _port_trainer(tcfg, tree, log_every=2)
+    batches = []
+    for i in range(5):
+        toks, tgts = _batch(40 + i)
+        mask = np.ones(tgts.shape, np.float32)
+        if i == 2:
+            mask[0, 0] = np.nan
+        batches.append((toks, tgts, mask))
+    quiet = lambda s: None  # noqa: E731
+    _, jm = jtrainer.benchmark(
+        jstate, [tuple(jnp.asarray(x) for x in b) for b in batches],
+        num_steps=4, warmup_steps=1, log=quiet)
+    state, m = trainer.benchmark(
+        state, [tuple(torch.from_numpy(x) for x in b) for b in batches],
+        num_steps=4, warmup_steps=1, log=quiet)
+    assert set(m) == set(jm) | {"step_losses"}
+    assert m["goodput"] == jm["goodput"] == 0.5
+    assert math.isnan(m["step_losses"][1])
+    for key in ("step_time_p50_ms", "step_time_p99_ms", "host_gap_p50_ms",
+                "host_gap_p99_ms"):
+        assert m[key] > 0 and jm[key] > 0, key
+    assert state.step == 5 and int(state.opt.count) == 4
 
 
 def test_token_stream_is_step_keyed():

@@ -8,7 +8,7 @@ hop fields and trace completeness included), besides the port's own
 no-recompile contract; the sequential generate() baseline produces the
 engine's greedy tokens; /metrics serves the engine's live series while
 the trace replays; the hooks A/B and the event log count what they
-should; `profile_dir` (a later slice) raises NotImplementedError.
+should; `profile_dir` writes one trace of the measured replay.
 """
 import json
 import re
@@ -105,13 +105,24 @@ def test_graphs_ab_on_the_cpu_runs_the_same_programs():
 
 
 @pytest.mark.parametrize("kw,step", [
-    (dict(profile_dir="/nonexistent"), 6)])
-def test_later_slices_raise(kw, step):
-    """Only the profiler window (ROADMAP step 6) is still to port; the
-    speculative, compare_spec and metrics_port arguments run (the tests
-    below and the `spec` leg above)."""
-    with pytest.raises(NotImplementedError, match=f"step {step}"):
-        sb.run_serving_benchmark(**SMALL, device="cpu", **kw)
+    (dict(profile_dir="trace"), 6)])
+def test_later_slices_raise(kw, step, tmp_path):
+    """Every argument of the single-engine legs is ported now: the
+    profiler window (ROADMAP step 6) writes a chrome trace of the
+    measured replay — one trace, the warm-up and reruns outside it — and
+    stops before the report; what still raises is an inconsistent
+    request (compare_spec without speculative)."""
+    kw = {k: str(tmp_path / v) for k, v in kw.items()}
+    logs = []
+    m = sb.run_serving_benchmark(**SMALL, device="cpu", baseline=False,
+                                 log=logs.append, **kw)
+    traces = list((tmp_path / "trace").glob("trace_*.json"))
+    assert len(traces) == 1, traces
+    names = {e.get("name") for e in
+             json.loads(traces[0].read_text())["traceEvents"]}
+    assert "serve.decode_step" in names or "serve.prefill" in names
+    assert any("profiler trace written" in line for line in logs)
+    assert m["serving_tokens_per_sec"] > 0
     with pytest.raises(ValueError, match="compare_spec requires"):
         sb.run_serving_benchmark(**SMALL, device="cpu", compare_spec=True)
 
