@@ -72,18 +72,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
    requests — GQA, paged int8 scales and tiles that span pages.
 9. Kernels K1-K3 (flash attention forward, dq, dk/dv) against their
    plain versions in bf16: the training shape (B=16, S=512, gpt2-medium
-   heads H=16, D=64, causal), llama-1b's heads after the K/V repeat
-   (H=32), a [B, S] key mask with one fully masked row (non-causal and
-   causal), a ragged S=500, S=129 (one past K1's 128-row tiles), and
-   D=128 (two 64-column boxes a tile). K2/K3 get the plain forward's
-   lse and delta. Each output is held to a relative error limit, and at
-   the training shape each limit must fail planted faults made from the
-   plain versions (a skipped tile; for K2/K3 ds left unrounded). Times
-   each kernel at the training shape with L2 flushed beside its bound,
-   its plain version, and one scaled_dot_product_attention(is_causal=
-   True) forward and its backward through autograd (yardsticks only:
-   the port never calls SDPA), and prints K1 over SDPA's forward and
-   K2 + K3 over SDPA's backward, ratios taken in the same call.
+   heads H=16, D=64, causal), bert-large's (the same, non-causal) with
+   and without a key mask (row 0 padded after 3/4), llama-1b's heads
+   after the K/V repeat (H=32), a [B, S] key mask with one fully masked
+   row (non-causal and causal), a ragged S=500, S=129 (one past K1's
+   128-row tiles), and D=128 (two 64-column boxes a tile). K2/K3 get
+   the plain forward's lse and delta. Each output is held to a relative
+   error limit, and at the training shape each limit must fail planted
+   faults made from the plain versions (a skipped tile; for K2/K3 ds
+   left unrounded). Times each kernel at the training shape and at both
+   bert-large shapes with L2 flushed beside its bound (the bytes, or the
+   products over this input's visible pairs), its plain version, and
+   one scaled_dot_product_attention call with the same causality and
+   mask, forward and backward through autograd (yardsticks only: the
+   port never calls SDPA), and prints K1 over SDPA's forward and K2 + K3
+   over SDPA's backward, ratios taken in the same call.
 10. Training, gpt2-medium (this slice's main path, the JAX bench's gpt2
    leg): run_lm_benchmark(workload="gpt2", size="medium",
    batch_per_device=16, seq_len=512), bf16 compute over f32 masters,
@@ -137,7 +140,33 @@ Phases, each of which fails the run (non-zero exit, no result line):
    speculation on and off (device time a verify step against a plain
    step, idle share). Then a contiguous f32 run with decode_kernel=False
    (16 requests) whose greedy tokens must be identical between the arms.
-14. (Run after 11.) Training that survives preemption, gpt2-medium at
+14. (Run after 11.) BERT: run_lm_benchmark(workload="bert", size=
+   "large", batch_per_device=16, seq_len=512), the JAX bench's bert leg
+   (MLM rate 0.15, the MaskedLM's attention non-causal through K1-K3),
+   3 warmup steps and 30 timed: K1-K3 launches 24 x steps each, losses
+   finite, no skipped update; tokens/s, step p50/p99, MFU (attention
+   FLOPs not halved) and peak memory. Then one step's gradients through
+   flash and dense from the same weights and an MLM batch under a key
+   mask padding two rows (cosine >= 0.999 a tensor), and two profiled
+   steps.
+15. MoE: gpt2-small with 8 experts (top-2, capacity factor 1.25, MoE on
+   every second block), 16 x 512, the bench's moe leg, 33 steps: K2/K3
+   launches 12 x steps, K1 12 x (steps + 1) (the drop-rate probe's
+   forward), finite losses, no skip, the drop rate in [0, 0.5]; two
+   profiled steps; then 4 layers dropless for 5 steps, drop rate 0.
+16. Remat: gpt2-medium, 16 x 512, 12 steps each with remat off, "none"
+   and "dots", one seed and one stream: the params of both remat arms
+   equal remat off's bit for bit; K1 launches 2 x 24 x steps under
+   remat, K2/K3 24 x steps; peak memory and step p50 of each arm.
+17. Generate: run_generate_benchmark for gpt2-medium and llama-1b,
+   bf16 and int8 KV, batch 8, prompt 128, 128 new tokens, greedy,
+   decode_kernel=True, 2 timed calls after a warm one: K4 launches
+   layers x 127 decode steps x calls (the prefill runs the dense path),
+   no other kernel; the last call's tokens against decode_kernel=False
+   on the same model, each row's first divergence a near tie of the
+   dense path; tokens/s and MBU against 3.35 TB/s. Every phase from 14
+   on prints the card's name and power limit beside its numbers.
+18. (Run last.) Training that survives preemption, gpt2-medium at
    full width, bf16, attention="flash", 16 x 512, through
    run_lm_benchmark's resilient path in a temporary directory (at least
    20 GB free, or the phase fails): periodic async checkpoints every 12
@@ -163,6 +192,7 @@ The line before the last is {"kernels": [...]}; the last line is
 """
 import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -211,9 +241,13 @@ LSE_ATOL = 1e-3
 # drops: K1's and K2's k-tiles of 128 keys (under 128-query CTAs), K3's
 # q-tiles of 64 (under 128-key CTAs)
 FLASH_TILE = {"flash_fwd": 128, "flash_dq": 128, "flash_dkv": 64}
-# (name, B, S, H, D, causal, mask): the training shape first
+# (name, B, S, H, D, causal, mask): the training shape first; the
+# bert-large cases are the [train-bert] phase's non-causal shape, without
+# and with a key mask (row 0 padded after 3/4 of S)
 FLASH_CASES = [
     ("gpt2-medium", 16, 512, 16, 64, True, None),
+    ("bert-large", 16, 512, 16, 64, False, None),
+    ("bert-large-pad", 16, 512, 16, 64, False, "pad"),
     ("llama-1b", 8, 512, 32, 64, True, None),
     ("masked", 4, 512, 16, 64, False, "empty"),
     ("masked-causal", 4, 512, 16, 64, True, "pad"),
@@ -243,6 +277,7 @@ def log(msg):
     print(msg, flush=True)
 
 
+@functools.lru_cache(maxsize=None)
 def device_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1212,18 +1247,24 @@ def flash_inputs(B, S, H, D, mask, gen, dev):
     return q, k, v, do, m
 
 
-def flash_bound(name, B, S, H, D, causal):
+def flash_bound(name, B, S, H, D, causal, mask=None):
     """(bound_ms, bound_by) of one flash kernel: the bytes it must move
     (each bf16 [B, S, H, D] input and output once, f32 [B, H, S] lse and
-    delta once) over HBM bandwidth, against its products over the
-    visible (query, key) pairs (2*D flops a pair and product: K1 q.k and
-    p.v, K2 adds do.v and ds.k for 3, K3 q.k, do.v, p.do, ds.q for 4)
-    over the bf16 tensor-core rate."""
+    delta once, the uint8 [B, S] mask once) over HBM bandwidth, against
+    its products over this input's visible (query, key) pairs (2*D flops
+    a pair and product: K1 q.k and p.v, K2 adds do.v and ds.k for 3, K3
+    q.k, do.v, p.do, ds.q for 4) over the bf16 tensor-core rate. A
+    valid key j is seen by S - j queries when causal, by all S when
+    not."""
     t, stat = B * S * H * D * 2, B * H * S * 4
-    pairs = B * H * (S * (S + 1) // 2 if causal else S * S)
+    keys = (torch.ones(B, S, dtype=torch.long) if mask is None
+            else mask.cpu().long())
+    seen = (S - torch.arange(S)) if causal else torch.full((S,), S)
+    pairs = H * int((keys * seen).sum())
     nbytes, products = {"flash_fwd": (4 * t + stat, 2),
                         "flash_dq": (5 * t + 2 * stat, 3),
                         "flash_dkv": (6 * t + 2 * stat, 4)}[name]
+    nbytes += 0 if mask is None else B * S
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = products * 2 * D * pairs / BF16_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
@@ -1284,8 +1325,8 @@ def planted_faults(ops, q, k, v, do, lse, delta, causal, want):
 def flash_kernel_phase(ops, dev):
     """K1-K3 against their plain versions over FLASH_CASES, and the
     planted faults' readings at the training shape against the limits;
-    returns ({kernel: max abs error}, {kernel: timing row at the
-    training shape})."""
+    returns ({kernel: max abs error}, {timed case: {kernel: timing
+    row}})."""
     gen = torch.Generator(device=dev).manual_seed(3)
     worst = {"flash_fwd": 0.0, "flash_dq": 0.0, "flash_dkv": 0.0}
     worst_rel = dict(worst)
@@ -1329,61 +1370,20 @@ def flash_kernel_phase(ops, dev):
             f"{rels['flash_dq']:.3e} dkv {rels['flash_dkv']:.3e}; max abs "
             f"error fwd {errs['flash_fwd']:.3e} dq {errs['flash_dq']:.3e} "
             f"dkv {errs['flash_dkv']:.3e}; lse {lse_err:.3e}")
-        if name != "gpt2-medium":
-            continue
-        faults = planted_faults(ops, q, k, v, do, ref_lse, delta, causal, {
-            "flash_fwd": ref_out, "flash_dq": ref_dq,
-            "flash_dkv": (ref_dk, ref_dv)})
-        for kname, fault, reading in faults:
-            log(f"  planted fault {kname} {fault}: relative error "
-                f"{reading:.3e} against the limit {FLASH_REL[kname]:.1e}")
-            check(reading > FLASH_REL[kname],
-                  f"{kname}: the limit {FLASH_REL[kname]} passes a "
-                  f"kernel with a {fault} ({reading})")
-        flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)
-        out, lse = ops.flash_fwd(q, k, v, causal)
-        delta = ops.flash_delta(out, do)
-        calls = {
-            "flash_fwd": (lambda: ops.flash_fwd(q, k, v, causal),
-                          lambda: ops.flash_fwd_ref(q, k, v, causal)),
-            "flash_dq": (lambda: ops.flash_dq(q, k, v, do, lse, delta,
-                                              causal),
-                         lambda: ops.flash_dq_ref(q, k, v, do, lse, delta,
-                                                  causal)),
-            "flash_dkv": (lambda: ops.flash_dkv(q, k, v, do, lse, delta,
-                                                causal),
-                          lambda: ops.flash_dkv_ref(q, k, v, do, lse, delta,
-                                                    causal)),
-        }
-        # SDPA's [B, H, S, D] views of the same inputs; its cotangent made
-        # contiguous once, outside the timing
-        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
-                      for x in (q, k, v))
-        backend = torch._fused_sdp_choice(qt, kt, vt, is_causal=True)
-        sdpa_fwd = time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True), 20, flush)
-        so = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
-        dot = do.transpose(1, 2).contiguous()
-        sdpa_bwd = time_ms(lambda: torch.autograd.grad(
-            so, (qt, kt, vt), dot, retain_graph=True), 20, flush)
-        log(f"  SDPA (is_causal, yardstick; backend choice {backend}): "
-            f"forward {sdpa_fwd:.4f} ms, backward (dq, dk, dv in one call) "
-            f"{sdpa_bwd:.4f} ms")
-        for kname, (kernel, plain) in calls.items():
-            ms = time_ms(kernel, 20, flush)
-            plain_ms = time_ms(plain, 5, flush)
-            bound_ms, bound_by = flash_bound(kname, B, S, H, D, causal)
-            lib = sdpa_fwd if kname == "flash_fwd" else sdpa_bwd
-            rows[kname] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                               bound_by=bound_by, library_ms=lib)
-            log(f"  {kname:9s} kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
-                f"bound {bound_ms:.4f} ms ({bound_by})  SDPA "
-                f"{'forward' if kname == 'flash_fwd' else 'backward'} "
-                f"{lib:.4f} ms")
-        log(f"  ratios in this call: K1 / SDPA forward "
-            f"{rows['flash_fwd']['ms'] / sdpa_fwd:.3f}, (K2 + K3) / SDPA "
-            f"backward {(rows['flash_dq']['ms'] + rows['flash_dkv']['ms']) / sdpa_bwd:.3f}")
-        del flush, so, qt, kt, vt
+        if name == "gpt2-medium":
+            faults = planted_faults(ops, q, k, v, do, ref_lse, delta,
+                                    causal, {"flash_fwd": ref_out,
+                                             "flash_dq": ref_dq,
+                                             "flash_dkv": (ref_dk, ref_dv)})
+            for kname, fault, reading in faults:
+                log(f"  planted fault {kname} {fault}: relative error "
+                    f"{reading:.3e} against the limit "
+                    f"{FLASH_REL[kname]:.1e}")
+                check(reading > FLASH_REL[kname],
+                      f"{kname}: the limit {FLASH_REL[kname]} passes a "
+                      f"kernel with a {fault} ({reading})")
+        if name in TIMED_FLASH_CASES:
+            rows[name] = time_flash(ops, name, q, k, v, do, causal, m, dev)
     torch.cuda.empty_cache()
     log(f"  K1-K3 worst relative error over the cases: "
         + ", ".join(f"{n} {worst_rel[n]:.3e} (limit {FLASH_REL[n]:.1e})"
@@ -1392,13 +1392,80 @@ def flash_kernel_phase(ops, dev):
 
 
 FLASH_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
+# the cases timed beside SDPA: the gpt2 training shape (the kernels
+# line's rows) and bert-large's, without and with its key mask
+TIMED_FLASH_CASES = ("gpt2-medium", "bert-large", "bert-large-pad")
+
+
+def time_flash(ops, name, q, k, v, do, causal, m, dev):
+    """K1-K3 at one case's inputs, L2 flushed, beside their bounds, their
+    plain versions and one scaled_dot_product_attention call (same
+    causality and key mask; a yardstick the port never calls) forward
+    and backward. Returns {kernel: timing row}."""
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)
+    m8 = None if m is None else ops._mask_u8(m, dev)
+    out, lse = ops.flash_fwd(q, k, v, causal, m8)
+    delta = ops.flash_delta(out, do)
+    calls = {
+        "flash_fwd": (lambda: ops.flash_fwd(q, k, v, causal, m8),
+                      lambda: ops.flash_fwd_ref(q, k, v, causal, m8)),
+        "flash_dq": (lambda: ops.flash_dq(q, k, v, do, lse, delta, causal,
+                                          m8),
+                     lambda: ops.flash_dq_ref(q, k, v, do, lse, delta,
+                                              causal, m8)),
+        "flash_dkv": (lambda: ops.flash_dkv(q, k, v, do, lse, delta, causal,
+                                            m8),
+                      lambda: ops.flash_dkv_ref(q, k, v, do, lse, delta,
+                                                causal, m8)),
+    }
+    # SDPA's [B, H, S, D] views of the same inputs, the key mask as a
+    # [B, 1, 1, S] boolean (True = attend); its cotangent made contiguous
+    # once, outside the timing
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    am = None if m is None else m[:, None, None, :]
+    backend = torch._fused_sdp_choice(qt, kt, vt, attn_mask=am,
+                                      is_causal=causal)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=am,
+                                              is_causal=causal)
+    sdpa_fwd = time_ms(sdpa, 20, flush)
+    so = sdpa()
+    dot = do.transpose(1, 2).contiguous()
+    sdpa_bwd = time_ms(lambda: torch.autograd.grad(
+        so, (qt, kt, vt), dot, retain_graph=True), 20, flush)
+    log(f"  {name}: SDPA (is_causal={causal}, mask={m is not None}, "
+        f"yardstick; backend choice {backend}): forward {sdpa_fwd:.4f} ms, "
+        f"backward (dq, dk, dv in one call) {sdpa_bwd:.4f} ms")
+    rows = {}
+    B, S, H, D = q.shape
+    for kname, (kernel, plain) in calls.items():
+        ms = time_ms(kernel, 20, flush)
+        plain_ms = time_ms(plain, 5, flush)
+        bound_ms, bound_by = flash_bound(kname, B, S, H, D, causal, m)
+        lib = sdpa_fwd if kname == "flash_fwd" else sdpa_bwd
+        rows[kname] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                           bound_by=bound_by, library_ms=lib)
+        log(f"  {name}: {kname:9s} kernel {ms:.4f} ms  plain {plain_ms:.4f} "
+            f"ms  bound {bound_ms:.4f} ms ({bound_by})  SDPA "
+            f"{'forward' if kname == 'flash_fwd' else 'backward'} "
+            f"{lib:.4f} ms")
+    log(f"  {name}: ratios in this call: K1 / SDPA forward "
+        f"{rows['flash_fwd']['ms'] / sdpa_fwd:.3f}, (K2 + K3) / SDPA "
+        f"backward "
+        f"{(rows['flash_dq']['ms'] + rows['flash_dkv']['ms']) / sdpa_bwd:.3f}")
+    return rows
 
 
 def train_phase(name, ops, **kw):
     """run_lm_benchmark(**kw) with every kernel count zeroed just before
-    and read just after: K1-K3 must each have launched once a layer a
-    step, the decode kernels never; every timed step's loss finite and
-    no update skipped by the guard. Returns (state, metrics, counts)."""
+    and read just after: K2 and K3 must each have launched once a layer
+    a step, K1 once a layer a step and a forward (twice under remat: the
+    backward recomputes it; one more forward for the MoE drop-rate probe
+    after training), the decode kernels never; every timed step's loss
+    finite and no update skipped by the guard. Returns (state, metrics,
+    counts)."""
     from mpi_operator_tpu_torch.examples.lm_benchmark import run_lm_benchmark
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
@@ -1407,9 +1474,13 @@ def train_phase(name, ops, **kw):
     torch.cuda.synchronize()
     counts = dict(ops.launch_counts)
     layers, steps = state.model.config.num_layers, state.step
-    check(all(counts[k] == layers * steps for k in FLASH_KERNELS),
+    forwards = steps * (2 if kw.get("remat") else 1) \
+        + (1 if kw.get("moe_experts") else 0)
+    want = {"flash_fwd": layers * forwards, "flash_dq": layers * steps,
+            "flash_dkv": layers * steps}
+    check(all(counts[k] == want[k] for k in FLASH_KERNELS),
           f"{name}: flash launches {counts} over {steps} steps of {layers} "
-          f"layers")
+          f"layers; expected {want}")
     check(all(n == 0 for k, n in counts.items() if k not in FLASH_KERNELS),
           f"{name}: other kernels launched: {counts}")
     losses = m["step_losses"]
@@ -1421,55 +1492,165 @@ def train_phase(name, ops, **kw):
     stats = {k: m[k] for k in ("tokens_per_sec", "step_time_p50_ms",
                                "step_time_p99_ms", "host_gap_p50_ms",
                                "mfu", "tflops_per_sec_per_device",
-                               "flops_per_step", "final_loss")}
+                               "flops_per_step", "final_loss",
+                               "moe_drop_rate") if k in m}
     stats.update(steps=steps, launches={k: counts[k] for k in FLASH_KERNELS},
                  first_loss=losses[0], last_loss=losses[-1],
-                 peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+                 peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+                 card=device_line())
     log(f"  {name}: {json.dumps(stats)}")
     return state, m, counts
 
 
-def grads_agree(tcfg, mcfg, dev):
-    """One step's gradients from the same weights and batch through
-    attention="flash" and "dense"; returns the flash trainer and state
-    for profiling."""
-    from mpi_operator_tpu_torch.data import TokenStream
+def padded_rows(B, S, dev):
+    """The [B, S] key mask of the BERT gradient check: row 0 padded after
+    3/4 of S, row 1 after 1/4, the others whole. (A row with no valid
+    key is left out: there dense and flash differ by design — the dense
+    softmax passes a gradient through its uniform row, flash none.)"""
+    pad = torch.ones(B, S, dtype=torch.bool, device=dev)
+    pad[0, (3 * S) // 4:] = False
+    pad[1, S // 4:] = False
+    return pad
+
+
+def masked_loss_and_grads(state, batch, attention_mask):
+    """(MLM loss, flat f32 gradients in param_shapes order) of a MaskedLM
+    under a key-padding mask (LMTrainer.loss_and_grads passes none, as
+    the reference trainer does)."""
     from mpi_operator_tpu_torch.models.transformer import param_shapes
-    from mpi_operator_tpu_torch.train import LMTrainer
-    batch = TokenStream(tcfg.global_batch_size, tcfg.seq_len,
-                        mcfg.vocab_size, seed=1, device=dev).batch(0)
-    grads = {}
-    for impl in ("dense", "flash"):
-        trainer = LMTrainer(dataclasses.replace(mcfg, attention=impl), tcfg,
-                            device=dev)
-        state = trainer.init_state(0)
-        loss, g, _ = trainer.loss_and_grads(state, *batch)
-        grads[impl] = (float(loss), g)
-        if impl == "dense":
-            del trainer, state
-            torch.cuda.empty_cache()
-    (ld, gd), (lf, gf) = grads["dense"], grads["flash"]
-    norm_d, norm_f = float(gd.norm()), float(gf.norm())
+    from mpi_operator_tpu_torch.train import lm_loss
+    toks, tgts, mask = batch
+    model = state.model
+    loss = lm_loss(model(toks, attention_mask=attention_mask), tgts, mask)
+    loss.backward()
+    params = [model.get_parameter(n) for n in param_shapes(model.config)]
+    g = torch.cat([p.grad.reshape(-1) for p in params])
+    for p in params:
+        p.grad = None
+    return loss.detach(), g
+
+
+@contextlib.contextmanager
+def exact_dense_attention():
+    """The model's dense attention computed in f32 from its bf16 q, k and
+    v (scores, softmax, its backward and both products unrounded), the
+    output cast back: the attention flash approximates, with no bf16
+    rounding of scores or of their gradients."""
+    from mpi_operator_tpu_torch.models import transformer as tt
+    dense = tt.dense_attention
+
+    def exact(q, k, v, mask=None, causal=True, dtype=torch.float32):
+        return dense(q.float(), k.float(), v.float(), mask, causal,
+                     torch.float32).to(q.dtype)
+    tt.dense_attention = exact
+    try:
+        yield
+    finally:
+        tt.dense_attention = dense
+
+
+@contextlib.contextmanager
+def f32_delta():
+    """The flash backward (K2, K3) with delta = rowsum(dO * O) taken from
+    the f32 output of the plain forward on the same q, k, v instead of
+    K1's bf16 output (the reference's convention, `_flash_bwd`). Where
+    the values share a large common component, O's bf16 rounding moves
+    every delta_i, each such error shifts row i's dq by a multiple of its
+    mean key, and those shifts add up in the query bias's gradient."""
+    from mpi_operator_tpu_torch.ops import attention as ops
+    backward = ops.FlashAttention.backward
+
+    def exact_delta(ctx, do):
+        q, k, v, out, lse, mask = ctx.saved_tensors
+        do = do.contiguous()
+        o32, _ = ops.flash_fwd_ref(q.float(), k.float(), v.float(),
+                                   ctx.causal, mask)
+        delta = ops.flash_delta(o32, do)
+        dq = ops.flash_dq(q, k, v, do, lse, delta, ctx.causal, mask)
+        dk, dv = ops.flash_dkv(q, k, v, do, lse, delta, ctx.causal, mask)
+        return dq, dk, dv, None, None
+    ops.FlashAttention.backward = staticmethod(exact_delta)
+    try:
+        yield
+    finally:
+        ops.FlashAttention.backward = backward
+
+
+def compare_grads(mcfg, name, ga, gb):
+    """(worst cosine, its parameter) of two flat gradients over every
+    parameter tensor but the key biases, whose exact gradient is 0 and
+    which must hold rounding noise only (under NOISE_NORM of the global
+    norm); the global norms within GRAD_NORM_RTOL. Logs and checks."""
+    from mpi_operator_tpu_torch.models.transformer import param_shapes
+    (la, a_all), (lb, b_all) = ga, gb
+    norm_a, norm_b = float(a_all.norm()), float(b_all.norm())
     worst, off = (1.0, ""), 0
     for pname, shape in param_shapes(mcfg).items():
         n = math.prod(shape)
-        a, b = gf[off:off + n], gd[off:off + n]
+        a, b = a_all[off:off + n], b_all[off:off + n]
         off += n
         if pname.endswith("attn.key.bias"):
-            check(float(a.norm()) <= NOISE_NORM * norm_f
-                  and float(b.norm()) <= NOISE_NORM * norm_d,
+            check(float(a.norm()) <= NOISE_NORM * norm_a
+                  and float(b.norm()) <= NOISE_NORM * norm_b,
                   f"{pname}: gradient {float(a.norm())} / {float(b.norm())} "
                   f"is not rounding noise")
             continue
         cos = float(torch.dot(a, b) / (a.norm() * b.norm()).clamp(min=1e-30))
         worst = min(worst, (cos, pname))
-    log(f"  grads flash vs dense: loss {lf:.6f} vs {ld:.6f}, global norm "
-        f"{norm_f:.6f} vs {norm_d:.6f}, worst cosine {worst[0]:.6f} "
+    log(f"  grads {name}: loss {la:.6f} vs {lb:.6f}, global norm "
+        f"{norm_a:.6f} vs {norm_b:.6f}, worst cosine {worst[0]:.6f} "
         f"({worst[1]})")
-    check(worst[0] >= GRAD_COSINE, f"gradient cosine {worst[0]} < "
-          f"{GRAD_COSINE} for {worst[1]}")
-    check(abs(norm_f - norm_d) <= GRAD_NORM_RTOL * norm_d,
-          f"global gradient norm {norm_f} vs {norm_d} beyond "
+    return worst, abs(norm_a - norm_b) <= GRAD_NORM_RTOL * norm_b
+
+
+def grads_agree(tcfg, mcfg, dev, attention_mask=None):
+    """One step's gradients from the same weights and batch through
+    attention="flash" and "dense"; returns the flash trainer and state
+    for profiling. For BERT (the MLM stream's batch under
+    `attention_mask`) the reference is the dense path with its attention
+    computed in f32 (`exact_dense_attention`), and what is held to it
+    is the flash path with delta from an f32 output (`f32_delta`): with
+    delta from K1's bf16 output, as the reference's flash backward takes
+    it, BERT's query-bias gradients read a cosine of ~0.998 against the
+    f32 attention, where the bf16 dense path reads 0.9997 (a chip run of
+    this check), which is the rounding of delta and not K1-K3's
+    arithmetic. The flash path as shipped and the bf16 dense path are
+    printed against the f32 one."""
+    from mpi_operator_tpu_torch.data import TokenStream
+    from mpi_operator_tpu_torch.train import LMTrainer
+    batch = TokenStream(tcfg.global_batch_size, tcfg.seq_len,
+                        mcfg.vocab_size, seed=1, device=dev,
+                        masked_lm=not mcfg.causal).batch(0)
+    impls = ("dense", "flash") if mcfg.causal else (
+        "exact", "dense", "flash-f32-delta", "flash")
+    contexts = {"exact": exact_dense_attention, "flash-f32-delta": f32_delta}
+    grads = {}
+    for impl in impls:
+        attention = "flash" if impl.startswith("flash") else "dense"
+        trainer = LMTrainer(dataclasses.replace(mcfg, attention=attention),
+                            tcfg, device=dev)
+        state = trainer.init_state(0)
+        with contexts.get(impl, contextlib.nullcontext)():
+            if attention_mask is None:
+                loss, g, _ = trainer.loss_and_grads(state, *batch)
+            else:
+                loss, g = masked_loss_and_grads(state, batch,
+                                                attention_mask)
+        grads[impl] = (float(loss), g)
+        if impl != "flash":
+            del trainer, state
+            torch.cuda.empty_cache()
+    got, ref = ("flash", "dense") if mcfg.causal else ("flash-f32-delta",
+                                                        "exact")
+    (cos, pname), norms_ok = compare_grads(
+        mcfg, f"{got} vs {ref}", grads[got], grads[ref])
+    if not mcfg.causal:
+        for a, b in (("flash", "exact"), ("dense", "exact"),
+                     ("flash", "dense")):
+            compare_grads(mcfg, f"{a} vs {b} (printed)", grads[a], grads[b])
+    check(cos >= GRAD_COSINE, f"gradient cosine {cos} < {GRAD_COSINE} for "
+          f"{pname} ({got} vs {ref})")
+    check(norms_ok, f"global gradient norms of {got} and {ref} beyond "
           f"{GRAD_NORM_RTOL:.0%}")
     return trainer, state, batch
 
@@ -1782,6 +1963,245 @@ def train_resume_phase(ops):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# BERT, MoE and remat training; the generate leg
+# ---------------------------------------------------------------------------
+
+# the JAX bench's bert leg (bench.py:835): bert-large, 16 x 512, MLM 0.15
+BERT_COMMON = dict(workload="bert", size="large", batch_per_device=16,
+                   seq_len=512, attention="flash")
+# the moe leg (bench.py:862-865): gpt2-small, 8 experts, top-2, capacity
+# factor 1.25, MoE on every second block, 16 x 512
+MOE_COMMON = dict(workload="gpt2", size="small", batch_per_device=16,
+                  seq_len=512, attention="flash", moe_experts=8)
+# a capacity factor of 1.25 admits 1.25x the balanced load an expert;
+# past half the routes dropped the router has collapsed onto few experts
+MOE_DROP_MAX = 0.5
+REMAT_COMMON = dict(workload="gpt2", size="medium", batch_per_device=16,
+                    seq_len=512, attention="flash", num_steps=10,
+                    warmup_steps=2)
+REMAT_ARMS = [("off", {}), ("none", dict(remat=True, remat_policy="none")),
+              ("dots", dict(remat=True, remat_policy="dots"))]
+# the generate leg (bench.py:382 decode_leg): batch 8, prompt 128, 128
+# new tokens, greedy, decode_kernel=True; timed calls cut to 2
+GEN_COMMON = dict(batch=8, prompt_len=128, new_tokens=128, num_iters=2,
+                  decode_kernel=True)
+GEN_LEGS = [("gpt2", "medium", None), ("gpt2", "medium", "int8"),
+            ("llama", "1b", None), ("llama", "1b", "int8")]
+
+
+def train_bert_phase(ops, dev):
+    """bert-large through run_lm_benchmark (K1-K3 non-causal), then its
+    gradients through flash and dense at a padded batch, and two
+    profiled steps. Returns the run's launch counts."""
+    from mpi_operator_tpu_torch.train import LMTrainerConfig
+    state, m, counts = train_phase("bert-large-train", ops, num_steps=30,
+                                   warmup_steps=3, **BERT_COMMON)
+    mcfg = state.model.config
+    del state
+    torch.cuda.empty_cache()
+    B, S = BERT_COMMON["batch_per_device"], BERT_COMMON["seq_len"]
+    trainer, tstate, batch = grads_agree(
+        LMTrainerConfig(global_batch_size=B, seq_len=S, masked_lm=True),
+        mcfg, dev, attention_mask=padded_rows(B, S, dev))
+    profile_train(trainer, tstate, batch, m["step_time_p50_ms"])
+    del trainer, tstate, batch
+    torch.cuda.empty_cache()
+    return counts
+
+
+def train_moe_phase(ops, dev):
+    """gpt2-small with 8 experts through run_lm_benchmark: launches,
+    finite losses, no skipped update, the drop rate a fraction under
+    MOE_DROP_MAX; two profiled steps; then 4 layers dropless, whose drop
+    rate must be 0."""
+    from mpi_operator_tpu_torch.data import TokenStream
+    from mpi_operator_tpu_torch.train import LMTrainer, LMTrainerConfig
+    state, m, counts = train_phase("gpt2-small-moe8-train", ops,
+                                   num_steps=30, warmup_steps=3,
+                                   **MOE_COMMON)
+    rate = m["moe_drop_rate"]
+    check(0.0 <= rate <= MOE_DROP_MAX,
+          f"moe drop rate {rate} outside [0, {MOE_DROP_MAX}]")
+    B, S = MOE_COMMON["batch_per_device"], MOE_COMMON["seq_len"]
+    mcfg = state.model.config
+    trainer = LMTrainer(mcfg, LMTrainerConfig(global_batch_size=B,
+                                              seq_len=S), device=dev)
+    batch = TokenStream(B, S, mcfg.vocab_size, seed=1, device=dev).batch(0)
+    profile_train(trainer, state, batch, m["step_time_p50_ms"])
+    del state, trainer, batch
+    torch.cuda.empty_cache()
+    _, m, _ = train_phase("gpt2-small-moe8-dropless-4l", ops, num_steps=4,
+                          warmup_steps=1, num_layers=4, moe_dropless=True,
+                          **MOE_COMMON)
+    check(m["moe_drop_rate"] == 0.0,
+          f"dropless drop rate {m['moe_drop_rate']}")
+    torch.cuda.empty_cache()
+    return counts
+
+
+def train_remat_phase(ops):
+    """gpt2-medium with remat off, "none" and "dots" from the same seed
+    and batches: the params after the run must equal remat off's bit for
+    bit; train_phase holds K1 at 2 x layers a step under remat and K2/K3
+    at layers a step. Prints each arm's peak memory and step p50, and
+    profiles two steps of each."""
+    from mpi_operator_tpu_torch.data import TokenStream
+    from mpi_operator_tpu_torch.train import LMTrainer, LMTrainerConfig
+    B, S = REMAT_COMMON["batch_per_device"], REMAT_COMMON["seq_len"]
+    arms = {}
+    for label, kw in REMAT_ARMS:
+        state, m, counts = train_phase(f"gpt2-medium-remat-{label}", ops,
+                                       **REMAT_COMMON, **kw)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        trainer = LMTrainer(state.model.config, LMTrainerConfig(
+            global_batch_size=B, seq_len=S), device=state.params.device)
+        batch = TokenStream(B, S, state.model.config.vocab_size, seed=1,
+                            device=state.params.device).batch(0)
+        profile_train(trainer, state, batch, m["step_time_p50_ms"])
+        del trainer, batch
+        arms[label] = dict(
+            params=state.params.clone(), counts=counts,
+            step_time_p50_ms=m["step_time_p50_ms"],
+            tokens_per_sec=m["tokens_per_sec"], peak_mem_gib=peak)
+        del state
+        torch.cuda.empty_cache()
+    base = arms["off"]
+    for label in ("none", "dots"):
+        arm = arms[label]
+        same = torch.equal(arm["params"], base["params"])
+        diff = float((arm["params"] - base["params"]).abs().max())
+        check(same, f"remat {label}: params differ from remat off by up to "
+              f"{diff}")
+    summary = {label: {k: v for k, v in arm.items() if k != "params"}
+               for label, arm in arms.items()}
+    log(f"  remat ({device_line()}): {json.dumps(summary)}")
+    for label in ("none", "dots"):
+        log(f"  remat {label} against off: peak memory "
+            f"{arms[label]['peak_mem_gib']:.3f} / "
+            f"{base['peak_mem_gib']:.3f} GiB, step p50 "
+            f"{arms[label]['step_time_p50_ms']:.2f} / "
+            f"{base['step_time_p50_ms']:.2f} ms; params bit-equal")
+    del arms
+    torch.cuda.empty_cache()
+
+
+def profile_generate(model, prompt, n_new=32):
+    """Where a generate() call's time goes: one call of `n_new` tokens
+    under torch.profiler after an unprofiled one; device busy against
+    wall time a token step (the prefill included), K4's share, and the
+    host ops that take the most CPU time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mpi_operator_tpu_torch import models
+    n_new = min(n_new, model.config.max_len - prompt.shape[1])
+    models.generate(model, prompt, n_new, device=model.device)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        models.generate(model, prompt, n_new, device=model.device)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy = k4 = 0.0
+    for e in prof.events():
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and not e.is_user_annotation):
+            busy += e.time_range.elapsed_us()
+            if kernel_group(e.name) == "K4 decode_attention":
+                k4 += e.time_range.elapsed_us()
+    log(f"  profile: generate {n_new} tokens, wall {wall_us / 1e3:.2f} ms "
+        f"({wall_us / 1e3 / n_new:.3f} ms a token step), device busy "
+        f"{busy / 1e3:.2f} ms ({busy / 1e3 / n_new:.3f} ms a step), idle "
+        f"share {1 - busy / wall_us:.3f}, K4 {k4 / max(busy, 1e-9):.1%} "
+        f"of device time")
+    host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    for e in host[:6]:
+        log(f"  profile host: {e.self_cpu_time_total / 1e3 / n_new:8.3f} ms "
+            f"a step self CPU, {e.count / n_new:7.1f} calls a step  "
+            f"{e.key[:60]}")
+
+
+def generate_phase(ops):
+    """run_generate_benchmark at the generate leg's shape for each of
+    GEN_LEGS, every kernel count zeroed just before and read just after:
+    K4 must have launched once a layer a decode step of every generate()
+    call (the warm call and the timed ones; the prefill runs the dense
+    path), no other kernel. The last call's greedy tokens against the
+    same model's decode_kernel=False run: where a row first differs, a
+    near tie of the dense path (SPEC_MARGIN). Prints tokens/s and MBU
+    against HBM_BYTES_PER_S, and profiles a call of each bf16 leg.
+    Returns the K4 launches of the last leg."""
+    import types
+
+    from mpi_operator_tpu_torch import models
+    from mpi_operator_tpu_torch.examples.lm_benchmark import \
+        run_generate_benchmark
+    gen = models.generate
+    n_new = GEN_COMMON["new_tokens"]
+    launches = 0
+    for family, size, kv in GEN_LEGS:
+        name = f"{family}-{size}{'-int8' if kv else ''}"
+        calls = []
+
+        def recording(model, prompt, n, **kw):
+            out = gen(model, prompt, n, **kw)
+            calls.append((model, prompt, out.tokens))
+            return out
+        models.generate = recording
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            m = run_generate_benchmark(
+                size=size, family=family, kv_cache_dtype=kv,
+                log=lambda line: log(f"  {line}"), **GEN_COMMON)
+            torch.cuda.synchronize()
+            counts = dict(ops.launch_counts)
+        finally:
+            models.generate = gen
+        model, prompt, got = calls[-1]
+        layers = model.config.num_layers
+        want = layers * (n_new - 1) * len(calls)
+        check(counts["decode_attention"] == want
+              and all(n == 0 for k, n in counts.items()
+                      if k != "decode_attention"),
+              f"{name}: launches {counts}; K4 expected {want} (layers x "
+              f"{n_new - 1} decode steps x {len(calls)} calls)")
+        launches = counts["decode_attention"]
+        want_tok = gen(model, prompt, n_new, decode_kernel=False,
+                       device=model.device).tokens
+        P = prompt.shape[1]
+        dense = models.decode_model(model, decode_kernel=False)
+        rows = [types.SimpleNamespace(id=b, prompt=prompt[b].tolist(),
+                                      temperature=0.0)
+                for b in range(prompt.shape[0])]
+
+        def results(toks):
+            return {b: types.SimpleNamespace(tokens=toks[b, P:].tolist())
+                    for b in range(toks.shape[0])}
+        divs = first_divergences(dense, rows, results(got),
+                                 results(want_tok))
+        for d in divs:
+            check(near_tie(d), f"{name}: row {d['request']} leaves the "
+                  f"dense path at token {d['index']} with no near tie: {d}")
+        stats = dict(card=device_line(), calls=len(calls),
+                     launches=launches,
+                     rows_identical=prompt.shape[0] - len(divs),
+                     first_divergences=divs,
+                     decode_tokens_per_sec=m["decode_tokens_per_sec"],
+                     mbu=m["mbu"], hbm_bytes_per_s=HBM_BYTES_PER_S,
+                     decode_bytes_per_step=m["decode_bytes_per_step"],
+                     wall_seconds=m["wall_seconds"],
+                     peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+        log(f"  generate {name}: {json.dumps(stats)}")
+        if kv is None:
+            profile_generate(model, prompt)
+        del model, prompt, dense, calls
+        torch.cuda.empty_cache()
+    return launches
+
+
 # the warp-specialised flash kernels: 384 threads at 168 registers fill
 # the register file, which setmaxnreg splits 40/232 between the producer
 # and the consumer warpgroups
@@ -1991,6 +2411,31 @@ def main() -> int:
     log(f"[train-llama] {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
+    log("[train-bert] bert-large, bf16 over f32 masters, attention=flash "
+        "(non-causal), batch 16 x 512, MLM rate 0.15")
+    train_bert_phase(ops, dev)
+    log(f"[train-bert] {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    log("[train-moe] gpt2-small, 8 experts, top-2, capacity factor 1.25, "
+        "MoE every 2nd block, batch 16 x 512; then 4 layers dropless")
+    train_moe_phase(ops, dev)
+    log(f"[train-moe] {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    log("[train-remat] gpt2-medium, batch 16 x 512, remat off / none / "
+        "dots from one seed and one stream")
+    train_remat_phase(ops)
+    log(f"[train-remat] {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    log("[generate] run_generate_benchmark: gpt2-medium and llama-1b, "
+        "batch 8, prompt 128, 128 new tokens, bf16 and int8 KV, "
+        "decode_kernel=True")
+    generate_phase(ops)
+    log(f"[generate] {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
     log(f"[train-resume] gpt2-medium, bf16, attention=flash, 16 x 512: "
         f"uninterrupted to step {RESUME_T} twice, SIGTERM at step "
         f"{RESUME_KILL}, resume; the CLI pair at 2 layers")
@@ -2011,7 +2456,7 @@ def main() -> int:
         dict(name=name, route="cuda", source=flash_source,
              replaces=f"mpi_operator_tpu/ops/attention.py:{line}",
              launches=train_counts[name], max_abs_err=flash_err[name],
-             **flash_rows[name])
+             **flash_rows["gpt2-medium"][name])
         for name, line in flash_lines.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

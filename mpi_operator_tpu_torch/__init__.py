@@ -13,7 +13,9 @@ the decode-attention kernels K4 and K5; and single-device LM training
 forward, with the flash-attention kernels K1-K3 (ops/attention.py),
 that survives preemption: checkpoints (train/checkpoint.py), the
 resilience runtime (train/resilience.py), token shards (data/) and the
-profiler window (utils/profiling.py).
+profiler window (utils/profiling.py); BERT's masked LM, mixture-of-
+experts FFNs (parallel/moe.py) and remat in training, and the decode
+benchmark (examples/lm_benchmark.py run_generate_benchmark).
 Entry points run on the CUDA card unless the caller passes
 device="cpu".
 """

@@ -29,6 +29,7 @@ import torch
 
 from ..utils.device import DeviceLike, resolve_device
 from .prefetch import PrefetchDataset
+from .synthetic import MLM_MASK_RATE
 
 
 def discover_token_shards(data_dir: str):
@@ -122,10 +123,27 @@ class NpyTokenDataset(PrefetchDataset):
         return tuple(t.to(self.device, non_blocking=True) for t in host)
 
 
+def mlm_host_transform(vocab_size: int) -> Callable:
+    """The BERT objective over shard windows, the reference's
+    `host_transform` for `--data-dir` with bert: one RandomState(3) (the
+    reference's seed) draws each batch's mask (rate MLM_MASK_RATE) in
+    feed order; returns (inputs with the mask id vocab - 1 at the masked
+    slots, the original tokens, the f32 mask)."""
+    rng = np.random.RandomState(3)
+
+    def transform(win):
+        toks = win[:, :-1]
+        mask = rng.random_sample(toks.shape) < MLM_MASK_RATE
+        return (np.where(mask, vocab_size - 1, toks).astype(np.int32),
+                toks, mask.astype(np.float32))
+    return transform
+
+
 def write_token_shard(data_dir: str, stem: str, tokens: np.ndarray) -> None:
     """Helper for producing the shard format (tests, dataset prep)."""
     os.makedirs(data_dir, exist_ok=True)
     np.save(os.path.join(data_dir, f"{stem}_tokens.npy"), tokens)
 
 
-__all__ = ["NpyTokenDataset", "discover_token_shards", "write_token_shard"]
+__all__ = ["NpyTokenDataset", "discover_token_shards", "mlm_host_transform",
+           "write_token_shard"]

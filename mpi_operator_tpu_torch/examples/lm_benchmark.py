@@ -1,13 +1,24 @@
-"""LM training benchmark on one card: the flat single-device path of the
-reference's `mpi_operator_tpu/examples/lm_benchmark.py::
-run_lm_benchmark`, and its CLI.
+"""LM training and decode benchmarks on one card: the flat single-device
+path of the reference's `mpi_operator_tpu/examples/lm_benchmark.py::
+run_lm_benchmark`, its `run_generate_benchmark`, and its CLI.
 
 `run_lm_benchmark(workload="gpt2", size="medium", batch_per_device=16,
 seq_len=512)` builds the model with max_len = max(seq_len, 32), an
 LMTrainer over it and the step-keyed synthetic TokenStream (or, with
 `data_dir`, the `<stem>_tokens.npy` shards through NpyTokenDataset),
 runs `trainer.benchmark` and, with `eval_steps`, `evaluate` on the
-batches that follow. It runs on the CUDA card unless `device="cpu"`.
+batches that follow. `workload="bert"` trains the MaskedLM on the MLM
+objective (MLM_MASK_RATE of the tokens replaced by the mask id, scored
+against the originals); `moe_experts` turns every second FFN into a
+top-2 mixture of experts (`moe_dropless`: every expert runs every
+token), and after training one forward on a fresh batch reads the MoE
+layers' mean drop rate into `moe_drop_rate`; `remat`/`remat_policy`
+checkpoint each block. It runs on the CUDA card unless `device="cpu"`.
+
+`run_generate_benchmark(size="medium", family="gpt2")` times
+`models.generate` (prefill plus `new_tokens` decode steps, K4 on the
+card) over bf16 weights cast once, and reports new tokens/s and MBU
+against the card's HBM bandwidth.
 
 Preemption contract (the reference's): with `train_dir` the run resumes
 from the newest intact checkpoint there, writes one every `ckpt_every`
@@ -21,9 +32,10 @@ would have, and `stop_at_step` makes it finish at the same global step.
     python -m mpi_operator_tpu_torch.examples.lm_benchmark --size medium \\
         --batch-per-device 16 --train-dir /ckpt --ckpt-every 100
 
-The arguments of the parts not ported yet (tp/pp/sp/ep meshes, MoE,
-remat, BERT, a resharding restore, more than one process) raise; none
-is ignored.
+The arguments of the parts not ported yet raise, naming the ROADMAP.md
+step that ports them; none is ignored: tp/pp/sp/ep meshes and slices,
+HFTA and a resharding restore (step 10), ViT and more than one process
+(step 7).
 """
 from __future__ import annotations
 
@@ -31,11 +43,12 @@ import argparse
 import json
 import os
 import sys
+import time
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
-from ..data.synthetic import TokenStream
+from ..data.synthetic import TokenStream, synthetic_token_batch
 from ..models.transformer import lm_config
 from ..train.lm_trainer import LMTrainer, LMTrainerConfig, LMTrainState
 from ..utils.device import DeviceLike, resolve_device
@@ -83,7 +96,9 @@ def run_lm_benchmark(
     num_slices: int = 1,
     attention: str = "auto",
     remat: bool = False,
+    remat_policy: str = "none",
     moe_experts: int = 0,
+    moe_dropless: bool = False,
     num_layers: Optional[int] = None,
     fused_xent: bool = False,
     accum_steps: int = 1,
@@ -106,33 +121,46 @@ def run_lm_benchmark(
     device: DeviceLike = None,
     log: Callable[[str], None] = print,
 ) -> Tuple[LMTrainState, Dict[str, object]]:
-    """GPT-2 / llama token-stream benchmark on one device. Parameters
-    from seed 0 and the synthetic stream's batches from seed 1,
-    step-keyed, as the reference's PRNGKey(0) and PRNGKey(1). Returns
-    (state, metrics); raises Preempted after a drain (the emergency
-    checkpoint committed) and DivergenceError when a rollback cannot
-    help."""
+    """GPT-2 / llama / BERT token-stream benchmark on one device.
+    Parameters from seed 0 and the synthetic stream's batches from seed
+    1, step-keyed, as the reference's PRNGKey(0) and PRNGKey(1); the MoE
+    drop-rate probe's batch from seed 7 (the reference's PRNGKey(7)).
+    Returns (state, metrics); raises Preempted after a drain (the
+    emergency checkpoint committed) and DivergenceError when a rollback
+    cannot help."""
     from ..train.checkpoint import (last_restore_info, maybe_resume,
                                     maybe_save, periodic_saver,
                                     wait_for_checkpoints)
     from ..train.resilience import ResilienceConfig, ResilienceContext
 
-    if workload not in ("gpt2", "llama"):
-        raise ValueError(f"workload={workload!r}: the port trains the "
-                         f"causal LMs gpt2 and llama (bert is not ported)")
+    if workload not in ("gpt2", "llama", "bert"):
+        raise ValueError(f"workload={workload!r}: the port trains gpt2, "
+                         f"llama and bert (vit trains through the image "
+                         f"Trainer, ROADMAP.md step 7)")
+    if moe_dropless and not moe_experts:
+        raise ValueError("--moe-dropless needs --moe-experts (no MoE is "
+                         "built without it)")
     unported = {"tp": tp > 1, "pp": pp > 1, "sp": sp > 1, "ep": ep > 1,
-                "num_slices": num_slices > 1, "remat": remat,
-                "moe_experts": bool(moe_experts)}
+                "num_slices": num_slices > 1}
     for name, asked in unported.items():
         if asked:
             raise ValueError(f"{name}: not in the port yet (the flat "
-                             f"single-device path only; ROADMAP.md Queue 1)")
+                             f"single-device path only; the meshes are "
+                             f"ROADMAP.md step 10)")
     if dtype_name not in _DTYPES:
         raise ValueError(f"dtype_name={dtype_name!r}; expected one of "
                          f"{sorted(_DTYPES)}")
+    masked = workload == "bert"
+    if fused_xent and masked:
+        raise ValueError("--fused-xent supports the causal LM only (BERT's "
+                         "MLM head has extra layers before the tied "
+                         "decoder)")
     dev = resolve_device(device)
     overrides = dict(dtype=_DTYPES[dtype_name], attention=attention,
-                     max_len=max(seq_len, 32))
+                     max_len=max(seq_len, 32), remat=remat,
+                     remat_policy=remat_policy)
+    if moe_experts:
+        overrides.update(num_experts=moe_experts, moe_dropless=moe_dropless)
     if num_layers:
         overrides["num_layers"] = num_layers
     cfg = lm_config(f"{workload}-{size}" if size else workload, **overrides)
@@ -142,7 +170,8 @@ def run_lm_benchmark(
     if lr_warmup_steps is not None:
         opt_overrides["warmup_steps"] = lr_warmup_steps
     tcfg = LMTrainerConfig(global_batch_size=batch_per_device,
-                           seq_len=seq_len, fused_xent=fused_xent,
+                           seq_len=seq_len, masked_lm=masked,
+                           fused_xent=fused_xent,
                            accum_steps=accum_steps, lr_schedule=lr_schedule,
                            decay_steps=decay_steps, **opt_overrides)
     trainer = LMTrainer(cfg, tcfg, device=dev)
@@ -176,12 +205,17 @@ def run_lm_benchmark(
                     f"resumed step {resumed_step}; running 1 step")
             num_steps = max(1, remaining)
         if data_dir:
-            from ..data.tokenstream import NpyTokenDataset
-            stream = NpyTokenDataset(data_dir, batch_per_device, seq_len,
-                                     device=dev, vocab_size=cfg.vocab_size)
+            from ..data.tokenstream import (NpyTokenDataset,
+                                            mlm_host_transform)
+            stream = NpyTokenDataset(
+                data_dir, batch_per_device, seq_len, device=dev,
+                vocab_size=cfg.vocab_size,
+                host_transform=(mlm_host_transform(cfg.vocab_size)
+                                if masked else None))
         else:
             stream = TokenStream(batch_per_device, seq_len, cfg.vocab_size,
-                                 seed=1, start=resumed_step, device=dev)
+                                 seed=1, start=resumed_step, device=dev,
+                                 masked_lm=masked)
         try:
             state, metrics = trainer.benchmark(
                 state, stream, num_steps=num_steps,
@@ -210,23 +244,121 @@ def run_lm_benchmark(
     finally:
         resilience.__exit__(None, None, None)
         wtel.close(close_events=owns_events)
+    if moe_experts:
+        rate = _moe_drop_rate(state.model, batch_per_device, seq_len, dev)
+        metrics["moe_drop_rate"] = rate
+        log(f"moe drop rate: {rate:.3f}")
     wait_for_checkpoints()
     return state, metrics
 
 
+@torch.no_grad()
+def _moe_drop_rate(model, batch: int, seq_len: int, device) -> float:
+    """The MoE layers' mean drop rate over one forward of a fresh
+    synthetic batch (seed 7): the reference's diagnostics probe."""
+    gen = torch.Generator(device=device).manual_seed(7)
+    toks, _ = synthetic_token_batch(gen, batch, seq_len,
+                                    model.config.vocab_size)
+    model.forward_train(toks)
+    rates = model.moe_drop_rates()
+    return float(torch.stack(rates).mean())
+
+
+def run_generate_benchmark(
+    size: Optional[str] = None,
+    batch: int = 8,
+    prompt_len: int = 128,
+    new_tokens: int = 128,
+    num_iters: int = 8,
+    dtype_name: str = "bfloat16",
+    temperature: float = 0.0,
+    family: str = "gpt2",
+    kv_cache_dtype: Optional[str] = None,
+    decode_kernel: Optional[bool] = None,
+    device: DeviceLike = None,
+    log: Callable[[str], None] = print,
+) -> Dict[str, object]:
+    """KV-cache decode throughput through `models.generate`: new tokens
+    a second over `num_iters` timed calls (prefill amortized in), after
+    one warm call, for the gpt2 and llama families; `kv_cache_dtype=
+    "int8"` quantizes the cache. `decode_kernel` None is the decode
+    kernel (K4) on the card and the dense path on the CPU. The weights
+    (random, seed 0) are cast to the compute dtype once up front: decode
+    re-reads every weight each step. Each timed window ends in a host
+    read. MBU = the bytes a step must read (`utils/flops.py
+    decode_bytes_per_step`) x steps/s over the card's HBM bandwidth
+    (None where it is unknown, the CPU included). Returns the
+    reference's keys."""
+    from ..models import cast_params, create_lm, generate
+    from ..utils import flops
+
+    if dtype_name not in _DTYPES:
+        raise ValueError(f"dtype_name={dtype_name!r}; expected one of "
+                         f"{sorted(_DTYPES)}")
+    dtype = _DTYPES[dtype_name]
+    dev = resolve_device(device)
+    if decode_kernel is None:
+        decode_kernel = dev.type == "cuda"
+    name = f"{family}-{size}" if size else family
+    model = create_lm(name, device=dev, seed=0, dtype=dtype,
+                      kv_cache_dtype=kv_cache_dtype,
+                      decode_kernel=decode_kernel,
+                      max_len=max(prompt_len + new_tokens, 32))
+    cfg = model.config
+    num_params = flops.param_count(model)
+    model = cast_params(model, dtype)
+    # generate() takes host prompts (it moves them to the model's device)
+    prompt = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
+                           generator=torch.Generator().manual_seed(1))
+    sampler = (torch.Generator(device=dev).manual_seed(2)
+               if temperature > 0 else None)
+
+    def run():
+        return generate(model, prompt, new_tokens, temperature=temperature,
+                        generator=sampler, device=dev)
+
+    int(run().tokens[0, -1])                # warm: the host read waits
+    t0 = time.perf_counter()
+    for _ in range(num_iters):
+        out = run()
+    int(out.tokens[0, -1])                  # host read = the barrier
+    dt = time.perf_counter() - t0
+    tps = batch * new_tokens * num_iters / dt
+    int8 = kv_cache_dtype == "int8"
+    bytes_per_step = flops.decode_bytes_per_step(
+        num_params=num_params, num_layers=cfg.num_layers,
+        num_kv_heads=cfg.kv_heads, head_dim=cfg.head_dim, batch=batch,
+        avg_len=prompt_len + (new_tokens + 1) / 2.0,
+        param_bytes=2 if dtype_name == "bfloat16" else 4,
+        kv_cache_bytes=1.0 if int8 else 2.0,
+        kv_scale_bytes=4.0 if int8 else 0.0)
+    mbu = flops.mbu(bytes_per_step, steps_per_sec=tps / batch, device=dev)
+    log(f"generate {name}{' kv=int8' if int8 else ''}"
+        f"{' kernel' if decode_kernel else ''}: batch={batch} "
+        f"prompt={prompt_len} new={new_tokens}: {tps:.0f} new tokens/sec"
+        + (f"  MBU {mbu:.1%}" if mbu is not None else ""))
+    return {"decode_tokens_per_sec": tps,
+            "tokens_per_iter": batch * new_tokens,
+            "mbu": mbu,
+            "decode_kernel": bool(decode_kernel),
+            "decode_bytes_per_step": bytes_per_step,
+            "wall_seconds": dt}
+
+
 def main(argv=None) -> int:
-    """The single-process CLI, with the reference's flags for what is
-    ported (the mesh, MoE, remat and BERT flags are not accepted). Exits
+    """The single-process CLI, with the reference's flags; those of the
+    parts not ported (a mesh degree above 1, --hfta, --workload vit)
+    raise, naming the ROADMAP.md step that ports them. Exits
     0 after a complete run, 215 after a preemption drain (the emergency
     checkpoint committed), 1 on a divergence no rollback could fix; a
     watchdog stall exits 216 and an injected hard death 217 from inside
     the run."""
     parser = argparse.ArgumentParser(prog="lm-benchmark")
     parser.add_argument("--workload", default="gpt2",
-                        choices=["gpt2", "llama"])
+                        choices=["gpt2", "llama", "bert", "vit"])
     parser.add_argument("--size", default=None,
                         help="gpt2: test|small|medium|large|xl; llama: "
-                             "test|1b|7b")
+                             "test|1b|7b; bert: test|base|large")
     parser.add_argument("--batch-per-device", type=int, default=None)
     parser.add_argument("--seq-len", type=int, default=512)
     parser.add_argument("--num-steps", type=int, default=50)
@@ -239,6 +371,28 @@ def main(argv=None) -> int:
     parser.add_argument("--fused-xent", action="store_true")
     parser.add_argument("--attention", default="auto",
                         choices=["auto", "dense", "flash"])
+    for flag in ("--tp", "--pp", "--sp", "--ep"):
+        parser.add_argument(flag, type=int, default=1,
+                            help="the reference's mesh degree; the port "
+                                 "trains on one device (> 1 raises: "
+                                 "ROADMAP.md step 10)")
+    parser.add_argument("--hfta", type=int, default=0,
+                        help="the reference's fused sweep (> 0 raises: "
+                             "train/hfta.py is ROADMAP.md step 10)")
+    parser.add_argument("--moe-experts", type=int, default=0,
+                        help="replace every other FFN with an N-expert "
+                             "top-2 MoE")
+    parser.add_argument("--moe-dropless", action="store_true",
+                        help="dropless MoE: every expert runs every token "
+                             "(num_experts x FFN FLOPs, no dropped "
+                             "tokens); default is capacity dispatch")
+    parser.add_argument("--remat", action="store_true",
+                        help="recompute each block's forward in the "
+                             "backward (torch.utils.checkpoint)")
+    parser.add_argument("--remat-policy", default="none",
+                        choices=["none", "dots"],
+                        help="none: recompute everything; dots: keep the "
+                             "projection GEMMs' outputs")
     parser.add_argument("--data-dir", default=None,
                         help="<stem>_tokens.npy packed token shards "
                              "(data/tokenstream.py); omit for synthetic "
@@ -284,6 +438,10 @@ def main(argv=None) -> int:
                         help="'cpu' to run on the CPU (default: the card)")
     args = parser.parse_args(argv)
 
+    if args.hfta:
+        raise ValueError(f"--hfta={args.hfta}: the fused sweep trainer "
+                         f"(train/hfta.py) is not in the port yet "
+                         f"(ROADMAP.md step 10)")
     procs = int(os.environ.get("TPU_NUM_PROCESSES", "1") or "1")
     if procs > 1:
         raise RuntimeError(
@@ -305,8 +463,11 @@ def main(argv=None) -> int:
             seq_len=args.seq_len, num_steps=args.num_steps,
             warmup_steps=args.warmup_steps, eval_steps=args.eval_steps,
             dtype_name=args.dtype, num_layers=args.num_layers or None,
+            tp=args.tp, pp=args.pp, sp=args.sp, ep=args.ep,
             accum_steps=args.accum_steps, fused_xent=args.fused_xent,
-            attention=args.attention, data_dir=args.data_dir,
+            attention=args.attention, remat=args.remat,
+            remat_policy=args.remat_policy, moe_experts=args.moe_experts,
+            moe_dropless=args.moe_dropless, data_dir=args.data_dir,
             train_dir=args.train_dir, ckpt_every=args.ckpt_every,
             ckpt_keep=args.ckpt_keep, step_deadline=args.step_deadline,
             divergence_k=args.divergence_k,
@@ -338,7 +499,7 @@ def main(argv=None) -> int:
             events.close()
 
 
-__all__ = ["main", "run_lm_benchmark"]
+__all__ = ["main", "run_generate_benchmark", "run_lm_benchmark"]
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
-"""Parameters for the port's CausalLM: converted from the reference's
-flax tree, or drawn at random for the card.
+"""Parameters for the port's LMs (CausalLM, MaskedLM): converted from the
+reference's flax tree, or drawn at random for the card.
 
 `params_from_flax(cfg, tree)` takes the JAX model's `params` collection
 as nested dicts of NUMPY arrays (the tests hand it `jax.tree.map(
@@ -9,15 +9,18 @@ state dict. The layouts it translates:
   DenseGeneral query/key/value  kernel [E, H, D], bias [H, D]
                                 -> Linear weight [H*D, E], bias [H*D]
   DenseGeneral out              kernel [H, D, E] -> weight [E, H*D]
-  nn.Dense (fc_in/fc_gate/fc_out) kernel [in, out] -> weight [out, in]
-  wte / wpe                     embedding [N, E] -> weight [N, E]
+  nn.Dense (fc_in/fc_gate/fc_out, mlm_dense, the MoE router)
+                                kernel [in, out] -> weight [out, in]
+  wte / wpe / wtte              embedding [N, E] -> weight [N, E]
   LayerNorm                     scale, bias -> weight, bias
   RMSNorm                       scale -> weight
+  MoE w_in / w_out, mlm_bias    as they are
 
 `init_params(cfg, generator)` draws the same shapes the way the
 reference initializes them: every kernel and embedding normal(0, 0.02)
-(`kernel_init`), biases zero, norm scales one — on the generator's
-device, so a full-width model never round-trips through host memory.
+(`kernel_init`, the MoE experts and router too), biases zero
+(`mlm_bias` too), norm scales one — on the generator's device, so a
+full-width model never round-trips through host memory.
 """
 from __future__ import annotations
 
@@ -26,7 +29,7 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-from .transformer import TransformerConfig, param_shapes
+from .transformer import TransformerConfig, param_shapes, uses_moe
 
 
 def params_from_flax(cfg: TransformerConfig,
@@ -46,9 +49,17 @@ def params_from_flax(cfg: TransformerConfig,
         if cfg.norm == "layernorm":
             out[prefix + ".bias"] = t(node["bias"])
 
+    def dense(node, prefix, out):
+        out[prefix + ".weight"] = t(np.asarray(node["kernel"]).T)
+        if "bias" in node:
+            out[prefix + ".bias"] = t(node["bias"])
+
     out: Dict[str, torch.Tensor] = {"wte.weight": t(tree["wte"]["embedding"])}
-    if cfg.pos_embedding == "learned":
-        out["wpe.weight"] = t(tree["wpe"]["embedding"])
+    for name in ("wpe", "wtte"):
+        if name in tree:
+            out[name + ".weight"] = t(tree[name]["embedding"])
+    if "ln_emb" in tree:
+        norm(tree["ln_emb"], "ln_emb", out)
     bb = tree["backbone"]
     for i in range(cfg.num_layers):
         blk = bb[f"block_{i}"]
@@ -63,13 +74,21 @@ def params_from_flax(cfg: TransformerConfig,
         wo = np.asarray(attn["out"]["kernel"]).reshape(H * D, E)
         out[p + "attn.out.weight"] = t(wo.T)
         out[p + "attn.out.bias"] = t(attn["out"]["bias"])
+        if uses_moe(cfg, i):
+            moe = blk["moe"]
+            dense(moe["router"], p + "moe.router", out)
+            out[p + "moe.w_in"] = t(moe["w_in"])
+            out[p + "moe.w_out"] = t(moe["w_out"])
+            continue
         mlp = blk["mlp"]
         for name in ("fc_gate", "fc_in", "fc_out"):
             if name in mlp:
-                out[p + f"mlp.{name}.weight"] = t(
-                    np.asarray(mlp[name]["kernel"]).T)
-                out[p + f"mlp.{name}.bias"] = t(mlp[name]["bias"])
+                dense(mlp[name], p + f"mlp.{name}", out)
     norm(bb["ln_f"], "backbone.ln_f", out)
+    if "mlm_dense" in tree:
+        dense(tree["mlm_dense"], "mlm_dense", out)
+        norm(tree["mlm_ln"], "mlm_ln", out)
+        out["mlm_bias"] = t(tree["mlm_bias"])
     missing = set(param_shapes(cfg)) - set(out)
     if missing:
         raise KeyError(f"flax tree lacks {sorted(missing)[:4]}...")
@@ -89,7 +108,7 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
     out: Dict[str, torch.Tensor] = {}
     for name, shape in param_shapes(cfg).items():
         leaf = name.rsplit(".", 1)[0].rsplit(".", 1)[-1]
-        if leaf.startswith("ln_"):
+        if leaf.startswith("ln_") or leaf == "mlm_ln":
             fill = 1.0 if name.endswith("weight") else 0.0
             out[name] = torch.full(shape, fill, device=dev)
         elif name.endswith("bias"):

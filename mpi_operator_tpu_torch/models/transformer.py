@@ -73,7 +73,29 @@ takes its einsum in the model dtype, scales in f32 by 1/sqrt(D), masks
 with -1e30 and casts the probabilities back, and the tied LM head
 accumulates and returns f32.
 
-Not here yet (later slices): tp_overlap, MoE, remat, MaskedLM and ViT.
+BERT (`MaskedLM`): the bidirectional encoder (`causal=False`) with
+learned positions, optional segment embeddings (`wtte`), `ln_emb`, a
+[B, S] key-padding mask through `attend`, and the MLM head (`mlm_dense`,
+tanh-gelu, `mlm_ln`, the tied head plus an f32 `mlm_bias`).
+
+MoE: with `num_experts > 0`, block i runs `parallel/moe.py`'s `MoeMlp` in
+place of its FFN when i % moe_every == moe_every - 1; each block returns
+its load-balancing aux loss beside its output (None for a dense FFN), so
+the training forward (`forward_train`) hands the losses to the trainer
+through the graph the loss uses, never through module state.
+
+Remat (`remat=True`): each block of the training forward runs under
+`torch.utils.checkpoint` (non-reentrant). `remat_policy="none"`
+recomputes the whole block in the backward; `"dots"` is JAX's
+`dots_with_no_batch_dims_saveable`: a selective-checkpoint policy that
+saves the outputs of `aten.mm` / `aten.addmm` (the projections, whose
+products have no batch dims) and recomputes everything else, attention
+included. The flash kernels (K1-K3) are launched through ctypes, where
+the dispatcher does not see them: they fill `torch.empty` outputs, and
+the policy recomputes every op but the two GEMMs, so it never caches
+those allocations; a recomputed forward launches K1 again.
+
+Not here yet (later slices): tp_overlap and ViT.
 """
 from __future__ import annotations
 
@@ -86,9 +108,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..ops.attention import (NEG_INF, decode_attention, flash_attention,
                              gather_pages, paged_decode_attention)
+from ..parallel.moe import MoeMlp
 from ..utils.device import resolve_device
 
 
@@ -119,6 +144,18 @@ class TransformerConfig:
     # picks flash only on its accelerator. The kernels take bf16, so an
     # f32 CUDA tensor raises there instead of running dense on the card
     attention: str = "auto"
+    use_token_types: bool = False      # BERT segment embeddings (wtte)
+    # checkpoint each block of the training forward; "none" recomputes
+    # the whole block, "dots" saves the GEMM outputs with no batch dims
+    remat: bool = False
+    remat_policy: str = "none"
+    # MoE: every moe_every-th block's FFN becomes a top-k mixture of
+    # num_experts gelu experts (0 = dense FFN everywhere); dropless runs
+    # every expert on every token
+    num_experts: int = 0
+    moe_every: int = 2
+    moe_top_k: int = 2
+    moe_dropless: bool = False
 
     @property
     def head_dim(self) -> int:
@@ -417,8 +454,10 @@ class Attention(nn.Module):
         self.out = nn.Linear(H * D, E)
 
     def forward(self, x, pos, pos_host, cache: Optional[LayerCache],
-                pages: Optional[PageIndex] = None):
-        """Decode mode with a cache; the training forward without one."""
+                pages: Optional[PageIndex] = None, mask=None):
+        """Decode mode with a cache; the training forward without one,
+        where `mask` is the optional [B, S] key-padding mask (> 0 =
+        attend)."""
         cfg = self.config
         dt = cfg.dtype
         B, S, _ = x.shape
@@ -427,12 +466,12 @@ class Attention(nn.Module):
         k = _linear(x, self.key, dt).view(B, S, KV, D)
         v = _linear(x, self.value, dt).view(B, S, KV, D)
         if cache is None:
-            out = self._train_attend(q, k, v)
+            out = self._train_attend(q, k, v, mask)
         else:
             out = self._decode_attend(q, k, v, pos, pos_host, cache, pages)
         return _linear(out.reshape(B, S, H * D), self.out, dt)
 
-    def _train_attend(self, q, k, v):
+    def _train_attend(self, q, k, v, mask=None):
         """The reference's non-decode branch: RoPE at arange(S), K/V
         repeated across each query group, then `attend`."""
         cfg = self.config
@@ -445,7 +484,7 @@ class Attention(nn.Module):
             g = H // k.shape[2]
             k = k.repeat_interleave(g, dim=2)
             v = v.repeat_interleave(g, dim=2)
-        return attend(q, k, v, None, cfg)
+        return attend(q, k, v, mask, cfg)
 
     def _decode_attend(self, q, k, v, pos, pos_host, cache: LayerCache,
                        pages: Optional[PageIndex] = None):
@@ -545,35 +584,89 @@ class Mlp(nn.Module):
 
 
 class Block(nn.Module):
-    """Pre-LN transformer block."""
+    """Pre-LN transformer block; `use_moe` swaps the FFN for a MoeMlp.
+    Returns (x, aux): the block's MoE load-balancing loss, or None."""
 
-    def __init__(self, cfg: TransformerConfig):
+    def __init__(self, cfg: TransformerConfig, use_moe: bool = False):
         super().__init__()
         self.ln_1 = Norm(cfg)
         self.attn = Attention(cfg)
         self.ln_2 = Norm(cfg)
-        self.mlp = Mlp(cfg)
+        if use_moe:
+            if cfg.activation != "gelu":
+                # MoeMlp's experts are gelu FFNs (the reference's check)
+                raise ValueError(
+                    f"num_experts>0 requires activation='gelu' (MoeMlp "
+                    f"experts are gelu FFNs); got {cfg.activation!r}")
+            self.moe = MoeMlp(cfg.num_experts, cfg.embed_dim, cfg.mlp_dim,
+                              top_k=cfg.moe_top_k, dropless=cfg.moe_dropless,
+                              dtype=cfg.dtype)
+            self.mlp = None
+        else:
+            self.moe = None
+            self.mlp = Mlp(cfg)
 
     def forward(self, x, pos, pos_host, cache: Optional[LayerCache],
-                pages: Optional[PageIndex] = None):
-        x = x + self.attn(self.ln_1(x), pos, pos_host, cache, pages)
-        return x + self.mlp(self.ln_2(x))
+                pages: Optional[PageIndex] = None, mask=None):
+        x = x + self.attn(self.ln_1(x), pos, pos_host, cache, pages, mask)
+        if self.moe is None:
+            return x + self.mlp(self.ln_2(x)), None
+        ff, aux = self.moe(self.ln_2(x))
+        return x + ff, aux
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """`dots_with_no_batch_dims_saveable`: keep the 2-D GEMMs' outputs
+    (the projections; torch.matmul folds [B, S, E] @ [E, F] into one
+    `mm`), recompute every other op — batched products, attention, norms,
+    casts and every allocation a ctypes kernel fills."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_context(cfg: TransformerConfig):
+    """The `context_fn` of `torch.utils.checkpoint` for cfg.remat_policy."""
+    if cfg.remat_policy == "dots":
+        return functools.partial(create_selective_checkpoint_contexts,
+                                 _dots_policy)
+    if cfg.remat_policy == "none":
+        return None                    # recompute everything
+    raise ValueError(f"remat_policy={cfg.remat_policy!r}; expected 'none' "
+                     f"or 'dots'")
 
 
 class Backbone(nn.Module):
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
-        self.blocks = nn.ModuleList(Block(cfg) for _ in range(cfg.num_layers))
+        self.blocks = nn.ModuleList(Block(cfg, use_moe=uses_moe(cfg, i))
+                                    for i in range(cfg.num_layers))
         self.ln_f = Norm(cfg)
+        self.remat = cfg.remat
+        self._remat_context = _remat_context(cfg) if cfg.remat else None
 
     def forward(self, h, pos, pos_host, cache: Optional[KVCache],
-                pages: Optional[PageIndex] = None):
-        """Decode mode through `cache`; the training forward with None."""
-        layers = cache.layers if cache is not None else [None] * len(
-            self.blocks)
-        for block, layer_cache in zip(self.blocks, layers):
-            h = block(h, pos, pos_host, layer_cache, pages)
-        return self.ln_f(h)
+                pages: Optional[PageIndex] = None, mask=None):
+        """Decode mode through `cache`; the training forward with None
+        (each block checkpointed under cfg.remat while autograd records).
+        Returns (h, [aux losses of the MoE blocks])."""
+        aux = []
+        if cache is not None:
+            for block, layer_cache in zip(self.blocks, cache.layers):
+                h, _ = block(h, pos, pos_host, layer_cache, pages)
+            return self.ln_f(h), aux
+        remat = self.remat and torch.is_grad_enabled()
+        for block in self.blocks:
+            if remat:
+                kw = ({} if self._remat_context is None
+                      else {"context_fn": self._remat_context})
+                h, a = checkpoint(block, h, None, None, None, None, mask,
+                                  use_reentrant=False, **kw)
+            else:
+                h, a = block(h, None, None, None, None, mask)
+            if a is not None:
+                aux.append(a)
+        return self.ln_f(h), aux
 
 
 def dense_attention(q, k, v, mask=None, causal: bool = True,
@@ -700,7 +793,7 @@ class CausalLM(nn.Module):
                 cache: Optional[KVCache] = None, with_head: bool = True,
                 pages=None):
         if positions is None and cache is None and pages is None:
-            return self._train_forward(tokens, with_head)
+            return self.forward_train(tokens, with_head)[0]
         B, S = tokens.shape
         if positions is None:
             positions = np.arange(S)[None]
@@ -747,15 +840,17 @@ class CausalLM(nn.Module):
             # row there); the clamp is the identity everywhere else
             h = h + F.embedding(pos.clamp(max=cfg.max_len - 1),
                                 self.wpe.weight.to(dt))
-        h = self.backbone(h, pos, pos_host, cache, index)
+        h, _ = self.backbone(h, pos, pos_host, cache, index)
         if not with_head:
             return h
         return head_logits(h, self.wte.weight, dt)
 
-    def _train_forward(self, tokens: torch.Tensor, with_head: bool):
-        """The reference's decode=False forward. The table is cast to the
-        model dtype separately for the embedding and for the head, so its
-        two gradients meet in f32, as the reference's two casts do."""
+    def forward_train(self, tokens: torch.Tensor, with_head: bool = True):
+        """The reference's decode=False forward, returning (logits or h,
+        [the MoE blocks' aux losses]) — the trainer's entry. The table is
+        cast to the model dtype separately for the embedding and for the
+        head, so its two gradients meet in f32, as the reference's two
+        casts do."""
         cfg = self.config
         dt = cfg.dtype
         S = tokens.shape[1]
@@ -765,10 +860,76 @@ class CausalLM(nn.Module):
         h = F.embedding(tokens, self.wte.weight.to(dt))
         if self.wpe is not None:
             h = h + self.wpe.weight[:S].to(dt)
-        h = self.backbone(h, None, None, None)
+        h, aux = self.backbone(h, None, None, None)
         if not with_head:
-            return h
-        return TiedHead.apply(h, self.wte.weight.to(dt))
+            return h, aux
+        return TiedHead.apply(h, self.wte.weight.to(dt)), aux
+
+    def moe_drop_rates(self) -> List[torch.Tensor]:
+        """Each MoE block's drop rate from the last forward (diagnostics,
+        never part of the loss)."""
+        return _drop_rates(self.backbone)
+
+
+def _drop_rates(backbone: Backbone) -> List[torch.Tensor]:
+    return [b.moe.drop_rate for b in backbone.blocks
+            if b.moe is not None and b.moe.drop_rate is not None]
+
+
+class MaskedLM(nn.Module):
+    """BERT-style bidirectional encoder with the MLM head (the
+    reference's `MaskedLM`): token + learned position (+ segment)
+    embeddings, `ln_emb`, the bidirectional Backbone under an optional
+    [B, S] key-padding `attention_mask`, then `mlm_dense`, tanh-gelu,
+    `mlm_ln` and the tied head plus an f32 `mlm_bias`. Returns f32
+    logits [B, S, V]."""
+
+    def __init__(self, cfg: TransformerConfig):
+        super().__init__()
+        if cfg.causal:
+            raise ValueError("MaskedLM needs causal=False")
+        self.config = cfg
+        E = cfg.embed_dim
+        self.wte = nn.Embedding(cfg.vocab_size, E)
+        self.wpe = nn.Embedding(cfg.max_len, E)
+        self.wtte = nn.Embedding(2, E) if cfg.use_token_types else None
+        self.ln_emb = Norm(cfg)
+        self.backbone = Backbone(cfg)
+        self.mlm_dense = nn.Linear(E, E)
+        self.mlm_ln = Norm(cfg)
+        self.mlm_bias = nn.Parameter(torch.zeros(cfg.vocab_size))
+
+    @property
+    def device(self) -> torch.device:
+        return self.wte.weight.device
+
+    def forward(self, tokens: torch.Tensor, token_types=None,
+                attention_mask=None):
+        return self.forward_train(tokens, token_types, attention_mask)[0]
+
+    def forward_train(self, tokens: torch.Tensor, token_types=None,
+                      attention_mask=None):
+        """(logits, [the MoE blocks' aux losses])."""
+        cfg = self.config
+        dt = cfg.dtype
+        S = tokens.shape[1]
+        if S > cfg.max_len:
+            raise ValueError(f"sequence of {S} tokens is longer than "
+                             f"max_len={cfg.max_len} (the position table)")
+        h = F.embedding(tokens, self.wte.weight.to(dt)) \
+            + self.wpe.weight[:S].to(dt)
+        if self.wtte is not None:
+            if token_types is None:
+                token_types = torch.zeros_like(tokens)
+            h = h + F.embedding(token_types, self.wtte.weight.to(dt))
+        h, aux = self.backbone(self.ln_emb(h), None, None, None,
+                               mask=attention_mask)
+        h = F.gelu(_linear(h, self.mlm_dense, dt), approximate="tanh")
+        logits = TiedHead.apply(self.mlm_ln(h), self.wte.weight.to(dt))
+        return logits + self.mlm_bias.float(), aux
+
+    def moe_drop_rates(self) -> List[torch.Tensor]:
+        return _drop_rates(self.backbone)
 
 
 # ---------------------------------------------------------------------------
@@ -806,19 +967,52 @@ def llama_config(size: str = "1b", **overrides) -> TransformerConfig:
     return TransformerConfig(**base)
 
 
+def bert_config(size: str = "large", **overrides) -> TransformerConfig:
+    dims = {
+        "base": (12, 12, 768),
+        "large": (24, 16, 1024),
+        "test": (2, 4, 128),
+    }[size]
+    L, H, E = dims
+    # vocab padded 30522 -> 30592 (a multiple of 128), as the reference
+    base = dict(vocab_size=30592, max_len=512, num_layers=L, num_heads=H,
+                embed_dim=E, mlp_dim=4 * E, causal=False,
+                use_token_types=True)
+    base.update(overrides)
+    return TransformerConfig(**base)
+
+
+def uses_moe(cfg: TransformerConfig, layer: int) -> bool:
+    """Whether block `layer` runs a MoeMlp in place of its FFN."""
+    return cfg.num_experts > 0 and layer % cfg.moe_every == cfg.moe_every - 1
+
+
+def model_class(cfg: TransformerConfig):
+    """The LM a config builds: MaskedLM for a bidirectional (BERT)
+    config, CausalLM otherwise."""
+    return CausalLM if cfg.causal else MaskedLM
+
+
 def param_shapes(cfg: TransformerConfig) -> dict:
-    """{state-dict name: shape} of a CausalLM, in module order."""
+    """{state-dict name: shape} of the config's LM (`model_class`), in
+    module order."""
     E, M, H, KV, D = (cfg.embed_dim, cfg.mlp_dim, cfg.num_heads,
                       cfg.kv_heads, cfg.head_dim)
     norm = ["weight"] if cfg.norm == "rmsnorm" else ["weight", "bias"]
     out = {"wte.weight": (cfg.vocab_size, E)}
-    if cfg.pos_embedding == "learned":
+    if cfg.pos_embedding == "learned" or not cfg.causal:
         out["wpe.weight"] = (cfg.max_len, E)
+    if not cfg.causal:
+        if cfg.use_token_types:
+            out["wtte.weight"] = (2, E)
+        for n in norm:
+            out["ln_emb." + n] = (E,)
     lin = {"attn.query": (H * D, E), "attn.key": (KV * D, E),
            "attn.value": (KV * D, E), "attn.out": (E, H * D)}
     if cfg.activation == "swiglu":
         lin["mlp.fc_gate"] = (M, E)
     lin.update({"mlp.fc_in": (M, E), "mlp.fc_out": (E, M)})
+    e = cfg.num_experts
     for i in range(cfg.num_layers):
         p = f"backbone.blocks.{i}."
         for n in norm:
@@ -828,22 +1022,32 @@ def param_shapes(cfg: TransformerConfig) -> dict:
             out[p + name + ".bias"] = (lin[name][0],)
         for n in norm:
             out[p + "ln_2." + n] = (E,)
+        if uses_moe(cfg, i):
+            out[p + "moe.router.weight"] = (e, E)
+            out[p + "moe.w_in"] = (e, E, M)
+            out[p + "moe.w_out"] = (e, M, E)
+            continue
         for name in ("mlp.fc_gate", "mlp.fc_in", "mlp.fc_out"):
             if name in lin:
                 out[p + name + ".weight"] = lin[name]
                 out[p + name + ".bias"] = (lin[name][0],)
     for n in norm:
         out["backbone.ln_f." + n] = (E,)
+    if not cfg.causal:
+        out["mlm_dense.weight"] = (E, E)
+        out["mlm_dense.bias"] = (E,)
+        for n in norm:
+            out["mlm_ln." + n] = (E,)
+        out["mlm_bias"] = (cfg.vocab_size,)
     return out
 
 
-def build_lm(cfg: TransformerConfig, state_dict: dict,
-             device=None) -> CausalLM:
-    """A CausalLM whose parameters ARE the given tensors (moved to
-    `device`, no copy when they already live there)."""
+def build_lm(cfg: TransformerConfig, state_dict: dict, device=None):
+    """The config's LM (`model_class`) whose parameters ARE the given
+    tensors (moved to `device`, no copy when they already live there)."""
     dev = resolve_device(device)
     with torch.device("meta"):
-        model = CausalLM(cfg)
+        model = model_class(cfg)(cfg)
     model.load_state_dict({k: torch.as_tensor(v).to(dev)
                            for k, v in state_dict.items()},
                           strict=True, assign=True)
@@ -851,20 +1055,24 @@ def build_lm(cfg: TransformerConfig, state_dict: dict,
 
 
 def lm_config(name: str = "gpt2-medium", **overrides) -> TransformerConfig:
-    """The config of the named model ("gpt2-medium", "llama-test", ...;
-    a bare family name is gpt2-medium or llama-1b)."""
+    """The config of the named model ("gpt2-medium", "llama-test",
+    "bert-large", ...; a bare family name is gpt2-medium, llama-1b or
+    bert-large)."""
     family, _, size = name.partition("-")
     if family == "gpt2":
         return gpt2_config(size or "medium", **overrides)
     if family == "llama":
         return llama_config(size or "1b", **overrides)
-    raise ValueError(f"unknown LM {name!r} (the port has gpt2-* and "
-                     f"llama-*)")
+    if family == "bert":
+        return bert_config(size or "large", **overrides)
+    raise ValueError(f"unknown LM {name!r} (the port has gpt2-*, llama-* "
+                     f"and bert-*)")
 
 
 def create_lm(name: str = "gpt2-medium", device=None, seed: int = 0,
-              **overrides) -> CausalLM:
-    """The named model ("gpt2-medium", "llama-test", ...) with random
+              **overrides):
+    """The named model ("gpt2-medium", "llama-test", "bert-large", ...: a
+    CausalLM, or a MaskedLM for bert) with random
     f32 weights drawn on `device` from `seed` (models/convert.py
     init_params), frozen for inference. Runs on the CUDA card unless
     `device="cpu"`."""
@@ -878,8 +1086,8 @@ def create_lm(name: str = "gpt2-medium", device=None, seed: int = 0,
 __all__ = [
     "TransformerConfig", "LayerCache", "KVCache", "PagedKVCache",
     "PageIndex", "page_index", "page_index_device", "Attention", "Mlp",
-    "Norm", "Block", "Backbone", "CausalLM", "TiedHead", "attend",
-    "dense_attention", "rope", "head_logits",
-    "gpt2_config", "llama_config", "lm_config", "param_shapes", "build_lm",
-    "create_lm",
+    "Norm", "Block", "Backbone", "CausalLM", "MaskedLM", "TiedHead",
+    "attend", "dense_attention", "rope", "head_logits",
+    "gpt2_config", "llama_config", "bert_config", "lm_config",
+    "model_class", "param_shapes", "uses_moe", "build_lm", "create_lm",
 ]

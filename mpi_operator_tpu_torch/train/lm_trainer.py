@@ -7,7 +7,12 @@ What it keeps of the reference, step for step:
   logits, masked, normalised by the mask count or a given `denom`), or
   with `fused_xent` the chunked `fused_lm_loss`, whose [C, vocab] logits
   tiles are recomputed in the backward (`torch.utils.checkpoint` per
-  chunk, as `jax.checkpoint` in the reference's scan);
+  chunk, as `jax.checkpoint` in the reference's scan); plus
+  `moe_aux_weight` times the sum of the MoE blocks' mean aux losses
+  (scaled by 1/accum_steps under accumulation; left out of eval);
+- the model the config names: `MaskedLM` for a bidirectional (BERT)
+  config, trained on the masked slots (`masked_lm`: the batch's third
+  element is the mask of scored positions), else `CausalLM`;
 - the optimizer `make_adamw`: optax's `chain(clip_by_global_norm,
   adamw)` written out by hand (`adamw_update`), because torch's AdamW
   differs: optax clips with `where(norm < max, g, g / norm * max)` (no
@@ -34,8 +39,8 @@ and the guard update with a few whole-buffer operations and no host
 sync; the model the trainer builds reads its parameters through those
 views, in the model dtype (bf16 casts per use, like flax's `dtype`).
 
-Not here yet (later slices): the mesh and its shardings (tp/sp/pp/ep),
-`tp_overlap_lm_loss`, MoE aux losses, remat, the BERT objective.
+Not here yet (later slices): the mesh and its shardings (tp/sp/pp/ep)
+and `tp_overlap_lm_loss`.
 """
 from __future__ import annotations
 
@@ -48,7 +53,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..models.transformer import (CausalLM, TiedHead, TransformerConfig,
+from ..models.transformer import (TiedHead, TransformerConfig, model_class,
                                   param_shapes)
 from ..telemetry import TrainTelemetry, span
 from ..utils import flops
@@ -74,7 +79,9 @@ class LMTrainerConfig:
     lr_schedule: str = "linear"
     decay_steps: int = 10_000
     end_lr_fraction: float = 0.1
-    # chunked tied-head xent (fused_lm_loss)
+    moe_aux_weight: float = 0.01
+    masked_lm: bool = False        # BERT-style objective over masked slots
+    # chunked tied-head xent (fused_lm_loss); causal models only
     fused_xent: bool = False
     # split each batch into accum_steps microbatches, one update on the
     # summed gradient
@@ -244,7 +251,7 @@ class LMTrainState:
     device-side count of skipped steps in a row."""
     params: torch.Tensor
     opt: AdamWState
-    model: CausalLM
+    model: torch.nn.Module         # CausalLM or MaskedLM
     step: int = 0
     nonfinite_streak: Optional[torch.Tensor] = None
 
@@ -254,9 +261,10 @@ class LMTrainState:
 
 
 class LMTrainer:
-    """Single-device trainer for the port's CausalLM. It builds its own
-    model (trainable, f32 master parameters laid flat) from a
-    TransformerConfig; runs on the CUDA card unless `device="cpu"`."""
+    """Single-device trainer for the port's LMs (CausalLM, or MaskedLM
+    for a BERT config). It builds its own model (trainable, f32 master
+    parameters laid flat) from a TransformerConfig; runs on the CUDA
+    card unless `device="cpu"`."""
 
     def __init__(self, model_config: TransformerConfig,
                  config: Optional[LMTrainerConfig] = None,
@@ -272,6 +280,11 @@ class LMTrainer:
             raise ValueError(
                 f"global_batch_size={self.config.global_batch_size} must "
                 f"split into accum_steps={A} equal microbatches")
+        if self.config.fused_xent and (self.config.masked_lm
+                                       or not model_config.causal):
+            raise ValueError("fused_xent supports the causal LM only "
+                             "(BERT's MLM head has extra layers before "
+                             "the tied decoder)")
 
     def init_state(self, seed: int = 0,
                    state_dict: Optional[Dict[str, torch.Tensor]] = None
@@ -294,7 +307,7 @@ class LMTrainer:
             views[name] = view.view(shape)
             off += n
         with torch.device("meta"):
-            model = CausalLM(cfg)
+            model = model_class(cfg)(cfg)
         model.load_state_dict(views, strict=True, assign=True)
         return LMTrainState(
             params=flat, opt=AdamWState.zeros_like(flat), model=model,
@@ -303,14 +316,23 @@ class LMTrainer:
     # -- the objective and its gradients ---------------------------------
 
     def _loss(self, state: LMTrainState, tokens, targets, mask,
-              denom=None):
+              denom=None, aux_scale=1.0, include_aux=True):
+        """(loss, logits or None). `denom` and `aux_scale` make the sum of
+        microbatch gradients the full batch's: the FULL batch's mask
+        count, and 1 / accum_steps on the aux term."""
         model = state.model
         if self.config.fused_xent:
-            h = model(tokens, with_head=False)
-            return fused_lm_loss(h, model.wte.weight, targets, mask,
-                                 denom=denom), None
-        logits = model(tokens)
-        return lm_loss(logits, targets, mask, denom=denom), logits
+            h, aux = model.forward_train(tokens, with_head=False)
+            loss = fused_lm_loss(h, model.wte.weight, targets, mask,
+                                 denom=denom)
+            logits = None
+        else:
+            logits, aux = model.forward_train(tokens)
+            loss = lm_loss(logits, targets, mask, denom=denom)
+        if aux and include_aux:
+            loss = loss + aux_scale * self.config.moe_aux_weight * sum(
+                a.mean() for a in aux)
+        return loss, logits
 
     def _batch(self, tokens, targets, mask):
         tokens = torch.as_tensor(tokens, device=self.device).long()
@@ -333,7 +355,8 @@ class LMTrainer:
             loss = torch.zeros((), dtype=torch.float32, device=self.device)
             for t, g, m in zip(tokens.chunk(A), targets.chunk(A),
                                mask.chunk(A)):
-                micro, _ = self._loss(state, t, g, m, denom=total)
+                micro, _ = self._loss(state, t, g, m, denom=total,
+                                      aux_scale=1.0 / A)
                 micro.backward()
                 loss = loss + micro.detach()
             acc = nan
@@ -381,9 +404,11 @@ class LMTrainer:
     def eval_step(self, state: LMTrainState, tokens, targets, mask=None
                   ) -> torch.Tensor:
         """Loss-only forward at the current params (no grads, no
-        update)."""
+        update). The MoE aux term is left out: it only shapes gradients,
+        and would inflate exp(val_loss) past the perplexity."""
         tokens, targets, mask = self._batch(tokens, targets, mask)
-        return self._loss(state, tokens, targets, mask)[0]
+        return self._loss(state, tokens, targets, mask,
+                          include_aux=False)[0]
 
     def evaluate(self, state: LMTrainState, dataset: Iterable,
                  num_batches: int = 10) -> Dict[str, float]:
@@ -400,7 +425,11 @@ class LMTrainer:
 
     def _step_flops(self, state: LMTrainState) -> float:
         """GLOBAL model FLOPs of one train step: 6N + attention per token
-        (utils/flops.py), times the tokens of a step."""
+        (utils/flops.py), times the tokens of a step. N counts every
+        parameter, each expert of a MoE block included though a token
+        runs only top_k of them (the reference's count, kept for
+        parity: ROADMAP.md Queue 3, G2); attention is halved for causal
+        models only."""
         cfg, mcfg = self.config, self.model_config
         per_token = flops.transformer_train_flops_per_token(
             state.params.numel(), mcfg.num_layers, mcfg.embed_dim,

@@ -375,8 +375,9 @@ def test_eval_step_and_evaluate_match_the_reference():
 def test_run_lm_benchmark_on_the_cpu(monkeypatch):
     """The entry point at test size: the reference's metric keys, every
     step's loss finite, warmup + timed steps taken, eval continuing the
-    stream; the parts not ported (tp/pp/sp/ep meshes, remat, MoE, BERT,
-    a resharding restore) raise instead of being ignored."""
+    stream; remat, MoE and BERT run at test size; the parts not ported
+    (tp/pp/sp/ep meshes and a resharding restore: ROADMAP step 10; ViT:
+    step 7) raise instead of being ignored."""
     logs = []
     state, m = bench.run_lm_benchmark(
         "gpt2", "test", batch_per_device=2, seq_len=16, num_steps=4,
@@ -393,10 +394,15 @@ def test_run_lm_benchmark_on_the_cpu(monkeypatch):
     kw = dict(workload="gpt2", size="test", batch_per_device=2,
               seq_len=16, num_steps=1, device="cpu", log=logs.append)
     for bad in (dict(tp=2), dict(pp=2), dict(sp=2), dict(ep=2),
-                dict(remat=True), dict(moe_experts=4),
-                dict(workload="bert")):
-        with pytest.raises(ValueError):
+                dict(num_slices=2)):
+        with pytest.raises(ValueError, match="step 10"):
             bench.run_lm_benchmark(**{**kw, **bad})
+    with pytest.raises(ValueError, match="step 7"):
+        bench.run_lm_benchmark(**{**kw, "workload": "vit"})
+    for good in (dict(remat=True), dict(remat=True, remat_policy="dots"),
+                 dict(moe_experts=4), dict(workload="bert")):
+        st, gm = bench.run_lm_benchmark(**{**kw, **good})
+        assert st.step == 6 and math.isfinite(gm["final_loss"])
     monkeypatch.setenv("TPU_RESHARD_RESTORE", "1")
     with pytest.raises(ValueError, match="reshard"):
         bench.run_lm_benchmark(**kw)
