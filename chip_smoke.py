@@ -76,12 +76,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
    and without a key mask (row 0 padded after 3/4), llama-1b's heads
    after the K/V repeat (H=32), a [B, S] key mask with one fully masked
    row (non-causal and causal), a ragged S=500, S=129 (one past K1's
-   128-row tiles), and D=128 (two 64-column boxes a tile). K2/K3 get
+   128-row tiles), D=128 (two 64-column boxes a tile), and ViT-B/16's
+   attention (B=256, S=197, H=12, D=64, non-causal, no mask: the last
+   64-row tile holds 5 valid rows, the last 128-row tile 69). K2/K3 get
    the plain forward's lse and delta. Each output is held to a relative
    error limit, and at the training shape each limit must fail planted
    faults made from the plain versions (a skipped tile; for K2/K3 ds
    left unrounded). Times each kernel at the training shape and at both
-   bert-large shapes with L2 flushed beside its bound (the bytes, or the
+   bert-large shapes and ViT-B/16's with L2 flushed beside its bound
+   (the bytes, or the
    products over this input's visible pairs), its plain version, and
    one scaled_dot_product_attention call with the same causality and
    mask, forward and backward through autograd (yardsticks only: the
@@ -166,7 +169,42 @@ Phases, each of which fails the run (non-zero exit, no result line):
    on the same model, each row's first divergence a near tie of the
    dense path; tokens/s and MBU against 3.35 TB/s. Every phase from 14
    on prints the card's name and power limit beside its numbers.
-18. (Run last.) Training that survives preemption, gpt2-medium at
+18. Image training, ResNet ([train-resnet]): run_benchmark at the JAX
+   bench's headline leg (bench.py:181-200): ResNet-101 with the conv7
+   stem, bf16 over f32 params, 256 x 224^2, SGD with momentum, 3 warmup
+   and 30 timed steps; then ResNet-50 with the s2d stem for 2 + 10, so
+   both stems run through cuDNN. No flash or decode kernel launches;
+   every loss finite and no step skipped by the guard (each step's
+   streak read). Prints images/s, step p50/p99, MFU (the analytic FLOP
+   count, utils/flops.py), peak memory; two profiled steps give device
+   busy, the idle share and device time by group (cuDNN convs,
+   reductions, elementwise: BN apply, ReLU, casts, optimizer), and the
+   optimizer's update is timed alone. Then the shard path: two seeded
+   uint8 npy shards, the native loader's batch on the card equal to the
+   Python path's, and ResNet-50 s2d at 64 px trained on them through
+   run_benchmark(data_dir=).
+19. ViT ([train-vit]): run_vit_benchmark(size="b16",
+   batch_per_device=256, image_size=224), the bench's vit leg
+   (bench.py:1046-1064), 3 + 30 steps: K1-K3 launches 12 x the steps
+   run, the same checks and prints as 18, K1-K3's share of device time;
+   then a 2-layer cut's gradients through flash and dense from the same
+   weights and batch (64 images), as the BERT check: flash with delta
+   from an f32 O against the dense path with f32 attention at cosine >=
+   0.999 a tensor, the others printed.
+20. DDP ([train-ddp]): tests/torch_ddp_worker.py as two ranks on the one
+   card over gloo (NCCL refuses two ranks on one device; gloo all-
+   reduces CUDA tensors), started by the port's launch.py
+   (TPU_SLOTS_PER_WORKER=2) and joined through its bootstrap: ResNet-50
+   (s2d, 64 px, f32) and ViT-B/16's width at 2 layers (bf16, K1-K3), 3
+   SGD steps on a global batch of 16; then one rank over NCCL (a group
+   of one, joined through the bootstrap's rendezvous, so the NCCL path
+   runs). Each against this process's run of the same models, weights
+   and batches: the relative error of the update (params after minus
+   before), of the momentum and of the BN statistics within DDP_REL.
+   Then the 2 gloo ranks again with H12's planted fault (each rank
+   normalises with its own BN statistics): the ResNet must exceed
+   DDP_REL by the same check.
+21. (Run last.) Training that survives preemption, gpt2-medium at
    full width, bf16, attention="flash", 16 x 512, through
    run_lm_benchmark's resilient path in a temporary directory (at least
    20 GB free, or the phase fails): periodic async checkpoints every 12
@@ -187,7 +225,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    at 2 layers: sigterm-at-step:5 exits 215 with step_5, and the resume
    with --stop-at-step 8 exits 0 with step_8.
 
-The line before the last is {"kernels": [...]}; the last line is
+The line before the last is {"kernels": [...]}: K4, K5 and K1-K3 (at
+the gpt2 training shape, with a `vit_b16` entry each: launches in
+[train-vit] and the timing row at ViT-B/16's shape); the last line is
 {"ok": true, "device": {...}}.
 """
 import contextlib
@@ -257,6 +297,9 @@ FLASH_CASES = [
     # D=128: two 64-column boxes a tile; K1 and K2 walk 64-key tiles, K3
     # 32-query tiles
     ("unequal-tiles", 4, 512, 16, 128, True, None),
+    # ViT-B/16's attention in [train-vit]: 196 patches + cls, the last
+    # 64-row tile holds 5 valid rows and the last 128-row tile 69
+    ("vit-b16", 256, 197, 12, 64, False, None),
 ]
 # one step's gradients, flash against dense, same weights and batch: both
 # bf16; dense rounds its scores to bf16 (the reference's einsum does) and
@@ -1393,8 +1436,10 @@ def flash_kernel_phase(ops, dev):
 
 FLASH_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
 # the cases timed beside SDPA: the gpt2 training shape (the kernels
-# line's rows) and bert-large's, without and with its key mask
-TIMED_FLASH_CASES = ("gpt2-medium", "bert-large", "bert-large-pad")
+# line's rows), bert-large's, without and with its key mask, and
+# ViT-B/16's (the kernels line's `vit_b16` entries)
+TIMED_FLASH_CASES = ("gpt2-medium", "bert-large", "bert-large-pad",
+                     "vit-b16")
 
 
 def time_flash(ops, name, q, k, v, do, causal, m, dev):
@@ -1964,6 +2009,389 @@ def train_resume_phase(ops):
 
 
 # ---------------------------------------------------------------------------
+# image training: ResNet and ViT through the image Trainer, and DDP
+# ---------------------------------------------------------------------------
+
+# the JAX bench's headline leg (bench.py:181-200): ResNet-101, the conv7
+# stem, 224 px, bf16, 256 a device; then ResNet-50 with the s2d stem
+RESNET_LEGS = [
+    ("resnet101-conv7", dict(model_name="resnet101", stem="conv7",
+                             batch_per_device=256, image_size=224,
+                             num_steps=30, warmup_steps=3)),
+    ("resnet50-s2d", dict(model_name="resnet50", stem="s2d",
+                          batch_per_device=256, image_size=224,
+                          num_steps=10, warmup_steps=2)),
+]
+# the bench's vit leg (bench.py:1046-1064): ViT-B/16, 256 x 224^2
+VIT_LEG = dict(size="b16", batch_per_device=256, image_size=224,
+               num_steps=30, warmup_steps=3)
+# the flash-against-dense gradient check on a 2-layer cut of ViT-B/16
+VIT_GRAD_BATCH, VIT_GRAD_LAYERS = 64, 2
+# [train-ddp]: 2 gloo ranks on the one card against one process at the
+# global batch of 16 after 3 SGD steps, compared by the relative error
+# of the update (params after minus params before): ResNet-50 (s2d, 64
+# px) in f32 with TF32 off, where the ranks' convs run at another batch
+# size (cuDNN may pick other algorithms) and gloo sums the gradients in
+# another order; the 2-layer ViT in bf16 through K1-K3, where the GEMMs
+# of 8 rows round like those of 16 only up to bf16 ulps. On the H100 the
+# sound ResNet reads up to 3.3e-6 and the planted per-rank-BN fault 0.30
+# (update) / 0.28 (momentum) / 9.9e-3 (statistics): 1e-3 sits near the
+# geometric mean of the two, ~300x from each
+DDP_STEPS, DDP_IMAGE = 3, 64
+DDP_REL = {"resnet": 1e-3, "vit": 2e-2}
+
+
+def image_group(name: str) -> str:
+    """Device kernels of an image training step by kind."""
+    low = name.lower()
+    for kernel, group in (("flash_fwd_kernel", "K1 flash_fwd"),
+                          ("flash_dq_kernel", "K2 flash_dq"),
+                          ("flash_dkv_kernel", "K3 flash_dkv")):
+        if kernel in name:
+            return group
+    if any(t in low for t in ("fprop", "dgrad", "wgrad", "conv", "implicit",
+                              "cudnn", "nhwc", "nchw")):
+        return "convs (cuDNN)"
+    if any(t in low for t in ("gemm", "xmma", "cutlass", "gemv", "nvjet")):
+        return "GEMM (cuBLAS)"
+    if "reduce" in low:
+        return "reductions (BN statistics, norms, loss)"
+    if any(t in low for t in ("elementwise", "vectorized", "unrolled")):
+        return "elementwise (BN apply, ReLU, casts, optimizer)"
+    return name[:70]
+
+
+def image_phase(name, ops, run, flash_layers=0, **kw):
+    """`run(**kw)` (run_benchmark or run_vit_benchmark) with every kernel
+    count zeroed just before and read just after: K1-K3 each
+    flash_layers x the steps run (the decode kernels never); every
+    timed loss finite and no step skipped by the guard (the streak of
+    every step read, warmup included). Returns (state, metrics,
+    counts)."""
+    from mpi_operator_tpu_torch.train import trainer as tr
+    streaks = []
+    step = tr.Trainer.train_step
+
+    def recording(self, state, images, labels):
+        state, m = step(self, state, images, labels)
+        streaks.append(m["nonfinite_streak"])
+        return state, m
+    tr.Trainer.train_step = recording
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    try:
+        state, m = run(log=lambda line: log(f"  {line}"), **kw)
+        torch.cuda.synchronize()
+    finally:
+        tr.Trainer.train_step = step
+    counts = dict(ops.launch_counts)
+    steps = state.step
+    want = {k: flash_layers * steps for k in FLASH_KERNELS}
+    check(all(counts[k] == want[k] for k in FLASH_KERNELS)
+          and all(n == 0 for k, n in counts.items()
+                  if k not in FLASH_KERNELS),
+          f"{name}: launches {counts} over {steps} steps; K1-K3 expected "
+          f"{want}, the decode kernels 0")
+    losses = m["step_losses"]
+    check(all(math.isfinite(x) for x in losses)
+          and math.isfinite(m["final_loss"]),
+          f"{name}: non-finite loss among {losses}")
+    check(len(streaks) == steps and int(torch.stack(streaks).max()) == 0,
+          f"{name}: the guard skipped a step")
+    stats = {k: m[k] for k in ("images_per_sec", "step_time_p50_ms",
+                               "step_time_p99_ms", "host_gap_p50_ms",
+                               "mfu", "tflops_per_sec_per_device",
+                               "flops_per_step", "final_loss")}
+    stats.update(steps=steps, launches={k: counts[k] for k in FLASH_KERNELS},
+                 first_loss=losses[0], last_loss=losses[-1],
+                 peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+                 card=device_line())
+    log(f"  {name}: {json.dumps(stats)}")
+    return state, m, counts
+
+
+def profile_image(state, batch_size, image_size, step_ms, steps=2):
+    """Where an image training step's time goes: `steps` steps under
+    torch.profiler after one unprofiled step, on the run's own state;
+    device busy a step against the unprofiled step time, the idle
+    share, device time by kernel group; then the optimizer's update
+    (SGD, the statistics and the guard over the flat buffers,
+    Trainer.apply_update) timed alone with CUDA events on the run's
+    state, which it leaves changed."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mpi_operator_tpu_torch.data import SyntheticImageDataset
+    from mpi_operator_tpu_torch.train import Trainer, TrainerConfig
+    dev = state.params.device
+    trainer = Trainer(state.model, TrainerConfig(
+        global_batch_size=batch_size, image_size=image_size), device=dev)
+    batch = SyntheticImageDataset(batch_size, image_size, seed=1,
+                                  device=dev).batch(0)
+    trainer.train_step(state, *batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            trainer.train_step(state, *batch)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    groups = {}
+    for e in prof.events():
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or e.is_user_annotation):
+            continue
+        g = groups.setdefault(image_group(e.name), [0.0, 0])
+        g[0] += e.time_range.elapsed_us()
+        g[1] += 1
+    busy = sum(g[0] for g in groups.values())
+    busy_ms = busy / 1e3 / steps
+    log(f"  profile ({device_line()}): {steps} steps, wall "
+        f"{wall_us / 1e3 / steps:.2f} ms a step profiled, device busy "
+        f"{busy_ms:.2f} ms a step, idle share {1 - busy / wall_us:.3f} "
+        f"profiled, {1 - busy_ms / step_ms:.3f} against the unprofiled "
+        f"step of {step_ms:.2f} ms")
+    for name, (us, n) in sorted(groups.items(), key=lambda kv: -kv[1][0])[:12]:
+        log(f"  profile: {us / 1e3 / steps:8.3f} ms a step "
+            f"{us / max(busy, 1e-9):6.1%} {n // steps:5d} launches a step  "
+            f"{name}")
+    g = torch.randn(state.params.shape, device=dev) * 1e-3
+    loss = torch.zeros((), device=dev)
+    trainer.apply_update(state, g, loss)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(10):
+        trainer.apply_update(state, g, loss)
+    end.record()
+    torch.cuda.synchronize()
+    log(f"  profile: optimizer alone (Trainer.apply_update: SGD, BN "
+        f"statistics and the guard over {state.params.numel()} f32 "
+        f"params) {start.elapsed_time(end) / 10:.3f} ms")
+    return busy_ms
+
+
+def train_resnet_phase(ops):
+    """RESNET_LEGS through run_benchmark, each profiled; then the npy
+    shard path on the card (`shard_leg`)."""
+    from mpi_operator_tpu_torch.examples.benchmark import run_benchmark
+    for name, kw in RESNET_LEGS:
+        state, m, _ = image_phase(name, ops, run_benchmark, **kw)
+        profile_image(state, kw["batch_per_device"], kw["image_size"],
+                      m["step_time_p50_ms"])
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+    shard_leg(ops)
+
+
+# the shard leg: ResNet-50 s2d at 64 px on uint8 npy shards, a cut of
+# the headline leg's data path (resolution and depth: the path is what
+# is checked, not its speed)
+SHARD_KW = dict(model_name="resnet50", stem="s2d", batch_per_device=32,
+                image_size=64, num_steps=4, warmup_steps=1)
+
+
+def shard_leg(ops):
+    """Two seeded uint8 npy shards in a temporary directory: the native
+    loader's batch on the card equals the Python path's bit for bit (one
+    shard, the same order), and run_benchmark(data_dir=) trains on them
+    through the pinned host-to-device copy with finite losses."""
+    from mpi_operator_tpu_torch.data.imagefolder import (NpyImageDataset,
+                                                         write_npy_shard)
+    from mpi_operator_tpu_torch.examples.benchmark import run_benchmark
+    size, b = SHARD_KW["image_size"], SHARD_KW["batch_per_device"]
+    rs = np.random.RandomState(5)
+    with tempfile.TemporaryDirectory() as tmp:
+        one = os.path.join(tmp, "one")
+        for i in range(2):
+            write_npy_shard(tmp if i else one, f"s{i}",
+                            rs.randint(0, 256, (4 * b, size, size, 3))
+                            .astype(np.uint8),
+                            rs.randint(0, 1000, 4 * b).astype(np.int64))
+        sets = [NpyImageDataset(one, b, size, dtype=torch.bfloat16,
+                                use_native=mode)
+                for mode in ("always", "never")]
+        try:
+            (xn, yn), (xp, yp) = next(sets[0]), next(sets[1])
+            torch.cuda.synchronize()
+            check(xn.is_cuda and torch.equal(xn.view(torch.int16),
+                                             xp.view(torch.int16))
+                  and torch.equal(yn, yp),
+                  "native and Python shard batches differ on the card")
+        finally:
+            for ds in sets:
+                ds.close()
+        os.replace(os.path.join(one, "s0_images.npy"),
+                   os.path.join(tmp, "s0_images.npy"))
+        os.replace(os.path.join(one, "s0_labels.npy"),
+                   os.path.join(tmp, "s0_labels.npy"))
+        image_phase("resnet50-s2d-shards", ops, run_benchmark,
+                    data_dir=tmp, **SHARD_KW)
+
+
+def named_grads(model, trainer, state, batch):
+    """{name: f32 gradient} of one batch through the image trainer."""
+    loss, g, _ = trainer.loss_and_grads(state, *batch)
+    out, off = {}, 0
+    for name, p in model.named_parameters():
+        out[name] = g[off:off + p.numel()]
+        off += p.numel()
+    return float(loss), out
+
+
+def vit_grads_agree(dev):
+    """One batch's gradients of a 2-layer ViT-B/16 cut from the same
+    weights through flash (K1-K3) and dense attention, as the BERT check
+    does: flash with delta from an f32 O against the dense path with f32
+    attention at cosine >= GRAD_COSINE a tensor (key biases: rounding
+    noise under NOISE_NORM of the global norm), the global norms within
+    GRAD_NORM_RTOL; the shipped flash and the bf16 dense path printed
+    against it."""
+    from mpi_operator_tpu_torch.data import SyntheticImageDataset
+    from mpi_operator_tpu_torch.models import create_vit
+    from mpi_operator_tpu_torch.train import Trainer, TrainerConfig
+    batch = SyntheticImageDataset(VIT_GRAD_BATCH, 224, seed=1,
+                                  device=dev).batch(0)
+    contexts = {"exact": exact_dense_attention, "flash-f32-delta": f32_delta}
+    grads = {}
+    for impl in ("exact", "dense", "flash-f32-delta", "flash"):
+        attention = "flash" if impl.startswith("flash") else "dense"
+        model = create_vit("vit-b16", device=dev, seed=0,
+                           num_layers=VIT_GRAD_LAYERS, attention=attention)
+        trainer = Trainer(model, TrainerConfig(
+            global_batch_size=VIT_GRAD_BATCH), device=dev)
+        state = trainer.init_state(0)
+        with contexts.get(impl, contextlib.nullcontext)():
+            grads[impl] = named_grads(model, trainer, state, batch)
+        del model, trainer, state
+        torch.cuda.empty_cache()
+
+    def compare(a, b, checked):
+        (la, ga), (lb, gb) = grads[a], grads[b]
+        na = float(torch.cat(list(ga.values())).norm())
+        nb = float(torch.cat(list(gb.values())).norm())
+        worst = (1.0, "")
+        for name in ga:
+            x, y = ga[name], gb[name]
+            if name.endswith("attn.key.bias"):
+                if checked:
+                    check(float(x.norm()) <= NOISE_NORM * na
+                          and float(y.norm()) <= NOISE_NORM * nb,
+                          f"{name}: gradient is not rounding noise")
+                continue
+            cos = float(torch.dot(x, y) / (x.norm() * y.norm())
+                        .clamp(min=1e-30))
+            worst = min(worst, (cos, name))
+        log(f"  vit grads {a} vs {b}: loss {la:.6f} vs {lb:.6f}, global "
+            f"norm {na:.6f} vs {nb:.6f}, worst cosine {worst[0]:.6f} "
+            f"({worst[1]})")
+        if checked:
+            check(worst[0] >= GRAD_COSINE, f"vit gradient cosine {worst}")
+            check(abs(na - nb) <= GRAD_NORM_RTOL * nb,
+                  f"vit global gradient norms {na} / {nb}")
+    compare("flash-f32-delta", "exact", True)
+    for a, b in (("flash", "exact"), ("dense", "exact"), ("flash", "dense")):
+        compare(a, b, False)
+
+
+def train_vit_phase(ops, dev):
+    """VIT_LEG through run_vit_benchmark (K1-K3 12 x the steps run),
+    profiled; then the gradient check on a 2-layer cut. Returns the
+    run's launch counts."""
+    from mpi_operator_tpu_torch.examples.lm_benchmark import \
+        run_vit_benchmark
+    state, m, counts = image_phase("vit-b16", ops, run_vit_benchmark,
+                                   flash_layers=12, **VIT_LEG)
+    profile_image(state, VIT_LEG["batch_per_device"], VIT_LEG["image_size"],
+                  m["step_time_p50_ms"])
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    vit_grads_agree(dev)
+    return counts
+
+
+def ddp_gang(world, backend, out, port, *extra):
+    """tests/torch_ddp_worker.py as `world` ranks on the card, through
+    the port's launch.py (TPU_SLOTS_PER_WORKER=world) and bootstrap,
+    which must pick `backend`; returns (rank 0's saved results,
+    seconds)."""
+    env = dict(os.environ, TPU_SLOTS_PER_WORKER=str(world))
+    for k in ("TPU_WORKER_ID", "TPU_LOCAL_RANK", "TPU_FAULT_INJECT"):
+        env.pop(k, None)
+    root = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = os.pathsep.join(
+        [root] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                  if p])
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "mpi_operator_tpu_torch.bootstrap.launch",
+         "--", sys.executable, os.path.join(root, "tests",
+                                            "torch_ddp_worker.py"),
+         str(world), str(port), out, "--device", "cuda", "--size", "chip",
+         "--image-size", str(DDP_IMAGE), "--steps", str(DDP_STEPS),
+         *extra],
+        cwd=root, env=env, capture_output=True, text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    check(proc.returncode == 0, f"DDP gang of {world} over {backend} exited "
+          f"{proc.returncode}: {proc.stderr[-3000:]}")
+    saved = torch.load(out)
+    check(saved["backend"] == backend,
+          f"the gang ran over {saved['backend']}, not {backend}")
+    return saved["results"], secs
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def train_ddp_phase(dev):
+    """Two ranks on the one card over gloo (NCCL refuses two ranks on one
+    device), then one rank over NCCL, each against this process's
+    single-process run of the same models, weights and global batches:
+    the relative error of each update within DDP_REL, the statistics
+    too. Then the planted per-rank-BN fault, which must fail that
+    check."""
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tests"))
+    import torch_ddp_worker as worker
+    want = worker.train(0, 1, dev, DDP_STEPS, DDP_IMAGE, "chip")
+    legs = [(2, "gloo", None), (1, "nccl", None), (2, "gloo", "per-rank-bn")]
+    with tempfile.TemporaryDirectory() as tmp:
+        for world, backend, fault in legs:
+            extra = ("--fault", fault, "--only", "resnet") if fault else ()
+            got, secs = ddp_gang(world, backend,
+                                 os.path.join(tmp, f"{backend}-{world}.pt"),
+                                 free_port(), *extra)
+            for name, (s0, p, mom, st) in got.items():
+                w0, wp, wm, ws = want[name]
+                check(torch.equal(s0, w0), f"{name}: the ranks started "
+                      f"from other weights")
+                upd = float(((p - s0) - (wp - w0)).norm()
+                            / (wp - w0).norm())
+                mrel = float((mom - wm).norm() / wm.norm())
+                srel = (float((st - ws).norm() / ws.norm())
+                        if ws.numel() else 0.0)
+                log(f"  ddp {name} {world} rank(s) over {backend}"
+                    f"{', fault ' + fault if fault else ''} "
+                    f"({device_line()}, {secs:.1f} s): update relative "
+                    f"error {upd:.3e}, momentum {mrel:.3e}, statistics "
+                    f"{srel:.3e} (limit {DDP_REL[name]:.0e})")
+                agrees = max(upd, mrel, srel) <= DDP_REL[name]
+                if fault:
+                    check(not agrees, f"ddp {name}: the planted fault "
+                          f"{fault} passed the check ({upd}, {mrel}, "
+                          f"{srel} <= {DDP_REL[name]})")
+                else:
+                    check(agrees, f"ddp {name} over {backend}: {upd}, "
+                          f"{mrel}, {srel} > {DDP_REL[name]}")
+
+
+# ---------------------------------------------------------------------------
 # BERT, MoE and remat training; the generate leg
 # ---------------------------------------------------------------------------
 
@@ -2436,6 +2864,28 @@ def main() -> int:
     log(f"[generate] {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
+    log("[train-resnet] run_benchmark: ResNet-101 (conv7 stem) and "
+        "ResNet-50 (s2d stem), bf16 over f32 params, 256 x 224^2, SGD "
+        "with momentum")
+    train_resnet_phase(ops)
+    log(f"[train-resnet] {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    log("[train-vit] run_vit_benchmark: ViT-B/16, bf16, 256 x 224^2 "
+        "(S = 197 through K1-K3); flash against dense gradients on a "
+        "2-layer cut")
+    vit_counts = train_vit_phase(ops, dev)
+    log(f"[train-vit] {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    log("[train-ddp] 2 ranks on the card over gloo through launch.py and "
+        "the bootstrap, then 1 rank over NCCL, against one process: "
+        "ResNet-50 (s2d, 64 px, f32) and a 2-layer ViT-B/16 (bf16); then "
+        "the planted per-rank-BN fault")
+    train_ddp_phase(dev)
+    log(f"[train-ddp] {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
     log(f"[train-resume] gpt2-medium, bf16, attention=flash, 16 x 512: "
         f"uninterrupted to step {RESUME_T} twice, SIGTERM at step "
         f"{RESUME_KILL}, resume; the CLI pair at 2 layers")
@@ -2456,7 +2906,9 @@ def main() -> int:
         dict(name=name, route="cuda", source=flash_source,
              replaces=f"mpi_operator_tpu/ops/attention.py:{line}",
              launches=train_counts[name], max_abs_err=flash_err[name],
-             **flash_rows["gpt2-medium"][name])
+             **flash_rows["gpt2-medium"][name],
+             vit_b16=dict(launches=vit_counts[name],
+                          **flash_rows["vit-b16"][name]))
         for name, line in flash_lines.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,7 +15,12 @@ that survives preemption: checkpoints (train/checkpoint.py), the
 resilience runtime (train/resilience.py), token shards (data/) and the
 profiler window (utils/profiling.py); BERT's masked LM, mixture-of-
 experts FFNs (parallel/moe.py) and remat in training, and the decode
-benchmark (examples/lm_benchmark.py run_generate_benchmark).
+benchmark (examples/lm_benchmark.py run_generate_benchmark); and
+data-parallel image training: ResNet (models/resnet.py) and ViT through
+the image Trainer (train/trainer.py) under DistributedDataParallel, the
+npy image shards (data/imagefolder.py, native/), the worker bootstrap
+on torch.distributed (bootstrap/) and the image benchmark
+(examples/benchmark.py).
 Entry points run on the CUDA card unless the caller passes
 device="cpu".
 """

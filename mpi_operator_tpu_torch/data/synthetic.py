@@ -1,11 +1,20 @@
-"""Synthetic token data for LM training, made on the device.
+"""Synthetic data for training, made on the device: tokens for the LMs,
+images for the image trainer.
 
-The counterpart of `mpi_operator_tpu/data/synthetic.py::
-synthetic_token_batch` and of the step-keyed `TokenStream` of the
+The counterpart of `mpi_operator_tpu/data/synthetic.py`
+(`synthetic_image_batch`, `SyntheticImageDataset`,
+`synthetic_token_batch`) and of the step-keyed `TokenStream` of the
 reference's LM benchmark (`examples/lm_benchmark.py`). Batches are drawn
 on the device, so the input pipeline adds no host-to-device traffic.
 Torch generators cannot give JAX's random bits: the tests feed both
-sides the same numpy tokens instead.
+sides the same numpy batches instead.
+
+`SyntheticImageDataset` is step-keyed like `TokenStream` and yields this
+rank's b = batch_size / world rows of the global batch, drawn from a
+generator keyed by (seed, step, rank): each rank makes only its own
+rows, as the reference's jit with sharded outputs makes only each
+device's shard. So the global batch of N ranks is not the batch one
+rank would draw (the data-parallel parity tests feed numpy batches).
 
 The MLM stream (`TokenStream(..., masked_lm=True)`) is the reference's
 BERT branch: a mask drawn from the same per-step generator with rate
@@ -15,12 +24,12 @@ the batch (the positions the loss scores).
 """
 from __future__ import annotations
 
-from typing import Iterator, Optional, Tuple
+from typing import Iterator, Tuple
 
 import numpy as np
 import torch
 
-from ..utils.device import DeviceLike, resolve_device
+from ..utils.device import DeviceLike, rank_and_world, resolve_device
 
 #: the BERT objective's corruption rate; the mask id is vocab - 1
 MLM_MASK_RATE = 0.15
@@ -37,9 +46,34 @@ def synthetic_token_batch(generator: torch.Generator, batch_size: int,
     return toks[:, :-1].contiguous(), toks[:, 1:].contiguous()
 
 
-def _step_seed(seed: int, step: int) -> int:
-    """The 64-bit seed of batch `step` of a stream seeded `seed`."""
-    return int(np.random.SeedSequence([seed, step]).generate_state(
+def synthetic_image_batch(generator: torch.Generator, batch_size: int,
+                          image_size: int = 224, num_classes: int = 1000,
+                          dtype: torch.dtype = torch.bfloat16
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One (images [B, H, W, 3] in `dtype`, labels int64 [B]) batch on
+    the generator's device: standard-normal f32 pixels cast to dtype,
+    uniform labels."""
+    dev = generator.device
+    images = torch.randn(batch_size, image_size, image_size, 3,
+                         generator=generator, device=dev).to(dtype)
+    labels = torch.randint(0, num_classes, (batch_size,),
+                           generator=generator, device=dev)
+    return images, labels
+
+
+def rank_rows(batch_size: int, rank: int, world: int) -> slice:
+    """The rows of a global batch of `batch_size` that `rank` owns."""
+    if batch_size % world:
+        raise ValueError(f"global batch {batch_size} does not split over "
+                         f"{world} ranks")
+    per = batch_size // world
+    return slice(rank * per, (rank + 1) * per)
+
+
+def _step_seed(seed: int, step: int, *more: int) -> int:
+    """The 64-bit seed of batch `step` of a stream seeded `seed` (and of
+    the part of it that `more`, e.g. a rank, names)."""
+    return int(np.random.SeedSequence([seed, step, *more]).generate_state(
         1, np.uint64)[0])
 
 
@@ -82,4 +116,41 @@ class TokenStream:
         return out
 
 
-__all__ = ["MLM_MASK_RATE", "TokenStream", "synthetic_token_batch"]
+class SyntheticImageDataset:
+    """Step-keyed synthetic image batches (see the module docstring):
+    this rank's rows of global batch i come from their own generator
+    seeded by (seed, i, rank), with the rank and world of the process
+    group. Runs on the CUDA card unless `device="cpu"`."""
+
+    def __init__(self, batch_size: int, image_size: int = 224,
+                 num_classes: int = 1000,
+                 dtype: torch.dtype = torch.bfloat16, seed: int = 0,
+                 start: int = 0, device: DeviceLike = None):
+        self.rank, world = rank_and_world()
+        self.rows = rank_rows(batch_size, self.rank, world)
+        self.batch_size = batch_size
+        self.image_size = image_size
+        self.num_classes = num_classes
+        self.dtype = dtype
+        self.seed = seed
+        self.step = start
+        self.device = resolve_device(device)
+
+    def batch(self, step: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(_step_seed(self.seed, step, self.rank))
+        return synthetic_image_batch(
+            gen, self.rows.stop - self.rows.start, self.image_size,
+            self.num_classes, self.dtype)
+
+    def __iter__(self) -> Iterator[Tuple[torch.Tensor, torch.Tensor]]:
+        return self
+
+    def __next__(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        out = self.batch(self.step)
+        self.step += 1
+        return out
+
+
+__all__ = ["MLM_MASK_RATE", "SyntheticImageDataset", "TokenStream",
+           "rank_rows", "synthetic_image_batch", "synthetic_token_batch"]

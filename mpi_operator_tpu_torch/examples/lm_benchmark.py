@@ -32,10 +32,16 @@ would have, and `stop_at_step` makes it finish at the same global step.
     python -m mpi_operator_tpu_torch.examples.lm_benchmark --size medium \\
         --batch-per-device 16 --train-dir /ckpt --ckpt-every 100
 
+`run_vit_benchmark(size="b16", batch_per_device=32, image_size=224)` is
+the reference's ViT leg: the image Trainer (train/trainer.py) over
+`create_vit`, with the same resilient wiring. The CLI runs every
+benchmark here; `--workload vit` also as a gang of processes through
+the bootstrap.
+
 The arguments of the parts not ported yet raise, naming the ROADMAP.md
 step that ports them; none is ignored: tp/pp/sp/ep meshes and slices,
-HFTA and a resharding restore (step 10), ViT and more than one process
-(step 7).
+HFTA, a resharding restore, and LM training over more than one process
+(the LMTrainer is not data-parallel yet: step 10).
 """
 from __future__ import annotations
 
@@ -51,7 +57,7 @@ import torch
 from ..data.synthetic import TokenStream, synthetic_token_batch
 from ..models.transformer import lm_config
 from ..train.lm_trainer import LMTrainer, LMTrainerConfig, LMTrainState
-from ..utils.device import DeviceLike, resolve_device
+from ..utils.device import DeviceLike, rank_and_world, resolve_device
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -134,12 +140,14 @@ def run_lm_benchmark(
     from ..train.resilience import ResilienceConfig, ResilienceContext
 
     if workload not in ("gpt2", "llama", "bert"):
-        raise ValueError(f"workload={workload!r}: the port trains gpt2, "
-                         f"llama and bert (vit trains through the image "
-                         f"Trainer, ROADMAP.md step 7)")
+        raise ValueError(f"workload={workload!r}: run_lm_benchmark trains "
+                         f"gpt2, llama and bert; vit trains through the "
+                         f"image Trainer, run_vit_benchmark (ROADMAP.md "
+                         f"step 7)")
     if moe_dropless and not moe_experts:
         raise ValueError("--moe-dropless needs --moe-experts (no MoE is "
                          "built without it)")
+    _refuse_lm_gang(rank_and_world()[1])
     unported = {"tp": tp > 1, "pp": pp > 1, "sp": sp > 1, "ep": ep > 1,
                 "num_slices": num_slices > 1}
     for name, asked in unported.items():
@@ -345,22 +353,138 @@ def run_generate_benchmark(
             "wall_seconds": dt}
 
 
+def _refuse_lm_gang(world: int) -> None:
+    """The LMTrainer has no gradient all-reduce and the token stream is
+    not split by rank: N processes would train N uncoordinated copies
+    on the same data."""
+    if world > 1:
+        raise RuntimeError(
+            f"{world} processes: the port's LM trainer is single-process "
+            f"(a data-parallel LMTrainer is ROADMAP.md step 10); refusing "
+            f"to train {world} uncoordinated copies")
+
+
+def run_vit_benchmark(
+    size: str = "b16",
+    batch_per_device: int = 32,
+    image_size: int = 224,
+    num_steps: int = 50,
+    warmup_steps: int = 5,
+    dtype_name: str = "bfloat16",
+    num_slices: int = 1,
+    num_layers: Optional[int] = None,
+    attention: str = "auto",
+    data_dir: Optional[str] = None,
+    train_dir: Optional[str] = None,
+    ckpt_every: int = 0,
+    ckpt_keep: int = 0,
+    step_deadline: float = 0.0,
+    divergence_k: int = 3,
+    stop_check_every: Optional[int] = None,
+    profile_dir: Optional[str] = None,
+    metrics_port: Optional[int] = None,
+    event_log: Optional[str] = None,
+    events=None,
+    device: DeviceLike = None,
+    log: Callable[[str], None] = print,
+) -> Tuple[object, Dict[str, float]]:
+    """ViT image benchmark (ViT-B/16 by default: S = 197 tokens at 224
+    px through K1-K3 on the card) through the image Trainer
+    (train/trainer.py) over every rank of the process group, with the
+    reference's resilient wiring: resume from `train_dir`, periodic
+    async checkpoints, the resilience context and its events. Weights
+    from seed 0, the synthetic stream from seed 1 (or npy shards in
+    `data_dir`). `num_layers` cuts the depth. Runs on the CUDA card
+    unless `device="cpu"`. Returns (state, metrics)."""
+    from ..models.transformer import create_vit
+    from ..train.checkpoint import (last_restore_info, maybe_resume,
+                                    maybe_save, periodic_saver,
+                                    wait_for_checkpoints)
+    from ..train.resilience import ResilienceConfig, ResilienceContext
+    from ..train.trainer import Trainer, TrainerConfig
+    from .benchmark import image_dataset
+
+    if num_slices > 1:
+        raise ValueError(f"num_slices={num_slices}: more than one slice "
+                         f"needs the port's mesh (ROADMAP.md step 10)")
+    if dtype_name not in _DTYPES:
+        raise ValueError(f"dtype_name={dtype_name!r}; expected one of "
+                         f"{sorted(_DTYPES)}")
+    dev = resolve_device(device)
+    dtype = _DTYPES[dtype_name]
+    global_batch = batch_per_device * rank_and_world()[1]
+    overrides = dict(dtype=dtype, attention=attention)
+    if num_layers:
+        overrides["num_layers"] = num_layers
+    model = create_vit(f"vit-{size}", num_classes=1000, device=dev,
+                       image_size=image_size, **overrides)
+    trainer = Trainer(model, TrainerConfig(
+        global_batch_size=global_batch, image_size=image_size,
+        num_classes=1000), device=dev)
+    state = trainer.init_state(0)
+    wtel, owns_events = _worker_telemetry(metrics_port, event_log,
+                                          train_dir, events, log)
+    resilience = ResilienceContext(
+        ResilienceConfig.from_env(train_dir=train_dir,
+                                  divergence_k=divergence_k,
+                                  step_deadline=step_deadline,
+                                  stop_check_every=stop_check_every),
+        log=log, events=wtel.events, telemetry=wtel.train)
+    resilience.__enter__()
+    try:
+        state = maybe_resume(train_dir, state, log)
+        info = last_restore_info() if state.step else {}
+        resilience.record_restore(state.step, path=info.get("path"),
+                                  seconds=info.get("seconds"),
+                                  leaves=info.get("leaves"),
+                                  resharded=info.get("resharded"))
+        dataset = image_dataset(data_dir, global_batch, image_size, dtype,
+                                dev, start=state.step)
+        try:
+            state, metrics = trainer.benchmark(
+                state, dataset, num_steps=num_steps,
+                warmup_steps=warmup_steps, log=log,
+                profile_dir=profile_dir,
+                step_hook=periodic_saver(train_dir, ckpt_every, log,
+                                         keep_last=ckpt_keep,
+                                         resilience=resilience),
+                resilience=resilience, telemetry=wtel.train)
+        finally:
+            if hasattr(dataset, "close"):
+                dataset.close()
+        maybe_save(train_dir, state, log, block=False)
+        if wtel.events is not None:
+            from ..telemetry import events as tev
+            wtel.events.emit(tev.RUN_COMPLETE, step=state.step)
+    finally:
+        resilience.__exit__(None, None, None)
+        wtel.close(close_events=owns_events)
+    wait_for_checkpoints()        # join the overlapped final save
+    return state, metrics
+
+
 def main(argv=None) -> int:
-    """The single-process CLI, with the reference's flags; those of the
-    parts not ported (a mesh degree above 1, --hfta, --workload vit)
-    raise, naming the ROADMAP.md step that ports them. Exits
-    0 after a complete run, 215 after a preemption drain (the emergency
-    checkpoint committed), 1 on a divergence no rollback could fix; a
-    watchdog stall exits 216 and an injected hard death 217 from inside
-    the run."""
+    """The CLI, with the reference's flags; those of the parts not
+    ported (a mesh degree above 1, --hfta, an LM workload over more than
+    one process) raise, naming the ROADMAP.md step that ports them.
+    `--workload vit` runs run_vit_benchmark. Its gang (TPU_NUM_PROCESSES
+    > 1, or the launcher role) goes through the
+    bootstrap (bootstrap/bootstrap.py): the launcher waits on rank 0's
+    status channel and mirrors its exit code, rank 0 serves it, only
+    rank 0 logs. Exits 0 after a complete run, 215 after a preemption
+    drain (the emergency checkpoint committed), 1 on a divergence no
+    rollback could fix; a watchdog stall exits 216 and an injected hard
+    death 217 from inside the run."""
     parser = argparse.ArgumentParser(prog="lm-benchmark")
     parser.add_argument("--workload", default="gpt2",
                         choices=["gpt2", "llama", "bert", "vit"])
     parser.add_argument("--size", default=None,
                         help="gpt2: test|small|medium|large|xl; llama: "
-                             "test|1b|7b; bert: test|base|large")
+                             "test|1b|7b; bert: test|base|large; vit: "
+                             "test|b16|l16")
     parser.add_argument("--batch-per-device", type=int, default=None)
     parser.add_argument("--seq-len", type=int, default=512)
+    parser.add_argument("--image-size", type=int, default=224)
     parser.add_argument("--num-steps", type=int, default=50)
     parser.add_argument("--warmup-steps", type=int, default=5)
     parser.add_argument("--eval-steps", type=int, default=0)
@@ -442,64 +566,110 @@ def main(argv=None) -> int:
         raise ValueError(f"--hfta={args.hfta}: the fused sweep trainer "
                          f"(train/hfta.py) is not in the port yet "
                          f"(ROADMAP.md step 10)")
-    procs = int(os.environ.get("TPU_NUM_PROCESSES", "1") or "1")
-    if procs > 1:
-        raise RuntimeError(
-            f"TPU_NUM_PROCESSES={procs}: the port's trainer is single-"
-            f"process (the bootstrap is ROADMAP.md Queue 1, step 7); "
-            f"refusing to train alone")
 
+    from ..bootstrap import initialize
+    from ..bootstrap.bootstrap import (ENV_LAUNCHER, ENV_NUM_PROCESSES,
+                                       StatusServer, launcher_wait,
+                                       status_port)
     from ..telemetry import EventLog
     from ..train.resilience import DivergenceError, Preempted
 
+    # the event log opens BEFORE the rendezvous so the bootstrap's retry
+    # loop can record init_retry events; the benchmark borrows it
     ev_path = args.event_log or (
         os.path.join(args.train_dir, "events.jsonl")
         if args.train_dir else None)
     events = EventLog(ev_path) if ev_path else None
+    procs = int(os.environ.get(ENV_NUM_PROCESSES, "1") or "1")
+    if args.workload != "vit":
+        _refuse_lm_gang(procs)
+    gang = procs > 1 or os.environ.get(ENV_LAUNCHER) == "1"
+    info = initialize(events=events, device=args.device) if gang else None
+    if info is not None and info.is_launcher:
+        if events is not None:
+            events.close()
+        return launcher_wait(info, port=status_port())
+    coordinator = info is None or info.is_coordinator
+    status = StatusServer(status_port()) if gang and coordinator else None
+    log = print if coordinator else (lambda s: None)   # noqa: E731
+    exit_code = 1
     try:
-        _state, metrics = run_lm_benchmark(
-            workload=args.workload, size=args.size,
-            batch_per_device=args.batch_per_device or 8,
-            seq_len=args.seq_len, num_steps=args.num_steps,
-            warmup_steps=args.warmup_steps, eval_steps=args.eval_steps,
-            dtype_name=args.dtype, num_layers=args.num_layers or None,
-            tp=args.tp, pp=args.pp, sp=args.sp, ep=args.ep,
-            accum_steps=args.accum_steps, fused_xent=args.fused_xent,
-            attention=args.attention, remat=args.remat,
-            remat_policy=args.remat_policy, moe_experts=args.moe_experts,
-            moe_dropless=args.moe_dropless, data_dir=args.data_dir,
-            train_dir=args.train_dir, ckpt_every=args.ckpt_every,
-            ckpt_keep=args.ckpt_keep, step_deadline=args.step_deadline,
-            divergence_k=args.divergence_k,
-            stop_check_every=args.stop_check_every,
-            stop_at_step=args.stop_at_step, lr_schedule=args.lr_schedule,
-            decay_steps=args.decay_steps, lr=args.lr,
-            lr_warmup_steps=args.lr_warmup_steps,
-            profile_dir=args.profile_dir, metrics_port=args.metrics_port,
-            events=events, device=args.device)
-        print(json.dumps({
-            "metric": f"{args.workload}_tokens_per_sec",
-            "value": round(metrics["tokens_per_sec"], 0),
-            "unit": "tokens/sec",
-            "final_loss": round(float(metrics["final_loss"]), 6)}))
+        if args.workload == "vit":
+            _state, metrics = run_vit_benchmark(
+                size=args.size or "b16",
+                batch_per_device=args.batch_per_device or 32,
+                image_size=args.image_size, num_steps=args.num_steps,
+                warmup_steps=args.warmup_steps, dtype_name=args.dtype,
+                num_layers=args.num_layers or None,
+                attention=args.attention, data_dir=args.data_dir,
+                train_dir=args.train_dir, ckpt_every=args.ckpt_every,
+                ckpt_keep=args.ckpt_keep, step_deadline=args.step_deadline,
+                divergence_k=args.divergence_k,
+                stop_check_every=args.stop_check_every,
+                profile_dir=args.profile_dir,
+                metrics_port=args.metrics_port, events=events,
+                device=args.device, log=log)
+            headline = {"metric": "vit_images_per_sec",
+                        "value": round(metrics["images_per_sec"], 2),
+                        "unit": "images/sec"}
+        else:
+            _state, metrics = run_lm_benchmark(
+                workload=args.workload, size=args.size,
+                batch_per_device=args.batch_per_device or 8,
+                seq_len=args.seq_len, num_steps=args.num_steps,
+                warmup_steps=args.warmup_steps, eval_steps=args.eval_steps,
+                dtype_name=args.dtype, num_layers=args.num_layers or None,
+                tp=args.tp, pp=args.pp, sp=args.sp, ep=args.ep,
+                accum_steps=args.accum_steps, fused_xent=args.fused_xent,
+                attention=args.attention, remat=args.remat,
+                remat_policy=args.remat_policy,
+                moe_experts=args.moe_experts,
+                moe_dropless=args.moe_dropless, data_dir=args.data_dir,
+                train_dir=args.train_dir, ckpt_every=args.ckpt_every,
+                ckpt_keep=args.ckpt_keep, step_deadline=args.step_deadline,
+                divergence_k=args.divergence_k,
+                stop_check_every=args.stop_check_every,
+                stop_at_step=args.stop_at_step,
+                lr_schedule=args.lr_schedule,
+                decay_steps=args.decay_steps, lr=args.lr,
+                lr_warmup_steps=args.lr_warmup_steps,
+                profile_dir=args.profile_dir,
+                metrics_port=args.metrics_port, events=events,
+                device=args.device, log=log)
+            headline = {"metric": f"{args.workload}_tokens_per_sec",
+                        "value": round(metrics["tokens_per_sec"], 0),
+                        "unit": "tokens/sec"}
+        headline["final_loss"] = round(float(metrics["final_loss"]), 6)
+        if coordinator:
+            print(json.dumps(headline))
+        exit_code = 0
         return 0
     except Preempted as p:
         # the emergency checkpoint is committed (the loop saves before
         # raising): exit in the retryable band so the gang restarts
-        print(f"preempted: drained at step {p.step}, exiting "
-              f"{p.exit_code} (retryable)")
-        return p.exit_code
+        log(f"preempted: drained at step {p.step}, exiting "
+            f"{p.exit_code} (retryable)")
+        exit_code = p.exit_code
+        return exit_code
     except DivergenceError as exc:
         print(f"diverged: {exc}", file=sys.stderr)
         return 1
     finally:
-        # the event log closes (flush + fsync) before the process exits,
-        # so a preemption exit never leaves its drain record buffered
+        # the event log closes (flush + fsync) before the status channel
+        # reports done, so a preemption exit never leaves its drain
+        # record buffered
         if events is not None:
             events.close()
+        if status is not None:
+            status.set_done(exit_code)
+            status.close()
+        import torch.distributed as dist
+        if dist.is_available() and dist.is_initialized():
+            dist.destroy_process_group()
 
 
-__all__ = ["main", "run_generate_benchmark", "run_lm_benchmark"]
+__all__ = ["main", "run_generate_benchmark", "run_lm_benchmark",
+           "run_vit_benchmark"]
 
 
 if __name__ == "__main__":

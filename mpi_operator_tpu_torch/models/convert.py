@@ -21,9 +21,29 @@ reference initializes them: every kernel and embedding normal(0, 0.02)
 (`kernel_init`, the MoE experts and router too), biases zero
 (`mlm_bias` too), norm scales one — on the generator's device, so a
 full-width model never round-trips through host memory.
+
+The image models (train/trainer.py):
+
+  `resnet_params_from_flax(model, params, batch_stats)`: the flax
+  ResNet's `params` and `batch_stats` as the port ResNet's state dict.
+  nn.Conv kernel HWIO [kh, kw, in, out] -> weight OIHW [out, in, kh,
+  kw]; BatchNorm scale, bias -> weight, bias and its batch_stats mean,
+  var -> running_mean, running_var; the blocks, auto-named by flax in
+  creation order (`BottleneckResNetBlock_<k>` / `ResNetBlock_<k>`,
+  inside them `Conv_<j>` / `BatchNorm_<j>`, `conv_proj`, `norm_proj`),
+  are the port's `blocks.<k>.conv<j>` / `bn<j>`; the head Dense as
+  above.
+  `vit_params_from_flax(cfg, params)`: the ViT's `patch_embed` conv
+  kernel [p, p, C, E] flattened to [p*p*C, E] in (kh, kw, c) order and
+  transposed to a Linear weight, its bias, `cls` [1, 1, E], the `pos`
+  table [N + 1, E], the backbone as the LMs', the head Dense.
+  `init_vit(model, generator)` draws a ViT as the reference does:
+  normal(0, 0.02) kernels and tables, zero biases and `cls`, norm
+  scales one. (The ResNet's draw is `models/resnet.py init_resnet`.)
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Mapping
 
 import numpy as np
@@ -36,31 +56,52 @@ def params_from_flax(cfg: TransformerConfig,
                      tree: Mapping) -> Dict[str, torch.Tensor]:
     """The flax `params` tree (nested dicts of numpy arrays) as the
     port's f32 state dict."""
-    E, H, KV, D = cfg.embed_dim, cfg.num_heads, cfg.kv_heads, cfg.head_dim
-
-    def t(x, shape=None):
-        a = np.array(x, dtype=np.float32)       # a writable copy
-        if shape is not None:
-            a = a.reshape(shape)
-        return torch.from_numpy(np.ascontiguousarray(a))
-
-    def norm(node, prefix, out):
-        out[prefix + ".weight"] = t(node["scale"])
-        if cfg.norm == "layernorm":
-            out[prefix + ".bias"] = t(node["bias"])
-
-    def dense(node, prefix, out):
-        out[prefix + ".weight"] = t(np.asarray(node["kernel"]).T)
-        if "bias" in node:
-            out[prefix + ".bias"] = t(node["bias"])
-
+    t, norm = _t, functools.partial(_norm, cfg)
     out: Dict[str, torch.Tensor] = {"wte.weight": t(tree["wte"]["embedding"])}
     for name in ("wpe", "wtte"):
         if name in tree:
             out[name + ".weight"] = t(tree[name]["embedding"])
     if "ln_emb" in tree:
         norm(tree["ln_emb"], "ln_emb", out)
-    bb = tree["backbone"]
+    _backbone_from_flax(cfg, tree["backbone"], out)
+    if "mlm_dense" in tree:
+        _dense(tree["mlm_dense"], "mlm_dense", out)
+        _norm(cfg, tree["mlm_ln"], "mlm_ln", out)
+        out["mlm_bias"] = _t(tree["mlm_bias"])
+    missing = set(param_shapes(cfg)) - set(out)
+    if missing:
+        raise KeyError(f"flax tree lacks {sorted(missing)[:4]}...")
+    for k, shape in param_shapes(cfg).items():
+        if tuple(out[k].shape) != shape:
+            raise ValueError(f"{k}: converted shape {tuple(out[k].shape)} "
+                             f"!= {shape}")
+    return out
+
+
+def _t(x, shape=None) -> torch.Tensor:
+    """A writable f32 copy of a numpy leaf (reshaped to `shape`)."""
+    a = np.array(x, dtype=np.float32)
+    if shape is not None:
+        a = a.reshape(shape)
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _norm(cfg, node, prefix, out):
+    out[prefix + ".weight"] = _t(node["scale"])
+    if cfg.norm == "layernorm":
+        out[prefix + ".bias"] = _t(node["bias"])
+
+
+def _dense(node, prefix, out):
+    out[prefix + ".weight"] = _t(np.asarray(node["kernel"]).T)
+    if "bias" in node:
+        out[prefix + ".bias"] = _t(node["bias"])
+
+
+def _backbone_from_flax(cfg: TransformerConfig, bb: Mapping, out) -> None:
+    """The flax Backbone's blocks and ln_f into `out` (`backbone.*`)."""
+    E, H, KV, D = cfg.embed_dim, cfg.num_heads, cfg.kv_heads, cfg.head_dim
+    t, norm, dense = _t, functools.partial(_norm, cfg), _dense
     for i in range(cfg.num_layers):
         blk = bb[f"block_{i}"]
         p = f"backbone.blocks.{i}."
@@ -85,18 +126,6 @@ def params_from_flax(cfg: TransformerConfig,
             if name in mlp:
                 dense(mlp[name], p + f"mlp.{name}", out)
     norm(bb["ln_f"], "backbone.ln_f", out)
-    if "mlm_dense" in tree:
-        dense(tree["mlm_dense"], "mlm_dense", out)
-        norm(tree["mlm_ln"], "mlm_ln", out)
-        out["mlm_bias"] = t(tree["mlm_bias"])
-    missing = set(param_shapes(cfg)) - set(out)
-    if missing:
-        raise KeyError(f"flax tree lacks {sorted(missing)[:4]}...")
-    for k, shape in param_shapes(cfg).items():
-        if tuple(out[k].shape) != shape:
-            raise ValueError(f"{k}: converted shape {tuple(out[k].shape)} "
-                             f"!= {shape}")
-    return out
 
 
 def init_params(cfg: TransformerConfig, generator: torch.Generator,
@@ -104,14 +133,21 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
     """Random f32 parameters drawn from `generator` (on its device unless
     `device` says otherwise): weights and embeddings normal(0, 0.02),
     biases zero, norm scales one."""
+    return _draw(param_shapes(cfg).items(), generator, device)
+
+
+def _draw(shapes, generator: torch.Generator,
+          device=None) -> Dict[str, torch.Tensor]:
+    """init_params' rules over (name, shape) pairs: norm scales one,
+    biases (and `cls`) zero, everything else normal(0, 0.02)."""
     dev = torch.device(device) if device is not None else generator.device
     out: Dict[str, torch.Tensor] = {}
-    for name, shape in param_shapes(cfg).items():
+    for name, shape in shapes:
         leaf = name.rsplit(".", 1)[0].rsplit(".", 1)[-1]
         if leaf.startswith("ln_") or leaf == "mlm_ln":
             fill = 1.0 if name.endswith("weight") else 0.0
             out[name] = torch.full(shape, fill, device=dev)
-        elif name.endswith("bias"):
+        elif name.endswith("bias") or name == "cls":
             out[name] = torch.zeros(shape, device=dev)
         else:
             out[name] = torch.empty(shape, device=dev).normal_(
@@ -119,4 +155,64 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
     return out
 
 
-__all__ = ["params_from_flax", "init_params"]
+# ---------------------------------------------------------------------------
+# the image models
+# ---------------------------------------------------------------------------
+
+def init_vit(model, generator: torch.Generator,
+             device=None) -> Dict[str, torch.Tensor]:
+    """Random f32 parameters for a ViT (see the module docstring)."""
+    return _draw(((n, tuple(p.shape)) for n, p in model.named_parameters()),
+                 generator, device)
+
+
+def vit_params_from_flax(cfg: TransformerConfig,
+                         tree: Mapping) -> Dict[str, torch.Tensor]:
+    """The flax ViT's `params` tree (nested dicts of numpy arrays) as
+    the port ViT's f32 state dict."""
+    k = np.asarray(tree["patch_embed"]["kernel"])
+    out = {"patch_embed.weight": _t(k.reshape(-1, k.shape[-1]).T),
+           "patch_embed.bias": _t(tree["patch_embed"]["bias"]),
+           "cls": _t(tree["cls"]),
+           "pos.weight": _t(tree["pos"]["embedding"])}
+    _backbone_from_flax(cfg, tree["backbone"], out)
+    _dense(tree["head"], "head", out)
+    return out
+
+
+def resnet_params_from_flax(model, params: Mapping,
+                            batch_stats: Mapping) -> Dict[str, torch.Tensor]:
+    """The flax ResNet's `params` and `batch_stats` (nested dicts of
+    numpy arrays) as the state dict of the port ResNet `model` (which
+    may live on the meta device: only its structure is read)."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def conv(node, prefix):
+        out[prefix + ".weight"] = _t(np.asarray(node["kernel"])
+                                     .transpose(3, 2, 0, 1))
+
+    def bn(node, stats, prefix):
+        out[prefix + ".weight"] = _t(node["scale"])
+        out[prefix + ".bias"] = _t(node["bias"])
+        out[prefix + ".running_mean"] = _t(stats["mean"])
+        out[prefix + ".running_var"] = _t(stats["var"])
+
+    conv(params["conv_init"], "conv_init")
+    bn(params["bn_init"], batch_stats["bn_init"], "bn_init")
+    for k, block in enumerate(model.blocks):
+        name = f"{type(block).__name__}_{k}"
+        node, stats, p = params[name], batch_stats[name], f"blocks.{k}."
+        j = 0
+        while hasattr(block, f"conv{j}"):
+            conv(node[f"Conv_{j}"], p + f"conv{j}")
+            bn(node[f"BatchNorm_{j}"], stats[f"BatchNorm_{j}"], p + f"bn{j}")
+            j += 1
+        if block.has_proj:
+            conv(node["conv_proj"], p + "conv_proj")
+            bn(node["norm_proj"], stats["norm_proj"], p + "norm_proj")
+    _dense(params["head"], "head", out)
+    return out
+
+
+__all__ = ["init_params", "init_vit", "params_from_flax",
+           "resnet_params_from_flax", "vit_params_from_flax"]

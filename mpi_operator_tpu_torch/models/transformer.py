@@ -95,7 +95,18 @@ the dispatcher does not see them: they fill `torch.empty` outputs, and
 the policy recomputes every op but the two GEMMs, so it never caches
 those allocations; a recomputed forward launches K1 again.
 
-Not here yet (later slices): tp_overlap and ViT.
+ViT (`ViT`, `vit_config`, `create_vit`): the image classifier over the
+same bidirectional Backbone (`causal=False`, no key mask). Its patch
+embedding is the reference's stride-p conv with a bias written as a
+patchify and one GEMM over [B, N, p*p*C] (the conv's HWIO kernel
+flattened in (kh, kw, c) order), rounded to the model dtype before the
+bias add as a flax Dense; the f32 `cls` token is cast and put first;
+the learned `pos` table has one row per token (197 at 224 px, patch 16),
+not max_len; the f32 head reads token 0. `attention="auto"` is K1-K3 on
+a CUDA tensor, at S = 197 for ViT-B/16. The trainer is the image
+`Trainer` (train/trainer.py), which calls `model(images, train=...)`.
+
+Not here yet (a later slice): tp_overlap.
 """
 from __future__ import annotations
 
@@ -932,6 +943,55 @@ class MaskedLM(nn.Module):
         return _drop_rates(self.backbone)
 
 
+class ViT(nn.Module):
+    """ViT-B/16-style image classifier (the reference's `ViT`): patch
+    embedding, the `cls` token, learned positions over the N + 1
+    tokens, the bidirectional Backbone, an f32 head on token 0.
+    `forward(images [B, H, W, C], train)` returns f32 logits [B,
+    num_classes]; `train` is accepted for the image trainer's call
+    (there is no dropout)."""
+
+    def __init__(self, cfg: TransformerConfig, num_classes: int = 1000,
+                 patch_size: int = 16, image_size: int = 224):
+        super().__init__()
+        if cfg.causal:
+            raise ValueError("ViT needs causal=False")
+        if image_size % patch_size:
+            raise ValueError(f"image_size={image_size} is not a multiple of "
+                             f"patch_size={patch_size}")
+        self.config = cfg
+        self.patch_size = patch_size
+        E, p = cfg.embed_dim, patch_size
+        self.patch_embed = nn.Linear(p * p * 3, E)
+        self.cls = nn.Parameter(torch.zeros(1, 1, E))
+        self.pos = nn.Embedding((image_size // p) ** 2 + 1, E)
+        self.backbone = Backbone(cfg)
+        self.head = nn.Linear(E, num_classes)
+
+    @property
+    def device(self) -> torch.device:
+        return self.cls.device
+
+    def forward(self, images: torch.Tensor, train: bool = True):
+        del train
+        cfg, p = self.config, self.patch_size
+        dt = cfg.dtype
+        B, H, W, C = images.shape
+        if H % p or W % p:
+            raise ValueError(f"{H}x{W} images do not tile into {p}x{p} "
+                             f"patches")
+        x = images.to(dt).reshape(B, H // p, p, W // p, p, C).transpose(2, 3)
+        x = _linear(x.reshape(B, (H // p) * (W // p), p * p * C),
+                    self.patch_embed, dt)
+        x = torch.cat([self.cls.to(dt).expand(B, 1, -1), x], dim=1)
+        if x.shape[1] != self.pos.num_embeddings:
+            raise ValueError(f"{x.shape[1]} tokens, but the position table "
+                             f"has {self.pos.num_embeddings} rows (built "
+                             f"for another image size)")
+        h, _ = self.backbone(x + self.pos.weight.to(dt), None, None, None)
+        return F.linear(h[:, 0].float(), self.head.weight, self.head.bias)
+
+
 # ---------------------------------------------------------------------------
 # presets, parameters and the factory
 # ---------------------------------------------------------------------------
@@ -978,6 +1038,19 @@ def bert_config(size: str = "large", **overrides) -> TransformerConfig:
     base = dict(vocab_size=30592, max_len=512, num_layers=L, num_heads=H,
                 embed_dim=E, mlp_dim=4 * E, causal=False,
                 use_token_types=True)
+    base.update(overrides)
+    return TransformerConfig(**base)
+
+
+def vit_config(size: str = "b16", **overrides) -> TransformerConfig:
+    dims = {
+        "b16": (12, 12, 768, 3072),      # ViT-B/16
+        "l16": (24, 16, 1024, 4096),
+        "test": (2, 4, 128, 256),
+    }[size]
+    L, H, E, M = dims
+    base = dict(vocab_size=1, max_len=2048, num_layers=L, num_heads=H,
+                embed_dim=E, mlp_dim=M, causal=False)
     base.update(overrides)
     return TransformerConfig(**base)
 
@@ -1083,6 +1156,24 @@ def create_lm(name: str = "gpt2-medium", device=None, seed: int = 0,
     return build_lm(cfg, init_params(cfg, gen, device=dev), device=dev)
 
 
+def create_vit(name: str = "vit-b16", num_classes: int = 1000,
+               device=None, seed: int = 0, patch_size: int = 16,
+               image_size: int = 224, **overrides) -> ViT:
+    """The named ViT ("vit-b16", "vit-l16", "vit-test") with random f32
+    weights drawn on `device` from `seed` (models/convert.py init_vit),
+    trainable. Runs on the CUDA card unless `device="cpu"`."""
+    from .convert import init_vit
+    size = name.split("-", 1)[1] if "-" in name else "b16"
+    cfg = vit_config(size, **overrides)
+    dev = resolve_device(device)
+    with torch.device("meta"):
+        model = ViT(cfg, num_classes=num_classes, patch_size=patch_size,
+                    image_size=image_size)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    model.load_state_dict(init_vit(model, gen, device=dev), assign=True)
+    return model
+
+
 __all__ = [
     "TransformerConfig", "LayerCache", "KVCache", "PagedKVCache",
     "PageIndex", "page_index", "page_index_device", "Attention", "Mlp",
@@ -1090,4 +1181,5 @@ __all__ = [
     "attend", "dense_attention", "rope", "head_logits",
     "gpt2_config", "llama_config", "bert_config", "lm_config",
     "model_class", "param_shapes", "uses_moe", "build_lm", "create_lm",
+    "ViT", "vit_config", "create_vit",
 ]

@@ -1,10 +1,15 @@
 """Checkpoint / resume on torch.distributed.checkpoint (DCP).
 
 The counterpart of `mpi_operator_tpu/train/checkpoint.py` (orbax there),
-for the flat single-device trainer's `LMTrainState`. The payload is the
-reference's: `step`, `params` (the flat f32 master buffer) and `opt`
-(`mu`, `nu`, `count`); the on-device `nonfinite_streak` is not saved,
-as in the reference's `_state_payload`. A checkpoint is a directory
+for the trainers' in-place states. The payload is the reference's:
+`step` and the state's own tensors (`checkpoint_payload()`): for the
+LM trainer's `LMTrainState` `params` (the flat f32 master buffer) and
+`opt` (`mu`, `nu`, `count`), for the image trainer's `TrainState`
+`params`, `batch_stats` and `opt.momentum`; the on-device
+`nonfinite_streak` is not saved, as in the reference's `_state_payload`.
+In a process group only rank 0 writes (every rank's state is the same
+data-parallel replica; the reference's orbax save also writes from the
+primary host only); every rank restores from the shared directory. A checkpoint is a directory
 `<train_dir>/step_<N>` holding DCP's `.metadata` and `__0_<i>.distcp`
 files, written by a `FileSystemWriter` with `WRITER_THREADS` threads.
 
@@ -68,12 +73,11 @@ _LAST_SAVE_INFO: Dict[str, Any] = {}
 
 
 def _state_payload(state) -> Dict[str, torch.Tensor]:
-    """The tensors a checkpoint holds, by DCP key (the keys DCP gives
-    the nested {"params", "opt": {"mu", "nu", "count"}}): the live
-    tensors of `state`, which a restore copies into."""
-    opt = state.opt
-    return {"params": state.params, "opt.mu": opt.mu, "opt.nu": opt.nu,
-            "opt.count": opt.count}
+    """The tensors a checkpoint holds, by DCP key: the live tensors of
+    `state`, which a restore copies into. Each state names its own
+    (`checkpoint_payload()`): the LM state params, opt.mu, opt.nu and
+    opt.count; the image state params, batch_stats and opt.momentum."""
+    return state.checkpoint_payload()
 
 
 def _nbytes(payload: Dict[str, torch.Tensor]) -> int:
@@ -200,6 +204,9 @@ def save_checkpoint(directory: str, state, step: Optional[int] = None,
     step = int(state.step) if step is None else int(step)
     directory = os.path.abspath(directory)
     path = os.path.join(directory, f"step_{step}")
+    if _rank() != 0:                   # rank 0 writes the replica
+        _LAST_SAVED[directory] = step
+        return path
     _quiet_single_process()
     writer = _writer()
     with span("checkpoint.save"):

@@ -255,6 +255,13 @@ class LMTrainState:
     step: int = 0
     nonfinite_streak: Optional[torch.Tensor] = None
 
+    def checkpoint_payload(self) -> Dict[str, torch.Tensor]:
+        """The tensors a checkpoint holds (train/checkpoint.py), by DCP
+        key: the flat params and the AdamW state."""
+        opt = self.opt
+        return {"params": self.params, "opt.mu": opt.mu, "opt.nu": opt.nu,
+                "opt.count": opt.count}
+
     def named_params(self) -> Dict[str, torch.Tensor]:
         """{state-dict name: the f32 view of the flat buffer}."""
         return {n: p.detach() for n, p in self.model.named_parameters()}

@@ -41,4 +41,13 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return dev
 
 
-__all__ = ["resolve_device"]
+def rank_and_world():
+    """(rank, world size) of the torch.distributed group this process
+    joined; (0, 1) when it joined none."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+__all__ = ["rank_and_world", "resolve_device"]

@@ -2,8 +2,11 @@
 
 Copies of the reference's analytic accounting
 (`mpi_operator_tpu/utils/flops.py`): the 6N + attention model FLOPs a
-training step does, the parameter count, and MFU against the device's
-peak. The peak is looked up by the CUDA device's name; a device this
+training step does, the ResNet table (3x the forward, scaled with the
+image area, the s2d stem's adjustment), the parameter count, and MFU
+against the device's peak. For ViT, whose reference trainer reads XLA's
+compiled count, `vit_train_flops_per_image` is the analytic count the
+port's MFU uses. The peak is looked up by the CUDA device's name; a device this
 table does not know (and the CPU) gives `mfu=None`, never a figure taken
 for another chip.
 
@@ -111,6 +114,49 @@ def transformer_train_flops_per_token(num_params: int, num_layers: int,
     return 6.0 * num_params + attn
 
 
+# forward FLOPs per 224x224 image (the reference's table: the widely
+# quoted GFLOPs, which are multiply-accumulates, doubled)
+_RESNET_FWD_FLOPS_224 = {
+    "resnet18": 3.64e9,
+    "resnet34": 7.36e9,
+    "resnet50": 8.24e9,
+    "resnet101": 15.70e9,
+    "resnet152": 23.16e9,
+}
+
+
+def resnet_train_flops_per_image(model_name: str,
+                                 image_size: int = 224,
+                                 stem: str = "conv7") -> Optional[float]:
+    """fwd+bwd FLOPs per image ~ 3x forward, conv FLOPs scaled with the
+    spatial area from the 224 px table. The "s2d" stem swaps the 7x7/2
+    conv (2 * 112^2 * 64 * 7*7*3 = 236.0 MF at 224 px) for a 2x2 conv
+    over 48 channels (2 * 56^2 * 64 * 2*2*48 = 77.1 MF). None for an
+    architecture the table does not know."""
+    fwd = _RESNET_FWD_FLOPS_224.get(model_name)
+    if fwd is None:
+        return None
+    if stem == "s2d":
+        fwd = fwd - (236.0e6 - 77.1e6)
+    return 3.0 * fwd * (image_size / 224.0) ** 2
+
+
+def vit_train_flops_per_image(backbone_params: int, num_layers: int,
+                              embed_dim: int, num_patches: int,
+                              patch_dim: int, num_classes: int) -> float:
+    """fwd+bwd model FLOPs of one image through a ViT: every token
+    (patches + cls) through the backbone at 6N + the non-causal
+    attention term (`transformer_train_flops_per_token`), the patch
+    embedding GEMM (6 x patch_dim x E a patch) and the head on the cls
+    token (6 x E x classes). The reference's trainer reads XLA's
+    compiled count instead, which the port cannot have."""
+    tokens = num_patches + 1
+    per_token = transformer_train_flops_per_token(
+        backbone_params, num_layers, embed_dim, tokens, causal=False)
+    return (tokens * per_token + 6.0 * num_patches * patch_dim * embed_dim
+            + 6.0 * embed_dim * num_classes)
+
+
 def param_count(params: Union[torch.nn.Module, Mapping, Iterable]) -> int:
     """Elements of every parameter: a module's parameters, a state
     dict's values, or an iterable of tensors."""
@@ -147,4 +193,5 @@ def throughput_stats(flops_per_step: Optional[float], steps_per_sec: float,
 
 __all__ = ["decode_bytes_per_step", "device_hbm_bandwidth",
            "device_peak_flops", "mbu", "transformer_train_flops_per_token",
-           "param_count", "mfu", "throughput_stats"]
+           "param_count", "mfu", "resnet_train_flops_per_image",
+           "throughput_stats", "vit_train_flops_per_image"]

@@ -292,3 +292,108 @@ def test_benchmark_stops_the_profiler_when_a_step_raises(tmp_path):
                      profile_dir=str(tmp_path))
     assert len(list(tmp_path.glob("trace_*.json"))) == 1
     assert torch.autograd.profiler._is_profiler_enabled is False
+
+
+# ---------------------------------------------------------------------------
+# NpyImageDataset and the native loader (data/imagefolder.py, native/)
+# ---------------------------------------------------------------------------
+
+def _image_shards(tmp_path, shards=1, n=16, size=8):
+    from mpi_operator_tpu_torch.data.imagefolder import write_npy_shard
+    rs = np.random.RandomState(0)
+    for i in range(shards):
+        write_npy_shard(str(tmp_path), f"s{i}",
+                        rs.randint(0, 256, (n, size, size, 3)).astype(
+                            np.uint8),
+                        rs.randint(0, 1000, (n,)).astype(np.int64))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_native_image_batches_byte_equal_python_and_the_reference(
+        tmp_path, dtype):
+    """One shard (the native loader orders several shards with its own
+    generator, as the reference's does): the port's C++ loader, the
+    port's Python path and the JAX NpyImageDataset (Python path) give
+    the same bytes, batch after batch, labels as integers."""
+    import jax.numpy as jnp
+    from mpi_operator_tpu.data.imagefolder import NpyImageDataset as JDS
+    from mpi_operator_tpu_torch.data.imagefolder import NpyImageDataset
+    from mpi_operator_tpu_torch.native import native_available
+    assert native_available(), "g++ is part of the port's toolchain"
+    _image_shards(tmp_path)
+    tdt = getattr(torch, dtype)
+    native = NpyImageDataset(str(tmp_path), 4, image_size=8, dtype=tdt,
+                             device="cpu", use_native="always")
+    python = NpyImageDataset(str(tmp_path), 4, image_size=8, dtype=tdt,
+                             device="cpu", use_native="never")
+    ref = JDS(str(tmp_path), 4, image_size=8, dtype=getattr(jnp, dtype),
+              use_native="never")
+    try:
+        assert native._native is not None and python._native is None
+        for _ in range(6):                      # past one epoch
+            (xn, yn), (xp, yp), (xr, yr) = next(native), next(python), \
+                next(ref)
+            assert xn.dtype == xp.dtype == tdt
+            bits = torch.int16 if dtype == "bfloat16" else torch.int32
+            want = torch.from_numpy(np.asarray(xr).view(
+                np.int16 if dtype == "bfloat16" else np.int32))
+            assert torch.equal(xn.view(bits), xp.view(bits))
+            assert torch.equal(xp.view(bits), want)
+            assert yn.dtype == torch.int64
+            assert torch.equal(yn, yp) and yp.tolist() == np.asarray(
+                yr).tolist()
+    finally:
+        native.close()
+        python.close()
+        ref.close()
+
+
+def test_image_dataset_keeps_this_ranks_rows_and_refuses_bad_shards(
+        tmp_path, monkeypatch):
+    """Rank r of w gets rows [r b, (r+1) b) of the global batch (rank 1
+    of 2 stood in for the process group); a shard at another resolution
+    and one shorter than a batch are refused."""
+    from mpi_operator_tpu_torch.data import imagefolder
+    from mpi_operator_tpu_torch.data.imagefolder import NpyImageDataset
+    _image_shards(tmp_path)
+    whole = NpyImageDataset(str(tmp_path), 8, image_size=8, device="cpu",
+                            dtype=torch.float32, use_native="never")
+    monkeypatch.setattr(imagefolder, "rank_and_world", lambda: (1, 2))
+    half = NpyImageDataset(str(tmp_path), 8, image_size=8, device="cpu",
+                           dtype=torch.float32, use_native="never")
+    try:
+        (xw, yw), (xh, yh) = next(whole), next(half)
+        assert torch.equal(xh, xw[4:]) and torch.equal(yh, yw[4:])
+    finally:
+        whole.close()
+        half.close()
+    with pytest.raises(ValueError, match="image-size"):
+        NpyImageDataset(str(tmp_path), 4, image_size=16, device="cpu")
+    with pytest.raises(ValueError, match="smaller"):
+        NpyImageDataset(str(tmp_path), 32, image_size=8, device="cpu")
+
+
+def test_synthetic_images_draw_only_this_ranks_rows(monkeypatch):
+    """Each rank draws only its b = batch / world rows, from a generator
+    keyed by (seed, step, rank): ranks differ, and a rank's batch i is
+    the same whenever it is drawn (a resumed stream); one process draws
+    the whole batch."""
+    from mpi_operator_tpu_torch.data import synthetic
+
+    def stream(rank, world, start=0):
+        monkeypatch.setattr(synthetic, "rank_and_world",
+                            lambda: (rank, world))
+        return synthetic.SyntheticImageDataset(
+            8, image_size=8, num_classes=10, dtype=torch.float32, seed=3,
+            start=start, device="cpu")
+    r0, r1 = stream(0, 2), stream(1, 2)
+    (x0, y0), (x1, y1) = next(r0), next(r1)
+    assert x0.shape == (4, 8, 8, 3) and y0.shape == (4,)
+    assert not torch.equal(x0, x1)
+    next(r1)
+    x12, y12 = next(r1)
+    assert torch.equal(x12, stream(1, 2, start=2).batch(2)[0])
+    assert torch.equal(y12, stream(1, 2, start=2).batch(2)[1])
+    solo = stream(0, 1).batch(0)
+    assert solo[0].shape == (8, 8, 8, 3)
+    assert torch.equal(solo[0], stream(0, 1, start=5).batch(0)[0])

@@ -103,7 +103,34 @@ def test_cli_runs_bert_moe_and_remat(capsys):
 @pytest.mark.parametrize("flags,step", [
     (["--tp", "2"], "step 10"), (["--pp", "2"], "step 10"),
     (["--sp", "2"], "step 10"), (["--ep", "2"], "step 10"),
-    (["--hfta", "2"], "step 10"), (["--workload", "vit"], "step 7")])
+    (["--hfta", "2"], "step 10")])
 def test_cli_refuses_what_is_not_ported(flags, step):
     with pytest.raises(ValueError, match=step):
         bench.main(["--size", "test", "--device", "cpu"] + flags)
+
+
+def test_cli_runs_vit(capsys):
+    """`--workload vit` (refused before ROADMAP.md step 7) runs
+    run_vit_benchmark and prints the reference's headline metric."""
+    assert bench.main(["--workload", "vit", "--size", "test",
+                       "--image-size", "32", "--batch-per-device", "2",
+                       "--num-steps", "2", "--warmup-steps", "1",
+                       "--dtype", "float32", "--device", "cpu"]) == 0
+    assert '"metric": "vit_images_per_sec"' in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("workload", ["gpt2", "llama", "bert"])
+def test_lm_workloads_refuse_more_than_one_process(workload, monkeypatch):
+    """The LMTrainer has no gradient all-reduce and the token stream is
+    not split by rank, so an LM workload refuses a gang (ROADMAP.md step
+    10) rather than train uncoordinated copies: the CLI before the
+    bootstrap, and run_lm_benchmark inside a group of two."""
+    monkeypatch.setenv("TPU_NUM_PROCESSES", "2")
+    with pytest.raises(RuntimeError, match="single-process.*step 10"):
+        bench.main(["--workload", workload, "--size", "test",
+                    "--device", "cpu"])
+    monkeypatch.delenv("TPU_NUM_PROCESSES")
+    monkeypatch.setattr(bench, "rank_and_world", lambda: (0, 2))
+    with pytest.raises(RuntimeError, match="single-process.*step 10"):
+        bench.run_lm_benchmark(workload=workload, size="test",
+                               device="cpu")

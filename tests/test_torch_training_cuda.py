@@ -18,6 +18,12 @@ hold the same paths through the kernels' plain versions).
   same cosine bound as chip_smoke.py's gradient check, 0.999 per
   parameter tensor.
 - A MoE step is finite and its drop rate a fraction.
+- The image trainer: one ResNet step (bottleneck, one block a stage,
+  both stems, f32 with TF32 off) on the card equals the same step on
+  the CPU (cuDNN's convs against the CPU's, BN in f32 on both); K1-K3
+  at ViT-B/16's attention shape (S = 197: the last 64-row tile holds 5
+  valid rows, the last 128-row tile 69; H = 12, D = 64, non-causal, no
+  mask) against their plain versions under chip_smoke.py's FLASH_REL.
 """
 import math
 
@@ -145,3 +151,79 @@ def test_moe_step_is_finite(cuda_device):
     assert counts["flash_fwd"] == cfg.num_layers * 2
     rate = float(state.model.moe_drop_rates()[0])
     assert 0.0 <= rate < 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stem", ["conv7", "s2d"])
+def test_resnet_step_on_the_card_equals_the_cpu(cuda_device, stem):
+    """One SGD step from the same weights and batch: params, momentum
+    and running statistics on the card against the CPU's, f32 (TF32
+    off), at atol 1e-4 (conv sums in another order, through BN over 16
+    values a channel at the last stage)."""
+    from mpi_operator_tpu_torch.models.resnet import (BottleneckResNetBlock,
+                                                      ResNet)
+    from mpi_operator_tpu_torch.train.trainer import Trainer, TrainerConfig
+    rs = np.random.RandomState(0)
+    x = torch.from_numpy(rs.randn(16, 32, 32, 3).astype(np.float32))
+    y = torch.from_numpy(rs.randint(0, 10, 16))
+    out, weights = [], None
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for dev in (torch.device("cpu"), cuda_device):
+            with torch.device("meta"):
+                model = ResNet([1, 1, 1, 1], BottleneckResNetBlock,
+                               num_classes=10, dtype=torch.float32,
+                               stem=stem)
+            trainer = Trainer(model, TrainerConfig(global_batch_size=16,
+                                                   image_size=32,
+                                                   num_classes=10),
+                              device=dev)
+            # one draw (the CPU generator's) for both: a CUDA generator
+            # seeded alike draws other numbers
+            state = trainer.init_state(state_dict=weights)
+            if weights is None:
+                weights = {**dict(model.named_parameters()),
+                           **dict(model.named_buffers())}
+                weights = {k: v.detach().clone()
+                           for k, v in weights.items()}
+            state, m = trainer.train_step(state, x.to(dev), y.to(dev))
+            assert math.isfinite(float(m["loss"]))
+            out.append([t.cpu() for t in (state.params, state.momentum,
+                                          state.batch_stats)])
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    for a, b in zip(*out):
+        torch.testing.assert_close(b, a, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_flash_kernels_at_the_vit_shape(cuda_device):
+    """K1-K3 at B = 8, S = 197, H = 12, D = 64, non-causal, no mask,
+    against their plain versions (K2/K3 given the plain forward's lse
+    and delta), each output's relative error under FLASH_REL."""
+    limits = {"flash_fwd": 4e-3, "flash_dq": 4e-4, "flash_dkv": 4e-4}
+    gen = torch.Generator(device=cuda_device).manual_seed(197)
+    q, k, v, do = (torch.randn(8, 197, 12, 64, generator=gen,
+                               device=cuda_device).bfloat16()
+                   for _ in range(4))
+    ops.reset_launch_counts()
+    out, lse = ops.flash_fwd(q, k, v, False, None)
+    ref_out, ref_lse = ops.flash_fwd_ref(q, k, v, False, None)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=0)
+    delta = ops.flash_delta(ref_out, do)
+    dq = ops.flash_dq(q, k, v, do, ref_lse, delta, False, None)
+    dk, dv = ops.flash_dkv(q, k, v, do, ref_lse, delta, False, None)
+    torch.cuda.synchronize()
+    assert all(ops.launch_counts[n] == 1 for n in FLASH)
+    ref_dq = ops.flash_dq_ref(q, k, v, do, ref_lse, delta, False, None)
+    ref_dk, ref_dv = ops.flash_dkv_ref(q, k, v, do, ref_lse, delta, False,
+                                       None)
+    for name, got, want in (("flash_fwd", out, ref_out),
+                            ("flash_dq", dq, ref_dq),
+                            ("flash_dkv", dk, ref_dk),
+                            ("flash_dkv", dv, ref_dv)):
+        assert torch.isfinite(got).all(), name
+        rel = float((got.float() - want.float()).norm()
+                    / want.float().norm())
+        assert rel <= limits[name], (name, rel)
