@@ -204,7 +204,31 @@ Phases, each of which fails the run (non-zero exit, no result line):
    Then the 2 gloo ranks again with H12's planted fault (each rank
    normalises with its own BN statistics): the ResNet must exceed
    DDP_REL by the same check.
-21. (Run last.) Training that survives preemption, gpt2-medium at
+21. Data-parallel LM training ([train-lm-ddp]): (a) the [train] leg's
+   gpt2-medium (24 layers, E=1024, vocab 50304, 16 x 512, bf16 over f32
+   masters, flash) through run_lm_benchmark as a gang of one over NCCL,
+   joined through the bootstrap's rendezvous, so the LMTrainer's
+   gradient all-reduce runs: K1-K3 launches 24 x steps each, finite
+   losses, no skip, and its tokens/s and step p50 beside the [train]
+   leg's. (b) tests/torch_lm_gang_worker.py as two gloo ranks on the
+   card through launch.py and the bootstrap against this process, at
+   the global batch of 8 x 256 with the same numpy batches: gpt2-medium's
+   width, bert-large's (MLM over padded rows: H13) and gpt2-small's with
+   8 experts (capacity factor 1.25, accum_steps 2: H14, H16), 2 layers
+   each, in f32 with dense attention, 3 AdamW steps: the relative error
+   of the update, mu and nu within LM_DDP_REL, the ranks' params equal;
+   then the planted faults (per-rank mask count, per-rank routing, rows
+   cut into microbatches after the split) must each exceed it; H15 (a
+   non-finite loss on one rank: both skip, both roll back), H14's
+   queue positions against one process's, the hierarchical mean
+   against the flat one. (c) 2 slices x 2 gloo ranks (two launch.py
+   trees, TPU_NUM_SLICES 2, the dcn x dp mesh from hybrid_mesh): gpt2 in
+   bf16 through K1-K3 within LM_DDP_BF16_REL and ResNet-50 (s2d, 64 px,
+   f32) within DDP_REL, its DDP buckets through the hierarchical hook;
+   the hierarchical mean equal to the flat one. (d)
+   examples/allreduce_bench.py alone (a gang of one over NCCL) at 1, 16
+   and 64 MB: the n = 1 points and the empty curve, no score.
+22. (Run last.) Training that survives preemption, gpt2-medium at
    full width, bf16, attention="flash", 16 x 512, through
    run_lm_benchmark's resilient path in a temporary directory (at least
    20 GB free, or the phase fails): periodic async checkpoints every 12
@@ -227,8 +251,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
 
 The line before the last is {"kernels": [...]}: K4, K5 and K1-K3 (at
 the gpt2 training shape, with a `vit_b16` entry each: launches in
-[train-vit] and the timing row at ViT-B/16's shape); the last line is
-{"ok": true, "device": {...}}.
+[train-vit] and the timing row at ViT-B/16's shape; and an
+`lm_gang_of_one` entry: launches in [train-lm-ddp]'s gang of one); the
+last line is {"ok": true, "device": {...}}.
 """
 import contextlib
 import dataclasses
@@ -2392,6 +2417,156 @@ def train_ddp_phase(dev):
 
 
 # ---------------------------------------------------------------------------
+# [train-lm-ddp]: the data-parallel LM trainer, its mesh and collectives
+# ---------------------------------------------------------------------------
+
+# (a): the [train] leg's gpt2-medium at full width and depth as a gang of
+# one over NCCL (the bootstrap's rendezvous, the flat all-reduce)
+LM_GANG1 = dict(workload="gpt2", size="medium", batch_per_device=16,
+                seq_len=512, num_steps=30, warmup_steps=3, attention="flash")
+# (b), (c): tests/torch_lm_gang_worker.py's chip configs, 3 AdamW steps on
+# a global batch of 8 x 256, gangs against this process, compared by the
+# relative error of the update, mu and nu. (b) runs the three models in
+# f32 with dense attention, TF32 off: in bf16 through K1-K3 the ranks'
+# GEMMs of 4 rows round like those of 8 only to bf16 ulps, and on the
+# H100 the sound MoE then read 2.9e-2 against 8.7e-2 for the planted
+# per-rank denominator, too close to tell apart. In f32 the sound
+# models read 3.6e-6-1.4e-5 and the faults 8.6e-2-0.39: 1e-3 sits near
+# the geometric mean of the nearest two, ~70x from each. (c) runs gpt2
+# in bf16 through K1-K3 (sound 7.8e-3 on the H100) and ResNet-50 in f32.
+LM_DDP_STEPS = 3
+LM_DDP_REL = 1e-3
+LM_DDP_BF16_REL = 3e-2
+
+
+def gang_of_one(ops, name, **kw):
+    """train_phase(name, **kw) inside a process group of one, joined
+    through the bootstrap's rendezvous and backend choice (NCCL on the
+    card), so the LMTrainer runs its gradient all-reduce; the group is
+    left afterwards. Returns train_phase's (state, metrics, counts)."""
+    import torch.distributed as dist
+
+    from mpi_operator_tpu_torch.bootstrap import bootstrap, initialize
+    env = {"TPU_COORDINATOR_ADDRESS": f"127.0.0.1:{free_port()}",
+           "TPU_NUM_PROCESSES": "1"}
+    info = initialize(env, hostname="lm-worker-0")
+    bootstrap._initialize_distributed(info, env,
+                                      backend=bootstrap.dist_backend(info))
+    try:
+        check(dist.get_backend() == "nccl",
+              f"the gang of one joined over {dist.get_backend()}")
+        return train_phase(name, ops, **kw)
+    finally:
+        dist.destroy_process_group()
+
+
+def lm_ddp_errors(label, got, want, limit, fault=False):
+    """Print a gang's errors against one process; check that they are
+    within `limit` (or, for a planted fault, that they are not)."""
+    import torch_lm_gang_worker as worker
+    err = worker.compare(got, want)
+    worst = max(err["update"], err["mu"], err["nu"])
+    log(f"  lm-ddp {label} ({device_line()}): update relative error "
+        f"{err['update']:.3e}, mu {err['mu']:.3e}, nu {err['nu']:.3e}, "
+        f"loss {err['loss']:.3e} (limit {limit:.0e})")
+    if fault:
+        check(worst > limit, f"lm-ddp {label}: the planted fault passed "
+              f"the check ({err} <= {limit})")
+    else:
+        check(worst <= limit, f"lm-ddp {label}: {err} > {limit}")
+    return err
+
+
+def train_lm_ddp_phase(ops, dev, single):
+    """(a) gpt2-medium as a gang of one over NCCL beside `single`, the
+    [train] leg's metrics; (b) two gloo ranks on the card against this
+    process for gpt2, bert and MoE, then the planted faults; (c) 2 slices
+    x 2 gloo ranks for gpt2 and ResNet-50, and the hierarchical mean
+    against the flat one; (d) the allreduce harness alone, which must
+    report the empty curve. Returns (a)'s launch counts."""
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tests"))
+    import torch_lm_gang_worker as worker
+    torch.cuda.empty_cache()
+    _, m, counts = gang_of_one(ops, "gpt2-medium-gang-of-one", **LM_GANG1)
+    log(f"  gang of one against the single process ({device_line()}): "
+        f"tokens/s {m['tokens_per_sec']:.1f} vs "
+        f"{single['tokens_per_sec']:.1f}, step p50 "
+        f"{m['step_time_p50_ms']:.1f} vs {single['step_time_p50_ms']:.1f} "
+        f"ms, per device {m['tokens_per_sec_per_device']:.1f}")
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        want = worker.run(0, 1, dev, LM_DDP_STEPS, "chip")
+        got, secs = worker.gang(2, os.path.join(tmp, "r"), "--size", "chip",
+                                "--faults", "--checks", "--train-dir",
+                                os.path.join(tmp, "ckpt"), device="cuda")
+        log(f"  2 ranks over {got[0]['backend']} on the card: {secs:.1f} s")
+        check(got[0]["backend"] == "gloo", "two ranks on one card not gloo")
+        for name in worker.MODELS:
+            for r, res in enumerate(got):
+                lm_ddp_errors(f"{name} rank {r}", res[name], want[name],
+                              LM_DDP_REL)
+            check(torch.equal(got[0][name]["params"], got[1][name]["params"]),
+                  f"lm-ddp {name}: the ranks hold other params")
+            log(f"  {name} drop rates: gang {got[0][name]['drop_rates']}, "
+                f"one process {want[name]['drop_rates']}")
+        for name, fault in worker.FAULTS:
+            lm_ddp_errors(f"{name} fault {fault}", got[0][f"{name}/{fault}"],
+                          want[name], LM_DDP_REL, fault=True)
+        check(all(r["guard"]["rolled_back"] and r["guard"]["skip"]["unchanged"]
+                  for r in got), f"H15: {[r['guard']['skip'] for r in got]}")
+        check(all(r["hierarchical"]["max_diff"] < 1e-6 for r in got),
+              "hierarchical mean != flat mean over 2 ranks")
+        routing = worker.routing_check(0, 1, dev)
+        check(torch.equal(torch.cat([r["routing"]["slot"] for r in got]),
+                          routing["slot"]), "H14: queue positions differ")
+    with tempfile.TemporaryDirectory() as tmp:
+        want = worker.run(0, 1, dev, LM_DDP_STEPS, "chip-bf16",
+                          only=["gpt2", "resnet"])
+        got, secs = worker.gang(4, os.path.join(tmp, "r"), "--size",
+                                "chip-bf16", "--only", "gpt2,resnet",
+                                "--checks",
+                                "--train-dir", os.path.join(tmp, "ckpt"),
+                                slices=2, device="cuda")
+        check([r["mesh"]["dcn"] for r in got] == [2] * 4,
+              f"the mesh of 2 slices: {got[0]['mesh']}")
+        log(f"  2 slices x 2 ranks over {got[0]['backend']}: {secs:.1f} s, "
+            f"hierarchical - flat "
+            f"{max(r['hierarchical']['max_diff'] for r in got):.3e}")
+        check(all(r["hierarchical"]["max_diff"] < 1e-6 for r in got),
+              "hierarchical mean != flat mean over 2 x 2")
+        for r, res in enumerate(got):
+            lm_ddp_errors(f"gpt2 bf16 2x2 rank {r}", res["gpt2"],
+                          want["gpt2"], LM_DDP_BF16_REL)
+            (s0, p, mom, st), (w0, wp, wm, ws) = res["resnet"], want["resnet"]
+            upd = float(((p - s0) - (wp - w0)).norm() / (wp - w0).norm())
+            mrel = float((mom - wm).norm() / wm.norm())
+            srel = float((st - ws).norm() / ws.norm())
+            log(f"  resnet50 2x2 rank {r}: update {upd:.3e}, momentum "
+                f"{mrel:.3e}, statistics {srel:.3e} (limit "
+                f"{DDP_REL['resnet']:.0e})")
+            check(max(upd, mrel, srel) <= DDP_REL["resnet"],
+                  f"resnet 2x2 rank {r}: {upd}, {mrel}, {srel}")
+    env = dict(os.environ, TPU_COORDINATOR_ADDRESS=f"127.0.0.1:{free_port()}",
+               TPU_NUM_PROCESSES="1")
+    for k in ("TPU_WORKER_ID", "TPU_LOCAL_RANK", "TPU_SLOTS_PER_WORKER"):
+        env.pop(k, None)
+    proc = subprocess.run(
+        [sys.executable, "-m", "mpi_operator_tpu_torch.examples."
+         "allreduce_bench", "--payload-mb", "1", "16", "64"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+        capture_output=True, text=True, timeout=300)
+    check(proc.returncode == 0, f"allreduce_bench: {proc.stderr[-2000:]}")
+    bench = json.loads(proc.stdout.strip().splitlines()[-1])
+    log(f"  allreduce_bench alone: {json.dumps(bench)}")
+    check(bench["value"] is None and bench["efficiency_curve"]
+          == "insufficient devices (need >1)"
+          and [p["devices"] for p in bench["points"]] == [1, 1, 1],
+          f"allreduce_bench on one card: {bench}")
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # BERT, MoE and remat training; the generate leg
 # ---------------------------------------------------------------------------
 
@@ -2886,6 +3061,14 @@ def main() -> int:
     log(f"[train-ddp] {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
+    log("[train-lm-ddp] gpt2-medium as a gang of one over NCCL; 2 gloo "
+        "ranks on the card against one process (gpt2, bert, MoE at 2 "
+        "layers, the planted faults); 2 slices x 2 ranks (gpt2, "
+        "ResNet-50); allreduce_bench alone")
+    gang_counts = train_lm_ddp_phase(ops, dev, train_metrics)
+    log(f"[train-lm-ddp] {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
     log(f"[train-resume] gpt2-medium, bf16, attention=flash, 16 x 512: "
         f"uninterrupted to step {RESUME_T} twice, SIGTERM at step "
         f"{RESUME_KILL}, resume; the CLI pair at 2 layers")
@@ -2908,7 +3091,8 @@ def main() -> int:
              launches=train_counts[name], max_abs_err=flash_err[name],
              **flash_rows["gpt2-medium"][name],
              vit_b16=dict(launches=vit_counts[name],
-                          **flash_rows["vit-b16"][name]))
+                          **flash_rows["vit-b16"][name]),
+             lm_gang_of_one=dict(launches=gang_counts[name]))
         for name, line in flash_lines.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -37,9 +37,10 @@ imports nothing of the JAX one). What differs is the rendezvous:
   (timeouts) and "connection refused" are retryable.
 
 The `delay-coordinator` fault (TPU_FAULT_INJECT) fails the first N
-attempts, each recorded as an `init_retry` event. `hybrid_mesh`, the
-reference's JAX mesh over the slices, and more than one slice wait for
-the port's mesh (ROADMAP.md step 10).
+attempts, each recorded as an `init_retry` event. `hybrid_mesh` lays the
+job's mesh (parallel/mesh.py) over the ranks straight from this
+topology: the slices on the dcn dim, outermost, as `process_info`
+numbers the ranks slice-major.
 """
 from __future__ import annotations
 
@@ -227,6 +228,30 @@ def process_info(
         workers_per_slice=workers_per_slice,
         is_launcher=is_launcher,
     )
+
+
+def hybrid_mesh(info: Optional[ProcessInfo] = None, **axes):
+    """The job's device mesh straight from the bootstrap topology: the
+    `dcn` dim gets num_slices (collectives across slices then run over
+    dcn, parallel/collectives.py), the ranks of the process group (one
+    card each; one process without a group) spread over the given axes,
+    by default pure data parallelism, the reference's sole strategy.
+    The env-contract path: controller env -> process_info -> mesh."""
+    import torch.distributed as dist
+
+    from ..parallel.mesh import MeshConfig, data_parallel_mesh, make_mesh
+
+    info = info if info is not None else process_info()
+    if not axes:
+        return data_parallel_mesh(info.num_slices)
+    n = dist.get_world_size() if dist.is_available() \
+        and dist.is_initialized() else 1
+    cfg = MeshConfig(dcn=info.num_slices, **axes)
+    if cfg.num_devices != n:
+        raise BootstrapError(
+            f"mesh axes {axes} x num_slices {info.num_slices} = "
+            f"{cfg.num_devices} devices, but the job sees {n}")
+    return make_mesh(cfg)
 
 
 def device_check(expected_chips: Optional[int] = None) -> int:
@@ -434,10 +459,6 @@ def initialize(env: Optional[Mapping[str, str]] = None,
                     num_processes=info.num_processes)
     if info.is_launcher:
         return info
-    if info.num_slices > 1:
-        raise BootstrapError(
-            f"num_slices={info.num_slices}: more than one slice needs the "
-            f"port's mesh (ROADMAP.md step 10)")
     local_rank = int(resolved_env.get(ENV_LOCAL_RANK, 0) or 0)
     dev = local_device(resolved_env, cpu)
     if dev.type == "cuda":

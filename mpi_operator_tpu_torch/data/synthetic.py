@@ -9,12 +9,24 @@ on the device, so the input pipeline adds no host-to-device traffic.
 Torch generators cannot give JAX's random bits: the tests feed both
 sides the same numpy batches instead.
 
-`SyntheticImageDataset` is step-keyed like `TokenStream` and yields this
-rank's b = batch_size / world rows of the global batch, drawn from a
-generator keyed by (seed, step, rank): each rank makes only its own
-rows, as the reference's jit with sharded outputs makes only each
-device's shard. So the global batch of N ranks is not the batch one
-rank would draw (the data-parallel parity tests feed numpy batches).
+`TokenStream` is global, as the reference's is: batch i is drawn whole,
+`batch_size` rows, from the generator seeded by (seed, i) on every rank,
+and each rank keeps its rows (`rank_share`). A token batch is cheap to
+draw, so an N-rank gang trains on exactly the batch one process trains
+on. Under gradient accumulation a rank's rows are its share of each
+microbatch (H16): the reference cuts the global batch into
+`accum_steps` microbatches of consecutive rows and shards each over the
+ranks, so rank r holds rows [m B/A + r b, m B/A + (r + 1) b) of each
+microbatch m, b = B / (A W). The MLM mask is drawn over the global batch
+and follows the tokens.
+
+`SyntheticImageDataset` is step-keyed too but yields this rank's b =
+batch_size / world rows of the global batch, drawn from a generator
+keyed by (seed, step, rank): each rank makes only its own rows, as the
+reference's jit with sharded outputs makes only each device's shard (an
+image batch is not cheap to draw whole). So the global batch of N ranks
+is not the batch one rank would draw (the data-parallel parity tests
+feed numpy batches).
 
 The MLM stream (`TokenStream(..., masked_lm=True)`) is the reference's
 BERT branch: a mask drawn from the same per-step generator with rate
@@ -70,6 +82,23 @@ def rank_rows(batch_size: int, rank: int, world: int) -> slice:
     return slice(rank * per, (rank + 1) * per)
 
 
+def rank_share(x, rank: int, world: int, accum_steps: int = 1):
+    """This rank's rows of a global batch `x` ([B, ...], a tensor or a
+    numpy array): its share of each of the `accum_steps` microbatches of
+    consecutive rows, in microbatch order, so that splitting the share
+    into `accum_steps` chunks gives the rank's part of each microbatch
+    (H16)."""
+    B, A = x.shape[0], accum_steps
+    if B % (A * world):
+        raise ValueError(f"global batch {B} does not split into "
+                         f"{A} microbatch(es) over {world} ranks")
+    if world == 1:
+        return x
+    rest = tuple(x.shape[1:])
+    b = B // (A * world)
+    return x.reshape((A, world, b) + rest)[:, rank].reshape((A * b,) + rest)
+
+
 def _step_seed(seed: int, step: int, *more: int) -> int:
     """The 64-bit seed of batch `step` of a stream seeded `seed` (and of
     the part of it that `more`, e.g. a rank, names)."""
@@ -78,15 +107,23 @@ def _step_seed(seed: int, step: int, *more: int) -> int:
 
 
 class TokenStream:
-    """Step-keyed synthetic batches: batch i comes from its own
-    torch.Generator seeded by (seed, i), so a stream started at step N
-    yields exactly the batches an uninterrupted stream yields from N on.
-    (tokens, targets), or with `masked_lm` (corrupted tokens, original
-    tokens, f32 mask). Runs on the CUDA card unless `device="cpu"`."""
+    """Step-keyed synthetic batches: global batch i (`batch_size` rows)
+    comes from its own torch.Generator seeded by (seed, i), so a stream
+    started at step N yields exactly the batches an uninterrupted stream
+    yields from N on; this rank keeps its rows of it (`rank_share`, with
+    the rank and world of the process group). (tokens, targets), or with
+    `masked_lm` (corrupted tokens, original tokens, f32 mask). Runs on
+    the CUDA card unless `device="cpu"`."""
 
     def __init__(self, batch_size: int, seq_len: int, vocab_size: int,
                  seed: int = 1, start: int = 0, device: DeviceLike = None,
-                 masked_lm: bool = False):
+                 masked_lm: bool = False, accum_steps: int = 1):
+        self.rank, self.world = rank_and_world()
+        if batch_size % (accum_steps * self.world):
+            raise ValueError(f"global batch {batch_size} does not split "
+                             f"into {accum_steps} microbatch(es) over "
+                             f"{self.world} ranks")
+        self.accum_steps = accum_steps
         self.batch_size = batch_size
         self.seq_len = seq_len
         self.vocab_size = vocab_size
@@ -100,12 +137,14 @@ class TokenStream:
         gen.manual_seed(_step_seed(self.seed, step))
         toks, tgts = synthetic_token_batch(gen, self.batch_size,
                                            self.seq_len, self.vocab_size)
-        if not self.masked_lm:
-            return toks, tgts
-        mask = torch.rand(toks.shape, generator=gen,
-                          device=self.device) < MLM_MASK_RATE
-        return (torch.where(mask, self.vocab_size - 1, toks), toks,
-                mask.float())
+        out = (toks, tgts)
+        if self.masked_lm:
+            mask = torch.rand(toks.shape, generator=gen,
+                              device=self.device) < MLM_MASK_RATE
+            out = (torch.where(mask, self.vocab_size - 1, toks), toks,
+                   mask.float())
+        return tuple(rank_share(t, self.rank, self.world, self.accum_steps)
+                     for t in out)
 
     def __iter__(self) -> Iterator[Tuple[torch.Tensor, ...]]:
         return self
@@ -153,4 +192,5 @@ class SyntheticImageDataset:
 
 
 __all__ = ["MLM_MASK_RATE", "SyntheticImageDataset", "TokenStream",
-           "rank_rows", "synthetic_image_batch", "synthetic_token_batch"]
+           "rank_rows", "rank_share", "synthetic_image_batch",
+           "synthetic_token_batch"]

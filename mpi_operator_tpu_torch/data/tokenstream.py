@@ -18,6 +18,12 @@ stream: stream order alone makes the step wait for its batch, and the
 pinned block is not reused before its copy completes (the caching host
 allocator records the copy's stream). Batches arrive as int64 on the
 dataset's device, the trainer's dtype for token ids.
+
+In a gang every rank reads the same global window (`batch_size` rows),
+runs the host transform on it whole (the MLM mask is drawn over the
+global batch) and keeps its rows (`data/synthetic.py rank_share`, its
+share of each of `accum_steps` microbatches), as the reference's sharded
+`device_put` hands each device its rows of the global batch.
 """
 from __future__ import annotations
 
@@ -27,9 +33,9 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from ..utils.device import DeviceLike, resolve_device
+from ..utils.device import DeviceLike, rank_and_world, resolve_device
 from .prefetch import PrefetchDataset
-from .synthetic import MLM_MASK_RATE
+from .synthetic import MLM_MASK_RATE, rank_share
 
 
 def discover_token_shards(data_dir: str):
@@ -43,8 +49,9 @@ def discover_token_shards(data_dir: str):
 
 
 class NpyTokenDataset(PrefetchDataset):
-    """Infinite (tokens [B, S], targets [B, S]) iterator over packed token
-    shards, on the CUDA card unless `device="cpu"`. Deterministic
+    """Infinite (tokens [b, S], targets [b, S]) iterator over packed token
+    shards, this rank's rows of global batches of `batch_size`, on the
+    CUDA card unless `device="cpu"`. Deterministic
     shuffled shard order per epoch; windows within a shard are cut
     sequentially. `vocab_size` (when given) validates every batch — an
     out-of-range id means the shards were tokenized for a different
@@ -58,7 +65,14 @@ class NpyTokenDataset(PrefetchDataset):
     def __init__(self, data_dir: str, batch_size: int, seq_len: int,
                  device: DeviceLike = None, seed: int = 0, prefetch: int = 2,
                  vocab_size: Optional[int] = None,
-                 host_transform: Optional[Callable] = None):
+                 host_transform: Optional[Callable] = None,
+                 accum_steps: int = 1):
+        self.rank, self.world = rank_and_world()
+        if batch_size % (accum_steps * self.world):
+            raise ValueError(f"global batch {batch_size} does not split "
+                             f"into {accum_steps} microbatch(es) over "
+                             f"{self.world} ranks")
+        self.accum_steps = accum_steps
         self.batch_size = batch_size
         self.seq_len = seq_len
         self.vocab_size = vocab_size
@@ -115,8 +129,9 @@ class NpyTokenDataset(PrefetchDataset):
                         f"{self.vocab_size}; the shards were tokenized "
                         f"for a different vocabulary")
             win = win.astype(np.int32)
-            yield tuple(self._host_tensor(a)
-                        for a in self._host_transform(win))
+            yield tuple(self._host_tensor(rank_share(
+                a, self.rank, self.world, self.accum_steps))
+                for a in self._host_transform(win))
 
     def __next__(self):
         host = super().__next__()

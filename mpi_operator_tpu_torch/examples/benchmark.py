@@ -68,17 +68,17 @@ def run_benchmark(
 ) -> Tuple[object, Dict[str, float]]:
     """The shared wiring of every image benchmark surface (chip_smoke,
     the container entry point, tests): a ResNet from seed 0, the image
-    Trainer over every rank of the process group (one process when none
-    was joined), synthetic or on-disk data, the resume and periodic
+    Trainer over the data-parallel mesh of the process group's ranks,
+    `num_slices` of them on dcn (one process when no group was joined;
+    what `bootstrap.hybrid_mesh` builds for the job), synthetic or
+    on-disk data, the resume and periodic
     checkpoints of `train_dir`. Runs on the CUDA card unless
     `device="cpu"`. Returns (final_state, metrics)."""
     from ..models.resnet import create_model
+    from ..parallel.mesh import data_parallel_mesh
     from ..train.checkpoint import maybe_resume, periodic_saver
     from ..train.trainer import Trainer, TrainerConfig
 
-    if num_slices > 1:
-        raise ValueError(f"num_slices={num_slices}: more than one slice "
-                         f"needs the port's mesh (ROADMAP.md step 10)")
     if dtype_name not in DTYPES:
         raise ValueError(f"dtype_name={dtype_name!r}; expected one of "
                          f"{sorted(DTYPES)}")
@@ -88,13 +88,14 @@ def run_benchmark(
         # XLA autotunes the reference's convs
         torch.backends.cudnn.benchmark = True
     dtype = DTYPES[dtype_name]
-    global_batch = batch_per_device * rank_and_world()[1]
+    mesh = data_parallel_mesh(num_slices)
+    global_batch = batch_per_device * mesh.size
     model = create_model(model_name, num_classes=1000, dtype=dtype,
                          stem=stem, device=dev)
     cfg = TrainerConfig(global_batch_size=global_batch,
                         image_size=image_size, num_classes=1000,
                         learning_rate=learning_rate)
-    trainer = Trainer(model, cfg, device=dev)
+    trainer = Trainer(model, cfg, device=dev, mesh=mesh)
     state = trainer.init_state(0)
     state = maybe_resume(train_dir, state, log)
     dataset = image_dataset(data_dir, global_batch, image_size, dtype, dev,

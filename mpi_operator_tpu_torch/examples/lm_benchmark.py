@@ -1,12 +1,15 @@
-"""LM training and decode benchmarks on one card: the flat single-device
-path of the reference's `mpi_operator_tpu/examples/lm_benchmark.py::
-run_lm_benchmark`, its `run_generate_benchmark`, and its CLI.
+"""LM training and decode benchmarks: the data-parallel path of the
+reference's `mpi_operator_tpu/examples/lm_benchmark.py::run_lm_benchmark`
+(over a dcn x dp mesh of the gang's ranks, one process without a gang),
+its `run_generate_benchmark`, and its CLI.
 
 `run_lm_benchmark(workload="gpt2", size="medium", batch_per_device=16,
 seq_len=512)` builds the model with max_len = max(seq_len, 32), an
-LMTrainer over it and the step-keyed synthetic TokenStream (or, with
-`data_dir`, the `<stem>_tokens.npy` shards through NpyTokenDataset),
-runs `trainer.benchmark` and, with `eval_steps`, `evaluate` on the
+LMTrainer over it on the data-parallel mesh of every rank of the
+process group (`num_slices` of them on dcn) and the step-keyed
+synthetic TokenStream of the global batch, batch_per_device x ranks
+rows of which each rank keeps its share (or, with `data_dir`, the
+`<stem>_tokens.npy` shards through NpyTokenDataset), runs `trainer.benchmark` and, with `eval_steps`, `evaluate` on the
 batches that follow. `workload="bert"` trains the MaskedLM on the MLM
 objective (MLM_MASK_RATE of the tokens replaced by the mask id, scored
 against the originals); `moe_experts` turns every second FFN into a
@@ -35,13 +38,11 @@ would have, and `stop_at_step` makes it finish at the same global step.
 `run_vit_benchmark(size="b16", batch_per_device=32, image_size=224)` is
 the reference's ViT leg: the image Trainer (train/trainer.py) over
 `create_vit`, with the same resilient wiring. The CLI runs every
-benchmark here; `--workload vit` also as a gang of processes through
-the bootstrap.
+benchmark here, alone or as a gang of processes through the bootstrap.
 
 The arguments of the parts not ported yet raise, naming the ROADMAP.md
-step that ports them; none is ignored: tp/pp/sp/ep meshes and slices,
-HFTA, a resharding restore, and LM training over more than one process
-(the LMTrainer is not data-parallel yet: step 10).
+step that ports them; none is ignored: tp/sp/ep meshes (10c), pp (10d),
+HFTA and a resharding restore (10e).
 """
 from __future__ import annotations
 
@@ -54,12 +55,15 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
-from ..data.synthetic import TokenStream, synthetic_token_batch
+from ..data.synthetic import TokenStream, rank_share, synthetic_token_batch
 from ..models.transformer import lm_config
+from ..parallel.mesh import data_parallel_mesh
 from ..train.lm_trainer import LMTrainer, LMTrainerConfig, LMTrainState
 from ..utils.device import DeviceLike, rank_and_world, resolve_device
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+# the ROADMAP.md step that ports each mesh degree the CLI still refuses
+_UNPORTED = {"tp": "10c", "sp": "10c", "ep": "10c", "pp": "10d"}
 
 
 def _worker_telemetry(metrics_port, event_log, train_dir, events, log):
@@ -127,10 +131,13 @@ def run_lm_benchmark(
     device: DeviceLike = None,
     log: Callable[[str], None] = print,
 ) -> Tuple[LMTrainState, Dict[str, object]]:
-    """GPT-2 / llama / BERT token-stream benchmark on one device.
-    Parameters from seed 0 and the synthetic stream's batches from seed
-    1, step-keyed, as the reference's PRNGKey(0) and PRNGKey(1); the MoE
-    drop-rate probe's batch from seed 7 (the reference's PRNGKey(7)).
+    """GPT-2 / llama / BERT token-stream benchmark over the data-parallel
+    mesh of the process group's ranks (`num_slices` of them on dcn; one
+    process when no group was joined), at a global batch of
+    batch_per_device x ranks. Parameters from seed 0 and the synthetic
+    stream's global batches from seed 1, step-keyed, as the reference's
+    PRNGKey(0) and PRNGKey(1); the MoE drop-rate probe's global batch
+    from seed 7 (the reference's PRNGKey(7)).
     Returns (state, metrics); raises Preempted after a drain (the
     emergency checkpoint committed) and DivergenceError when a rollback
     cannot help."""
@@ -147,14 +154,11 @@ def run_lm_benchmark(
     if moe_dropless and not moe_experts:
         raise ValueError("--moe-dropless needs --moe-experts (no MoE is "
                          "built without it)")
-    _refuse_lm_gang(rank_and_world()[1])
-    unported = {"tp": tp > 1, "pp": pp > 1, "sp": sp > 1, "ep": ep > 1,
-                "num_slices": num_slices > 1}
-    for name, asked in unported.items():
-        if asked:
-            raise ValueError(f"{name}: not in the port yet (the flat "
-                             f"single-device path only; the meshes are "
-                             f"ROADMAP.md step 10)")
+    for name, degree in (("tp", tp), ("pp", pp), ("sp", sp), ("ep", ep)):
+        if degree > 1:
+            raise ValueError(f"{name}={degree}: not in the port yet (data "
+                             f"parallelism over dcn x dp only; {name} is "
+                             f"ROADMAP.md step {_UNPORTED[name]})")
     if dtype_name not in _DTYPES:
         raise ValueError(f"dtype_name={dtype_name!r}; expected one of "
                          f"{sorted(_DTYPES)}")
@@ -172,17 +176,19 @@ def run_lm_benchmark(
     if num_layers:
         overrides["num_layers"] = num_layers
     cfg = lm_config(f"{workload}-{size}" if size else workload, **overrides)
+    mesh = data_parallel_mesh(num_slices)
+    global_batch = batch_per_device * mesh.size
     opt_overrides = {}
     if lr is not None:
         opt_overrides["learning_rate"] = lr
     if lr_warmup_steps is not None:
         opt_overrides["warmup_steps"] = lr_warmup_steps
-    tcfg = LMTrainerConfig(global_batch_size=batch_per_device,
+    tcfg = LMTrainerConfig(global_batch_size=global_batch,
                            seq_len=seq_len, masked_lm=masked,
                            fused_xent=fused_xent,
                            accum_steps=accum_steps, lr_schedule=lr_schedule,
                            decay_steps=decay_steps, **opt_overrides)
-    trainer = LMTrainer(cfg, tcfg, device=dev)
+    trainer = LMTrainer(cfg, tcfg, device=dev, mesh=mesh)
     state = trainer.init_state(0)
 
     wtel, owns_events = _worker_telemetry(metrics_port, event_log,
@@ -216,14 +222,15 @@ def run_lm_benchmark(
             from ..data.tokenstream import (NpyTokenDataset,
                                             mlm_host_transform)
             stream = NpyTokenDataset(
-                data_dir, batch_per_device, seq_len, device=dev,
+                data_dir, global_batch, seq_len, device=dev,
                 vocab_size=cfg.vocab_size,
                 host_transform=(mlm_host_transform(cfg.vocab_size)
-                                if masked else None))
+                                if masked else None),
+                accum_steps=accum_steps)
         else:
-            stream = TokenStream(batch_per_device, seq_len, cfg.vocab_size,
+            stream = TokenStream(global_batch, seq_len, cfg.vocab_size,
                                  seed=1, start=resumed_step, device=dev,
-                                 masked_lm=masked)
+                                 masked_lm=masked, accum_steps=accum_steps)
         try:
             state, metrics = trainer.benchmark(
                 state, stream, num_steps=num_steps,
@@ -253,7 +260,7 @@ def run_lm_benchmark(
         resilience.__exit__(None, None, None)
         wtel.close(close_events=owns_events)
     if moe_experts:
-        rate = _moe_drop_rate(state.model, batch_per_device, seq_len, dev)
+        rate = _moe_drop_rate(state.model, global_batch, seq_len, dev)
         metrics["moe_drop_rate"] = rate
         log(f"moe drop rate: {rate:.3f}")
     wait_for_checkpoints()
@@ -263,11 +270,12 @@ def run_lm_benchmark(
 @torch.no_grad()
 def _moe_drop_rate(model, batch: int, seq_len: int, device) -> float:
     """The MoE layers' mean drop rate over one forward of a fresh
-    synthetic batch (seed 7): the reference's diagnostics probe."""
+    synthetic global batch (seed 7), each rank running its rows and the
+    layers routing globally: the reference's diagnostics probe."""
     gen = torch.Generator(device=device).manual_seed(7)
     toks, _ = synthetic_token_batch(gen, batch, seq_len,
                                     model.config.vocab_size)
-    model.forward_train(toks)
+    model.forward_train(rank_share(toks, *rank_and_world()))
     rates = model.moe_drop_rates()
     return float(torch.stack(rates).mean())
 
@@ -353,17 +361,6 @@ def run_generate_benchmark(
             "wall_seconds": dt}
 
 
-def _refuse_lm_gang(world: int) -> None:
-    """The LMTrainer has no gradient all-reduce and the token stream is
-    not split by rank: N processes would train N uncoordinated copies
-    on the same data."""
-    if world > 1:
-        raise RuntimeError(
-            f"{world} processes: the port's LM trainer is single-process "
-            f"(a data-parallel LMTrainer is ROADMAP.md step 10); refusing "
-            f"to train {world} uncoordinated copies")
-
-
 def run_vit_benchmark(
     size: str = "b16",
     batch_per_device: int = 32,
@@ -390,8 +387,9 @@ def run_vit_benchmark(
 ) -> Tuple[object, Dict[str, float]]:
     """ViT image benchmark (ViT-B/16 by default: S = 197 tokens at 224
     px through K1-K3 on the card) through the image Trainer
-    (train/trainer.py) over every rank of the process group, with the
-    reference's resilient wiring: resume from `train_dir`, periodic
+    (train/trainer.py) over the data-parallel mesh of the process
+    group's ranks (`num_slices` of them on dcn), with the reference's
+    resilient wiring: resume from `train_dir`, periodic
     async checkpoints, the resilience context and its events. Weights
     from seed 0, the synthetic stream from seed 1 (or npy shards in
     `data_dir`). `num_layers` cuts the depth. Runs on the CUDA card
@@ -404,15 +402,13 @@ def run_vit_benchmark(
     from ..train.trainer import Trainer, TrainerConfig
     from .benchmark import image_dataset
 
-    if num_slices > 1:
-        raise ValueError(f"num_slices={num_slices}: more than one slice "
-                         f"needs the port's mesh (ROADMAP.md step 10)")
     if dtype_name not in _DTYPES:
         raise ValueError(f"dtype_name={dtype_name!r}; expected one of "
                          f"{sorted(_DTYPES)}")
     dev = resolve_device(device)
     dtype = _DTYPES[dtype_name]
-    global_batch = batch_per_device * rank_and_world()[1]
+    mesh = data_parallel_mesh(num_slices)
+    global_batch = batch_per_device * mesh.size
     overrides = dict(dtype=dtype, attention=attention)
     if num_layers:
         overrides["num_layers"] = num_layers
@@ -420,7 +416,7 @@ def run_vit_benchmark(
                        image_size=image_size, **overrides)
     trainer = Trainer(model, TrainerConfig(
         global_batch_size=global_batch, image_size=image_size,
-        num_classes=1000), device=dev)
+        num_classes=1000), device=dev, mesh=mesh)
     state = trainer.init_state(0)
     wtel, owns_events = _worker_telemetry(metrics_port, event_log,
                                           train_dir, events, log)
@@ -465,13 +461,13 @@ def run_vit_benchmark(
 
 def main(argv=None) -> int:
     """The CLI, with the reference's flags; those of the parts not
-    ported (a mesh degree above 1, --hfta, an LM workload over more than
-    one process) raise, naming the ROADMAP.md step that ports them.
-    `--workload vit` runs run_vit_benchmark. Its gang (TPU_NUM_PROCESSES
-    > 1, or the launcher role) goes through the
-    bootstrap (bootstrap/bootstrap.py): the launcher waits on rank 0's
-    status channel and mirrors its exit code, rank 0 serves it, only
-    rank 0 logs. Exits 0 after a complete run, 215 after a preemption
+    ported (--tp, --pp, --sp or --ep above 1, --hfta) raise, naming the
+    ROADMAP.md step that ports them. `--workload vit` runs
+    run_vit_benchmark, the others run_lm_benchmark. A gang
+    (TPU_NUM_PROCESSES > 1, or the launcher role) goes through the
+    bootstrap (bootstrap/bootstrap.py), its slices (TPU_NUM_SLICES) on
+    the mesh's dcn dim: the launcher waits on rank 0's status channel
+    and mirrors its exit code, rank 0 serves it, only rank 0 logs. Exits 0 after a complete run, 215 after a preemption
     drain (the emergency checkpoint committed), 1 on a divergence no
     rollback could fix; a watchdog stall exits 216 and an injected hard
     death 217 from inside the run."""
@@ -495,14 +491,14 @@ def main(argv=None) -> int:
     parser.add_argument("--fused-xent", action="store_true")
     parser.add_argument("--attention", default="auto",
                         choices=["auto", "dense", "flash"])
-    for flag in ("--tp", "--pp", "--sp", "--ep"):
-        parser.add_argument(flag, type=int, default=1,
-                            help="the reference's mesh degree; the port "
-                                 "trains on one device (> 1 raises: "
-                                 "ROADMAP.md step 10)")
+    for name, step in _UNPORTED.items():
+        parser.add_argument(f"--{name}", type=int, default=1,
+                            help=f"the reference's mesh degree; the port "
+                                 f"is data-parallel only (> 1 raises: "
+                                 f"ROADMAP.md step {step})")
     parser.add_argument("--hfta", type=int, default=0,
                         help="the reference's fused sweep (> 0 raises: "
-                             "train/hfta.py is ROADMAP.md step 10)")
+                             "train/hfta.py is ROADMAP.md step 10e)")
     parser.add_argument("--moe-experts", type=int, default=0,
                         help="replace every other FFN with an N-expert "
                              "top-2 MoE")
@@ -565,7 +561,7 @@ def main(argv=None) -> int:
     if args.hfta:
         raise ValueError(f"--hfta={args.hfta}: the fused sweep trainer "
                          f"(train/hfta.py) is not in the port yet "
-                         f"(ROADMAP.md step 10)")
+                         f"(ROADMAP.md step 10e)")
 
     from ..bootstrap import initialize
     from ..bootstrap.bootstrap import (ENV_LAUNCHER, ENV_NUM_PROCESSES,
@@ -581,8 +577,6 @@ def main(argv=None) -> int:
         if args.train_dir else None)
     events = EventLog(ev_path) if ev_path else None
     procs = int(os.environ.get(ENV_NUM_PROCESSES, "1") or "1")
-    if args.workload != "vit":
-        _refuse_lm_gang(procs)
     gang = procs > 1 or os.environ.get(ENV_LAUNCHER) == "1"
     info = initialize(events=events, device=args.device) if gang else None
     if info is not None and info.is_launcher:
@@ -590,6 +584,7 @@ def main(argv=None) -> int:
             events.close()
         return launcher_wait(info, port=status_port())
     coordinator = info is None or info.is_coordinator
+    num_slices = info.num_slices if info is not None else 1
     status = StatusServer(status_port()) if gang and coordinator else None
     log = print if coordinator else (lambda s: None)   # noqa: E731
     exit_code = 1
@@ -600,7 +595,7 @@ def main(argv=None) -> int:
                 batch_per_device=args.batch_per_device or 32,
                 image_size=args.image_size, num_steps=args.num_steps,
                 warmup_steps=args.warmup_steps, dtype_name=args.dtype,
-                num_layers=args.num_layers or None,
+                num_slices=num_slices, num_layers=args.num_layers or None,
                 attention=args.attention, data_dir=args.data_dir,
                 train_dir=args.train_dir, ckpt_every=args.ckpt_every,
                 ckpt_keep=args.ckpt_keep, step_deadline=args.step_deadline,
@@ -620,6 +615,7 @@ def main(argv=None) -> int:
                 warmup_steps=args.warmup_steps, eval_steps=args.eval_steps,
                 dtype_name=args.dtype, num_layers=args.num_layers or None,
                 tp=args.tp, pp=args.pp, sp=args.sp, ep=args.ep,
+                num_slices=num_slices,
                 accum_steps=args.accum_steps, fused_xent=args.fused_xent,
                 attention=args.attention, remat=args.remat,
                 remat_policy=args.remat_policy,

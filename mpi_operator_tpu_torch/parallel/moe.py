@@ -42,14 +42,36 @@ kept as `drop_rate` after each forward: a diagnostic the model exposes
 beside the output, so it flows through the graph the loss is built from
 (under remat the checkpointed forward is recomputed, and module state
 would hold the recompute's tensor).
+
+Routing in a data-parallel gang (H14). The reference's jit routes the
+GLOBAL batch, so with `mesh` set (the LMTrainer sets every MoeMlp's to
+its data-parallel mesh; None routes this rank's tokens alone) each
+layer first gathers every rank's per-expert pair counts and top-1
+fractions (one all_gather of [2, e] a layer, `routing`):
+
+- capacity comes from the global token count N x W (every rank holds N);
+- a pair's queue position is its position among this rank's pairs plus
+  the pairs that lower ranks routed to the same expert, an exclusive
+  scan of the ranks' counts: one cumsum over the global rows in rank
+  order, as the ranks hold consecutive rows;
+- the drop rate is the global one, from the global counts;
+- the aux loss a rank returns is its SHARE of the global loss,
+  e * sum(f * mean(probs) / W) with f the global top-1 fraction and
+  mean(probs) this rank's: the shares of the W ranks sum to
+  e * sum(f * global mean(probs)), and so do their gradients (the
+  trainer scales each rank's objective by W and averages the
+  gradients). Dropless needs only the aux.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from .collectives import allgather
+from .mesh import MESH_DIMS
 
 
 def route(probs: torch.Tensor, k: int):
@@ -73,16 +95,42 @@ def capacity(n_tokens: int, k: int, e: int, factor: float) -> int:
     return max(1, int(factor * n_tokens * k / e))
 
 
-def slots(idx: torch.Tensor, e: int, cap: int):
+def slots(idx: torch.Tensor, e: int, cap: int,
+          offset: Optional[torch.Tensor] = None):
     """(slot [N, k] int64, keep [N, k] bool): each (token, choice) pair's
     position in its expert's queue, counting every earlier pair routed to
-    that expert in token-major order, and whether it is under `cap`."""
+    that expert in token-major order (plus `offset[expert]`, the pairs
+    lower ranks routed there), and whether it is under `cap`."""
     # expert-major [e, N*k], so the running count scans the inner dim (a
     # scan over the outer dim of [N*k, e] is one slow kernel on the card)
     onehot = F.one_hot(idx.reshape(-1), e).t().contiguous()
     pos = (torch.cumsum(onehot, 1) * onehot).sum(0) - 1
     pos = pos.reshape(idx.shape)
+    if offset is not None:
+        pos = pos + offset[idx]
     return pos, pos < cap
+
+
+def routing(idx: torch.Tensor, e: int, mesh=None):
+    """(offset [e] int64, total [e] int64, top-1 fraction [e] f32, W):
+    the pairs lower ranks routed to each expert, the pairs every rank
+    routed there, the fraction of the global tokens whose first choice
+    it is, and the number of ranks W. Without a mesh (or over a mesh
+    with no process group) this rank's tokens alone: W 1, and no
+    offset or total."""
+    frac = F.one_hot(idx[:, 0], e).float().mean(0)
+    if mesh is None or mesh.group(MESH_DIMS) is None:
+        return None, None, frac, 1
+    flat = idx.reshape(-1)
+    counts = torch.zeros(e, dtype=torch.int64, device=idx.device)
+    counts.scatter_add_(0, flat, torch.ones_like(flat))
+    W, r = mesh.size, mesh.position()
+    # f64 holds the integer counts and the f32 fractions exactly
+    every = allgather(torch.cat([counts.double(), frac.double()]), mesh,
+                      MESH_DIMS, tiled=False)                 # [W, 2e]
+    offset = every[:r, :e].sum(0).long()
+    total = every[:, :e].sum(0).long()
+    return offset, total, (every[:, e:].sum(0) / W).float(), W
 
 
 def _gelu(x):
@@ -109,6 +157,9 @@ class MoeMlp(nn.Module):
         self.w_out = nn.Parameter(torch.empty(num_experts, mlp_dim,
                                               embed_dim))
         self.drop_rate = None
+        # the data-parallel mesh whose global batch this layer routes
+        # (parallel/mesh.py); None routes this rank's tokens alone
+        self.mesh = None
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         B, S, E = x.shape
@@ -117,7 +168,8 @@ class MoeMlp(nn.Module):
         probs = torch.softmax(
             torch.matmul(tokens.float(), self.router.weight.float().t()), -1)
         gates, idx = route(probs, k)
-        aux = aux_loss(probs, idx)
+        offset, total, frac, W = routing(idx, e, self.mesh)
+        aux = e * torch.sum(frac * (probs.mean(0) / W))
         w_in, w_out = self.w_in.to(dt), self.w_out.to(dt)
         if self.dropless:
             full = torch.zeros(N, e, dtype=torch.float32, device=x.device)
@@ -127,9 +179,11 @@ class MoeMlp(nn.Module):
             out = (y * full.float().t()[:, :, None]).sum(0)
             self.drop_rate = torch.zeros((), device=x.device)
             return out.reshape(B, S, E).to(x.dtype), aux
-        cap = capacity(N, k, e, self.capacity_factor)
-        pos, keep = slots(idx, e, cap)
-        self.drop_rate = (1.0 - keep.float().mean()).detach()
+        cap = capacity(N * W, k, e, self.capacity_factor)
+        pos, keep = slots(idx, e, cap, offset)
+        self.drop_rate = (1.0 - (keep.float().mean() if W == 1 else
+                                 torch.clamp(total, max=cap).sum()
+                                 / (N * W * k))).detach()
         gates = gates * keep
         # each pair's row in the flat [e * cap + 1, E] slot buffer; the
         # dropped pairs all land on the last row, which nothing reads
@@ -173,4 +227,5 @@ def moe_ref(x, router_w, w_in, w_out, top_k: int = 2,
             1.0 - keep.float().mean())
 
 
-__all__ = ["MoeMlp", "aux_loss", "capacity", "moe_ref", "route", "slots"]
+__all__ = ["MoeMlp", "aux_loss", "capacity", "moe_ref", "route", "routing",
+           "slots"]

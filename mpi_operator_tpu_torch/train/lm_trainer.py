@@ -1,5 +1,7 @@
-"""Language-model trainer on one device: the flat single-device path of
-the reference's `mpi_operator_tpu/train/lm_trainer.py::LMTrainer`.
+"""Language-model trainer, data-parallel over the gang's dcn x dp mesh:
+the counterpart of `mpi_operator_tpu/train/lm_trainer.py::LMTrainer`
+with the reference's one parallelism strategy (a batch sharded over the
+data axes; the tp/sp/pp/ep shardings are later slices).
 
 What it keeps of the reference, step for step:
 
@@ -39,8 +41,32 @@ and the guard update with a few whole-buffer operations and no host
 sync; the model the trainer builds reads its parameters through those
 views, in the model dtype (bf16 casts per use, like flax's `dtype`).
 
-Not here yet (later slices): the mesh and its shardings (tp/sp/pp/ep)
-and `tp_overlap_lm_loss`.
+Data parallelism. The reference jits the step over the global batch,
+sharded over the mesh's data axes, so its loss, its masked-loss
+denominator (H13), its MoE routing (H14) and its guard see the global
+batch. Here each rank runs its rows of the global batch (the streams of
+data/ give each rank its share of every microbatch, H16) and:
+
+- normalises by the GLOBAL mask count, one all-reduce of a scalar
+  before the forward (`_mask_total`);
+- routes every MoE layer over the global batch (parallel/moe.py, the
+  mesh set on each MoeMlp);
+- scales its objective by the data-parallel degree W, so that it is W
+  times this rank's share of the global loss, and after the backward
+  (after the last microbatch under accumulation) averages ONE flat f32
+  buffer over the mesh: the gradients with the loss and the accuracy's
+  hit count appended (`_reduce`; across slices through
+  `hierarchical_allreduce_mean`). The mean of W shares times W is the
+  global gradient and loss (H13, H14);
+- guards, reports and feeds TrainTelemetry with the global loss,
+  accuracy and gradient norm, so every rank takes the same skip and
+  rollback decisions (H15).
+
+The all-reduce runs after the backward, not overlapped with it (the
+parameters are views of one flat buffer, which DDP's bucket hooks and
+its construction-time broadcast would not keep). Over a mesh without a
+process group (one process) it is skipped and the step is the
+single-device one, bit for bit. Not here yet: `tp_overlap_lm_loss`.
 """
 from __future__ import annotations
 
@@ -55,6 +81,10 @@ from torch.utils.checkpoint import checkpoint
 
 from ..models.transformer import (TiedHead, TransformerConfig, model_class,
                                   param_shapes)
+from ..parallel.collectives import (allreduce_mean, allreduce_sum,
+                                    hierarchical_allreduce_mean)
+from ..parallel.mesh import MESH_DIMS, Mesh, data_parallel_mesh
+from ..parallel.moe import MoeMlp
 from ..telemetry import TrainTelemetry, span
 from ..utils import flops
 from ..utils.device import DeviceLike, resolve_device
@@ -268,25 +298,29 @@ class LMTrainState:
 
 
 class LMTrainer:
-    """Single-device trainer for the port's LMs (CausalLM, or MaskedLM
-    for a BERT config). It builds its own model (trainable, f32 master
-    parameters laid flat) from a TransformerConfig; runs on the CUDA
-    card unless `device="cpu"`."""
+    """Data-parallel trainer for the port's LMs (CausalLM, or MaskedLM
+    for a BERT config) over `mesh` (default: every rank of the process
+    group on dp, one process without one). It builds its own model
+    (trainable, f32 master parameters laid flat) from a
+    TransformerConfig; runs on the CUDA card unless `device="cpu"`. A
+    step takes this rank's rows of the global batch."""
 
     def __init__(self, model_config: TransformerConfig,
                  config: Optional[LMTrainerConfig] = None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, mesh: Optional[Mesh] = None):
         self.model_config = model_config
         self.config = config or LMTrainerConfig()
         self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None else data_parallel_mesh()
         self.schedule = make_lr_schedule(self.config)
-        A = self.config.accum_steps
+        A, W = self.config.accum_steps, self.mesh.size
         if A < 1:
             raise ValueError(f"accum_steps={A} must be >= 1")
-        if self.config.global_batch_size % A:
+        if self.config.global_batch_size % (A * W):
             raise ValueError(
                 f"global_batch_size={self.config.global_batch_size} must "
-                f"split into accum_steps={A} equal microbatches")
+                f"split into accum_steps={A} microbatches of whole "
+                f"per-rank shards (data-parallel degree {W})")
         if self.config.fused_xent and (self.config.masked_lm
                                        or not model_config.causal):
             raise ValueError("fused_xent supports the causal LM only "
@@ -316,6 +350,9 @@ class LMTrainer:
         with torch.device("meta"):
             model = model_class(cfg)(cfg)
         model.load_state_dict(views, strict=True, assign=True)
+        for m in model.modules():
+            if isinstance(m, MoeMlp):
+                m.mesh = self.mesh          # global routing (H14)
         return LMTrainState(
             params=flat, opt=AdamWState.zeros_like(flat), model=model,
             nonfinite_streak=torch.zeros((), dtype=torch.int32, device=dev))
@@ -349,39 +386,58 @@ class LMTrainer:
                 else torch.as_tensor(mask, device=self.device).float())
         return tokens, targets, mask
 
+    def _mask_total(self, mask: torch.Tensor) -> torch.Tensor:
+        """The GLOBAL batch's mask count (at least 1), the reference's
+        normaliser (H13): this rank's count summed over the mesh."""
+        return torch.clamp(allreduce_sum(mask.sum(), self.mesh), min=1.0)
+
+    def _reduce(self, flat: torch.Tensor) -> torch.Tensor:
+        """The mean of `flat` over the mesh (in place where it can be):
+        one all-reduce, or across slices the hierarchical one."""
+        if self.mesh.shape["dcn"] > 1:
+            return hierarchical_allreduce_mean(flat, self.mesh)
+        return allreduce_mean(flat, self.mesh, MESH_DIMS, inplace=True)
+
     def loss_and_grads(self, state: LMTrainState, tokens, targets,
                        mask=None):
-        """(loss, flat f32 gradients, accuracy) of one batch at the
-        current parameters; with accum_steps > 1 the microbatches' losses
-        and gradients summed (accuracy NaN, as in the reference)."""
+        """(loss, flat f32 gradients, accuracy) of one global batch at the
+        current parameters, this rank holding its rows; with
+        accum_steps > 1 the microbatches' losses and gradients summed
+        (accuracy NaN, as in the reference). All three are the global
+        batch's, the same on every rank."""
         tokens, targets, mask = self._batch(tokens, targets, mask)
-        A = self.config.accum_steps
-        nan = torch.full((), float("nan"), device=self.device)
+        A, W = self.config.accum_steps, self.mesh.size
+        total = self._mask_total(mask)
+        # W x this rank's share of the global objective: the mean over
+        # the ranks of these gradients is the global batch's
+        denom = total / W
+        hits = torch.full((), float("nan"), device=self.device)
         if A > 1:
-            total = torch.clamp(mask.sum(), min=1.0)
             loss = torch.zeros((), dtype=torch.float32, device=self.device)
             for t, g, m in zip(tokens.chunk(A), targets.chunk(A),
                                mask.chunk(A)):
-                micro, _ = self._loss(state, t, g, m, denom=total,
-                                      aux_scale=1.0 / A)
+                micro, _ = self._loss(state, t, g, m, denom=denom,
+                                      aux_scale=W / A)
                 micro.backward()
                 loss = loss + micro.detach()
-            acc = nan
         else:
-            loss, logits = self._loss(state, tokens, targets, mask)
-            acc = nan
+            loss, logits = self._loss(state, tokens, targets, mask,
+                                      denom=denom, aux_scale=W)
             if logits is not None:
                 hit = (logits.detach().argmax(-1) == targets).float()
-                acc = (hit * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+                hits = (hit * mask).sum() * W
             loss.backward()
             loss = loss.detach()
         params = [state.model.get_parameter(n)
                   for n in param_shapes(self.model_config)]   # flat order
-        grads = torch.cat([torch.zeros_like(p).reshape(-1) if p.grad is None
-                           else p.grad.reshape(-1) for p in params])
+        flat = torch.cat([torch.zeros_like(p).reshape(-1) if p.grad is None
+                          else p.grad.reshape(-1) for p in params]
+                         + [loss.reshape(1), hits.reshape(1)])
         for p in params:
             p.grad = None
-        return loss, grads, acc
+        flat = self._reduce(flat)
+        # the loss is cloned out: a view would keep the whole buffer alive
+        return flat[-2].clone(), flat[:-2], flat[-1] / total
 
     def _apply(self, state: LMTrainState, grads: torch.Tensor,
                loss: torch.Tensor) -> None:
@@ -414,8 +470,10 @@ class LMTrainer:
         update). The MoE aux term is left out: it only shapes gradients,
         and would inflate exp(val_loss) past the perplexity."""
         tokens, targets, mask = self._batch(tokens, targets, mask)
-        return self._loss(state, tokens, targets, mask,
+        loss = self._loss(state, tokens, targets, mask,
+                          denom=self._mask_total(mask) / self.mesh.size,
                           include_aux=False)[0]
+        return allreduce_mean(loss, self.mesh)
 
     def evaluate(self, state: LMTrainState, dataset: Iterable,
                  num_batches: int = 10) -> Dict[str, float]:
@@ -476,7 +534,7 @@ class LMTrainer:
         timed step's loss."""
         from .resilience import Preempted
 
-        cfg = self.config
+        cfg, n = self.config, self.mesh.size     # the gang's devices
         tel = telemetry if telemetry is not None else TrainTelemetry()
         if resilience is not None and resilience.telemetry is None:
             resilience.telemetry = tel    # rollback accounting -> goodput
@@ -520,7 +578,7 @@ class LMTrainer:
                     tel.update_window(
                         tokens_per_sec=tps,
                         mfu=flops.throughput_stats(
-                            flops_per_step, tps / tokens_per_step, 1,
+                            flops_per_step, tps / tokens_per_step, n,
                             self.device)["mfu"],
                         step=base_step + i)
                     streak = int(metrics["nonfinite_streak"])
@@ -539,7 +597,7 @@ class LMTrainer:
         steady = windows[1:] if len(windows) > 1 else windows
         tps = sum(steady) / len(steady)
         stats = flops.throughput_stats(flops_per_step, tps / tokens_per_step,
-                                       1, self.device)
+                                       n, self.device)
         p50_ms, p99_ms = tel.step_percentiles_ms()
         gap50_ms, gap99_ms = tel.host_gap_percentiles_ms()
         log("-" * 40)
@@ -553,7 +611,7 @@ class LMTrainer:
         log("-" * 40)
         return state, {
             "tokens_per_sec": tps,
-            "tokens_per_sec_per_device": tps,
+            "tokens_per_sec_per_device": tps / n,
             "wall_seconds": time.perf_counter() - wall0,
             "final_loss": float(metrics["loss"]),
             "step_losses": torch.stack(losses).tolist(),

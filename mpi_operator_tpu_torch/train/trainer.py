@@ -17,17 +17,19 @@ running statistics views of another (`batch_stats`, empty for ViT), the
 momentum a third; a step changes them with a few whole-buffer
 operations and no host sync.
 
-Data parallelism: the reference shards one global batch over a mesh and
-XLA all-reduces the gradients. Here each rank runs its rows of the
-global batch (data/synthetic.py `rank_rows`) and, when the process has
-joined a torch.distributed group (the bootstrap joins one when the gang
-has more than one process), the model runs under
-DistributedDataParallel, which averages the gradients over the ranks
-(NCCL on the card, gloo on the CPU). The BN layers all-reduce their
-statistics (models/resnet.py), so the forward, the gradients and the
-running statistics equal one process's over the global batch. The loss
-and accuracy a step returns are averaged over the ranks, the
-reference's global means.
+Data parallelism: the reference shards one global batch over a dcn x
+dp mesh and XLA all-reduces the gradients. Here each rank runs its rows
+of the global batch (data/synthetic.py `rank_rows`) and, when the
+process has joined a torch.distributed group (the bootstrap joins one
+when the gang has more than one process), the model runs under
+DistributedDataParallel, which averages the gradients over both dims of
+the mesh (parallel/mesh.py; NCCL on the card, gloo on the CPU); across
+slices its buckets go through `hierarchical_allreduce_mean` (a DDP comm
+hook), the reference's two-phase schedule. The BN layers all-reduce
+their statistics over every rank (models/resnet.py), so the forward,
+the gradients and the running statistics equal one process's over the
+global batch. The loss and accuracy are averaged over the ranks before
+the guard reads the loss, so every rank takes the same decision (H15).
 
 `benchmark` is the reference's windowed protocol: images/sec over
 windows of `log_every` steps (one host read a window, the first window
@@ -49,6 +51,8 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..models.resnet import ResNet, init_resnet
+from ..parallel.collectives import hierarchical_allreduce_mean
+from ..parallel.mesh import Mesh, data_parallel_mesh
 from ..telemetry import TrainTelemetry, span
 from ..utils import flops
 from ..utils.device import DeviceLike, rank_and_world, resolve_device
@@ -115,8 +119,20 @@ class TrainState:
         return {n: p.detach() for n, p in self.model.named_parameters()}
 
 
-def _ddp(model: torch.nn.Module, dev: torch.device) -> torch.nn.Module:
-    """`model` under DistributedDataParallel. The BN statistics are
+def _hierarchical_hook(mesh: Mesh, bucket):
+    """DDP comm hook: the bucket's mean over a multi-slice mesh through
+    the two-phase schedule (parallel/collectives.py)."""
+    buf = bucket.buffer()
+    buf.copy_(hierarchical_allreduce_mean(buf, mesh))
+    fut = torch.futures.Future()
+    fut.set_result(buf)
+    return fut
+
+
+def _ddp(model: torch.nn.Module, dev: torch.device,
+         mesh: Mesh) -> torch.nn.Module:
+    """`model` under DistributedDataParallel over every rank, the
+    hierarchical all-reduce across slices. The BN statistics are
     already global (models/resnet.py), so no buffer is synced in the
     forward (the keyword's name differs between torch versions)."""
     import inspect
@@ -125,22 +141,27 @@ def _ddp(model: torch.nn.Module, dev: torch.device) -> torch.nn.Module:
     quiet = ({"forward_sync_buffers": False}
              if "forward_sync_buffers" in inspect.signature(DDP).parameters
              else {"broadcast_buffers": False})
-    return DDP(model, device_ids=[dev.index] if dev.type == "cuda" else None,
-               **quiet)
+    net = DDP(model, device_ids=[dev.index] if dev.type == "cuda" else None,
+              **quiet)
+    if mesh.shape["dcn"] > 1:
+        net.register_comm_hook(mesh, _hierarchical_hook)
+    return net
 
 
 class Trainer:
     """Data-parallel trainer for the port's image models (`ResNet`,
-    `ViT`). `model` gives the architecture (its tensors are replaced by
-    views of the state's flat buffers in `init_state`); runs on the CUDA
-    card unless `device="cpu"`."""
+    `ViT`) over `mesh` (default: every rank of the process group on dp).
+    `model` gives the architecture (its tensors are replaced by views of
+    the state's flat buffers in `init_state`); runs on the CUDA card
+    unless `device="cpu"`."""
 
     def __init__(self, model: torch.nn.Module,
                  config: Optional[TrainerConfig] = None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, mesh: Optional[Mesh] = None):
         self.model = model
         self.config = config or TrainerConfig()
         self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None else data_parallel_mesh()
         self.sgd = make_sgd(self.config.learning_rate, self.config.momentum)
 
     # -- initialization ---------------------------------------------------
@@ -180,7 +201,7 @@ class Trainer:
         model.train()
         net = model
         if dist.is_available() and dist.is_initialized():
-            net = _ddp(model, dev)
+            net = _ddp(model, dev, self.mesh)
         return TrainState(
             params=params, batch_stats=stats,
             momentum=torch.zeros_like(params), model=model, net=net,
@@ -235,13 +256,13 @@ class Trainer:
         update. Returns the (same, updated) state and device-side
         metrics (loss and accuracy averaged over the ranks)."""
         loss, grads, acc = self.loss_and_grads(state, images, labels)
-        self.apply_update(state, grads, loss)
-        del grads
         world = rank_and_world()[1]
         if world > 1:
             both = torch.stack([loss, acc])
             dist.all_reduce(both)
             loss, acc = both / world
+        self.apply_update(state, grads, loss)
+        del grads
         state.step += 1
         return state, {"loss": loss, "accuracy": acc,
                        "nonfinite_streak": state.nonfinite_streak}
@@ -293,8 +314,7 @@ class Trainer:
         step's loss."""
         from .resilience import Preempted
 
-        cfg = self.config
-        n = rank_and_world()[1]
+        cfg, n = self.config, self.mesh.size     # the gang's devices
         tel = telemetry if telemetry is not None else TrainTelemetry()
         if resilience is not None and resilience.telemetry is None:
             resilience.telemetry = tel    # rollback accounting -> goodput

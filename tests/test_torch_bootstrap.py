@@ -214,15 +214,35 @@ def test_launch_forks_two_slots_and_propagates_failure(tmp_path):
 
 
 def test_initialize_refuses_slices_and_a_missing_card(monkeypatch):
+    """More than one slice joins (the slices go on the mesh's dcn dim),
+    but a mesh of 2 slices needs at least 2 ranks: one process's
+    hybrid_mesh refuses them; without a card and without device="cpu"
+    initialize refuses."""
     env = {"TPU_COORDINATOR_ADDRESS": "c:1", "TPU_NUM_PROCESSES": "1"}
-    with pytest.raises(tbs.BootstrapError, match="step 10"):
-        tbs.initialize({**env, "TPU_NUM_SLICES": "2", "TPU_SLICE_ID": "0"},
-                       hostname="j-worker-s0-0", device="cpu")
+    info = tbs.initialize({**env, "TPU_NUM_SLICES": "2", "TPU_SLICE_ID": "0"},
+                          hostname="j-worker-s0-0", device="cpu")
+    assert info.num_slices == 2 and not dist.is_initialized()
+    with pytest.raises(ValueError, match="2 slices"):
+        tbs.hybrid_mesh(info)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
     with pytest.raises(tbs.BootstrapError, match="device='cpu'"):
         tbs.initialize(env, hostname="j-worker-0")
     info = tbs.initialize(env, hostname="j-worker-0", device="cpu")
     assert info.process_id == 0 and not dist.is_initialized()
+
+
+def test_hybrid_mesh_lays_the_job_topology():
+    """hybrid_mesh from the env contract: pure data parallelism by
+    default (a process alone is a mesh of one), named axes checked
+    against the job's device count as the reference checks them."""
+    info = tbs.process_info({"TPU_COORDINATOR_ADDRESS": "c:1",
+                             "TPU_NUM_PROCESSES": "1"}, "j-worker-0")
+    mesh = tbs.hybrid_mesh(info)
+    assert mesh.size == 1 and mesh.shape["dcn"] == 1
+    assert mesh.device_mesh is None and not dist.is_initialized()
+    assert tbs.hybrid_mesh(info, dp=1).size == 1
+    with pytest.raises(tbs.BootstrapError, match="the job sees 1"):
+        tbs.hybrid_mesh(info, dp=2)
 
 
 @pytest.mark.parametrize("cpu,slots,cards,want", [

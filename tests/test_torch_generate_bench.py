@@ -8,6 +8,12 @@ TB/s); a time from this run is a CPU time and is only checked to be
 positive.
 """
 import importlib
+import json
+import os
+import pathlib
+import socket
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -19,6 +25,7 @@ jt = importlib.import_module("mpi_operator_tpu.models.transformer")
 tflops = importlib.import_module("mpi_operator_tpu_torch.utils.flops")
 tt = importlib.import_module("mpi_operator_tpu_torch.models.transformer")
 bench = importlib.import_module("mpi_operator_tpu_torch.examples.lm_benchmark")
+ROOT = pathlib.Path(__file__).resolve().parent.parent
 
 #: run_generate_benchmark's return keys in the reference
 #: (mpi_operator_tpu/examples/lm_benchmark.py:741-746)
@@ -101,9 +108,9 @@ def test_cli_runs_bert_moe_and_remat(capsys):
 
 
 @pytest.mark.parametrize("flags,step", [
-    (["--tp", "2"], "step 10"), (["--pp", "2"], "step 10"),
-    (["--sp", "2"], "step 10"), (["--ep", "2"], "step 10"),
-    (["--hfta", "2"], "step 10")])
+    (["--tp", "2"], "step 10c"), (["--pp", "2"], "step 10d"),
+    (["--sp", "2"], "step 10c"), (["--ep", "2"], "step 10c"),
+    (["--hfta", "2"], "step 10e")])
 def test_cli_refuses_what_is_not_ported(flags, step):
     with pytest.raises(ValueError, match=step):
         bench.main(["--size", "test", "--device", "cpu"] + flags)
@@ -119,18 +126,57 @@ def test_cli_runs_vit(capsys):
     assert '"metric": "vit_images_per_sec"' in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("workload", ["gpt2", "llama", "bert"])
-def test_lm_workloads_refuse_more_than_one_process(workload, monkeypatch):
-    """The LMTrainer has no gradient all-reduce and the token stream is
-    not split by rank, so an LM workload refuses a gang (ROADMAP.md step
-    10) rather than train uncoordinated copies: the CLI before the
-    bootstrap, and run_lm_benchmark inside a group of two."""
-    monkeypatch.setenv("TPU_NUM_PROCESSES", "2")
-    with pytest.raises(RuntimeError, match="single-process.*step 10"):
-        bench.main(["--workload", workload, "--size", "test",
-                    "--device", "cpu"])
-    monkeypatch.delenv("TPU_NUM_PROCESSES")
-    monkeypatch.setattr(bench, "rank_and_world", lambda: (0, 2))
-    with pytest.raises(RuntimeError, match="single-process.*step 10"):
-        bench.run_lm_benchmark(workload=workload, size="test",
-                               device="cpu")
+def _free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+@pytest.mark.parametrize("workload,extra", [
+    ("gpt2", []), ("llama", []), ("bert", []),
+    ("gpt2", ["--moe-experts", "4", "--accum-steps", "2"])],
+    ids=["gpt2", "llama", "bert", "moe"])
+def test_cli_trains_a_two_rank_gang(workload, extra):
+    """The CLI as two gloo workers and the launcher on the env contract
+    (the LMTrainer is data-parallel): every process exits 0, rank 0
+    alone prints the headline, its global tokens/s, and the gang's final
+    loss is one process's at the global batch (2 x 2 rows) from the same
+    seeds."""
+    common = ["--workload", workload, "--size", "test", "--seq-len", "16",
+              "--dtype", "float32", "--warmup-steps", "1", "--num-steps",
+              "2", "--device", "cpu", *extra]
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               TPU_COORDINATOR_ADDRESS=f"127.0.0.1:{_free_port()}",
+               TPU_NUM_PROCESSES="2", TPU_STATUS_PORT=str(_free_port()),
+               PYTHONPATH=os.pathsep.join([str(ROOT)] + [
+                   p for p in os.environ.get("PYTHONPATH", "").split(
+                       os.pathsep) if p]))
+    for k in ("TPU_WORKER_ID", "TPU_LOCAL_RANK", "TPU_LAUNCHER",
+              "TPU_NUM_SLICES", "TPU_FAULT_INJECT"):
+        env.pop(k, None)
+    cmd = [sys.executable, "-m", "mpi_operator_tpu_torch.examples."
+           "lm_benchmark", "--batch-per-device", "2", *common]
+    procs = [subprocess.Popen(cmd, cwd=ROOT, env={**env, **role},
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for role in ({"TPU_WORKER_ID": "0"}, {"TPU_WORKER_ID": "1"},
+                          {"TPU_LAUNCHER": "1"})]
+    try:
+        outs = [(p.wait(timeout=240), p.stdout.read()) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    assert [rc for rc, _ in outs] == [0, 0, 0], outs[0][1][-3000:]
+    metric = f'"metric": "{workload}_tokens_per_sec"'
+    assert metric in outs[0][1] and metric not in outs[1][1]
+    head = json.loads([line for line in outs[0][1].splitlines()
+                       if metric in line][-1])
+    assert head["value"] > 0 and head["unit"] == "tokens/sec"
+    assert "total tokens/sec:" in outs[0][1]
+    kw = dict(moe_experts=4, accum_steps=2) if extra else {}
+    _, m = bench.run_lm_benchmark(
+        workload=workload, size="test", batch_per_device=4, seq_len=16,
+        dtype_name="float32", warmup_steps=1, num_steps=2, device="cpu",
+        log=lambda s: None, **kw)
+    assert head["final_loss"] == pytest.approx(m["final_loss"], abs=2e-6)

@@ -420,7 +420,9 @@ def test_cli_exits_1_on_divergence_and_refuses_more_processes(
     """A learning rate of 1e30 makes the second update overflow the
     parameters; with no checkpoint to roll back to the CLI exits 1 (a
     workload bug, not retryable). A controller asking for two processes
-    is refused: the port's trainer is single-process."""
+    sends the LM workload through the bootstrap (the trainer is
+    data-parallel), which refuses a process started without the
+    controller's env contract."""
     rc = tbench.main(["--size", "test", "--batch-per-device", "2",
                       "--seq-len", "16", "--dtype", "float32",
                       "--warmup-steps", "1", "--num-steps", "4",
@@ -429,7 +431,9 @@ def test_cli_exits_1_on_divergence_and_refuses_more_processes(
     assert rc == 1
     assert "diverged" in capsys.readouterr().err
     monkeypatch.setenv("TPU_NUM_PROCESSES", "2")
-    with pytest.raises(RuntimeError, match="single-process"):
+    monkeypatch.delenv("TPU_COORDINATOR_ADDRESS", raising=False)
+    monkeypatch.setenv("TPU_CONFIG_PATH", str(tmp_path / "no-configmap"))
+    with pytest.raises(RuntimeError, match="TPU_COORDINATOR_ADDRESS"):
         tbench.main(["--size", "test", "--device", "cpu"])
 
 

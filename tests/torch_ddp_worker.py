@@ -74,10 +74,10 @@ def batches(steps, image_size=32, seed=0):
 
 
 def train(rank, world, device, steps, image_size=32, size="test",
-          only=None):
+          only=None, mesh=None):
     """Each parity model trained `steps` steps on this rank's rows from
-    seed 0; {name: (initial params, params, momentum, batch_stats)} on
-    the CPU."""
+    seed 0 over `mesh` (default: every rank on dp); {name: (initial
+    params, params, momentum, batch_stats)} on the CPU."""
     out = {}
     data = batches(steps, image_size)
     per = GLOBAL_BATCH // world
@@ -87,7 +87,7 @@ def train(rank, world, device, steps, image_size=32, size="test",
             continue
         trainer = Trainer(model, TrainerConfig(
             global_batch_size=GLOBAL_BATCH, image_size=image_size,
-            num_classes=CLASSES), device=device)
+            num_classes=CLASSES), device=device, mesh=mesh)
         state = trainer.init_state(0)
         start = state.params.detach().cpu().clone()
         for x, y in data:
