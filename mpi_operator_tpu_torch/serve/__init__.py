@@ -8,14 +8,22 @@
     results = engine.run([Request(0, prompt_ids, max_new_tokens=64)])
 
 See engine.py for the architecture notes; generate() remains the
-fixed-batch oracle the engine is parity-tested against.
+fixed-batch oracle the engine is parity-tested against. The fleet:
+`DisaggEngine` (prefill and decode pools bridged by the paged-KV
+handoff, transfer.py) and `Router` (prefix-affinity dispatch over
+engine replicas, with live attach and drain, router.py).
 """
 from .engine import (  # noqa: F401
-    EngineConfig, RequestResult, ServingEngine, propose_ngram, sample_slots,
+    DecodeEngine, DisaggEngine, EngineConfig, PrefillEngine, RequestResult,
+    ServingEngine, propose_ngram, sample_slots,
 )
+from .router import ReplicaHandle, Router, RouterConfig  # noqa: F401
 from .scheduler import Request, RequestState, Scheduler, plan_chunks  # noqa: F401
 from .slots import PageAllocator, SlotManager  # noqa: F401
+from .transfer import PageTransfer  # noqa: F401
 
-__all__ = ["EngineConfig", "PageAllocator", "Request", "RequestResult",
-           "RequestState", "Scheduler", "ServingEngine", "SlotManager",
-           "plan_chunks", "propose_ngram", "sample_slots"]
+__all__ = ["DecodeEngine", "DisaggEngine", "EngineConfig", "PageAllocator",
+           "PageTransfer", "PrefillEngine", "ReplicaHandle", "Request",
+           "RequestResult", "RequestState", "Router", "RouterConfig",
+           "Scheduler", "ServingEngine", "SlotManager", "plan_chunks",
+           "propose_ngram", "sample_slots"]

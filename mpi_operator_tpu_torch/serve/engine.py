@@ -77,6 +77,11 @@ this engine serves the same model the way a front end needs it served:
   step spans), all host bookkeeping: no program changes with them, and
   tokens and program counts are the same with them on or off.
   `set_heartbeat` installs a rate-limited load reporter.
+- **Disaggregated serving** (`DisaggEngine`). A `PrefillEngine` (prompt
+  pages reserved, prefill programs only) and a `DecodeEngine` (decode
+  programs only) with a paged-KV handoff between them
+  (serve/transfer.py), on one card or two; the reference's
+  disaggregated facade, token for token the colocated paged engine.
 
 Parity: at temperature 0 a request produces token-for-token the output
 of `generate()` — pinned against the port's generate() and the JAX
@@ -93,13 +98,14 @@ import numpy as np
 import torch
 
 from ..models.generate import _categorical, cast_params, decode_model
-from ..models.transformer import CausalLM, head_logits
+from ..models.transformer import CausalLM, build_lm, head_logits
 from ..telemetry import events as ev
 from ..telemetry import span
 from ..utils.device import resolve_device
 from .programs import Program, Staging
 from .scheduler import Request, RequestState, Scheduler
 from .slots import PageAllocator, SlotManager
+from .transfer import PageTransfer
 
 
 @dataclasses.dataclass
@@ -245,6 +251,10 @@ class ServingEngine:
     #: prefilling (telemetry/trace.py taxonomy)
     POST_PREFILL_HOP = "serve.decode"
 
+    #: the page span admission reserves (Scheduler reserve=): the whole
+    #: request here; the prompt only in a disaggregated prefill pool
+    RESERVE = "full"
+
     def __init__(self, model: CausalLM, config: Optional[EngineConfig] = None,
                  device=None, telemetry=None, events=None, drafter=None,
                  tracer=None):
@@ -296,7 +306,8 @@ class ServingEngine:
         self._table = self.dmodel.wte.weight
         S = cfg.slots
         self.scheduler = Scheduler(cfg.chunk_buckets, mcfg.max_len,
-                                   admit_lookahead=cfg.admit_lookahead)
+                                   admit_lookahead=cfg.admit_lookahead,
+                                   reserve=self.RESERVE)
         self.slots = SlotManager(S)
         self.page_allocator: Optional[PageAllocator] = None
         if cfg.paged:
@@ -369,7 +380,7 @@ class ServingEngine:
         self.scheduler = Scheduler(self.config.chunk_buckets,
                                    self.model_config.max_len,
                                    admit_lookahead=self.config
-                                   .admit_lookahead)
+                                   .admit_lookahead, reserve=self.RESERVE)
         self.slots = SlotManager(self.config.slots)
         if self.page_allocator is not None:
             # cached prefix pages index into the cache zeroed below, so
@@ -710,8 +721,9 @@ class ServingEngine:
                 host.copy_(dev, non_blocking=True)
             if self.device.type != "cuda":
                 return None
+            # on this engine's card, which need not be the current one
             event = torch.cuda.Event()
-            event.record()
+            event.record(torch.cuda.current_stream(self.device))
             return event
 
     def _wait(self, event, step_t0: float, *host: torch.Tensor):
@@ -1225,6 +1237,13 @@ class ServingEngine:
         sess["pending"] = pending
         return True
 
+    def session_results(self) -> Dict[int, RequestResult]:
+        """The open session's retired results so far (a live view): the
+        router fans these in after each tick()."""
+        if self._session is None:
+            raise RuntimeError("session_results() outside a session")
+        return self._session["results"]
+
     def finish(self) -> Dict[int, RequestResult]:
         """Close the session and return {request.id: RequestResult}."""
         sess = self._session
@@ -1268,5 +1287,486 @@ class ServingEngine:
         return self.finish()
 
 
-__all__ = ["EngineConfig", "RequestResult", "SAMPLE_POOL", "ServingEngine",
+def _on_device(model: CausalLM, device: torch.device) -> CausalLM:
+    """`model` itself when it lives on `device`, else a copy of its
+    parameters there (the decode pool on a second card)."""
+    if model.device == device:
+        return model
+    return build_lm(model.config, model.state_dict(), device=device)
+
+
+class PrefillEngine(ServingEngine):
+    """The prefill half of a disaggregated pair (DisaggEngine drives
+    it): admits requests and runs batched chunked prefill, but never
+    dispatches a decode step — so its programs are prefill only
+    (`prefill <= len(chunk_buckets)`, `step == 0`). Page reservations
+    cover the PROMPT span only (Scheduler reserve="prompt"): the decode
+    span lives in the decode pool, so at equal bytes this pool keeps
+    more prompts in flight than a colocated engine could."""
+
+    RESERVE = "prompt"
+
+    #: a prefilled prompt's next hop in this pool is the page handoff,
+    #: not decode — trace hop names follow the disaggregated flow
+    POST_PREFILL_HOP = "serve.kv_handoff"
+
+    def __init__(self, model: CausalLM, config: Optional[EngineConfig] = None,
+                 device=None, telemetry=None, events=None, tracer=None):
+        cfg = config or EngineConfig()
+        if not cfg.paged:
+            raise ValueError("disaggregated serving requires paged=True "
+                             "(the handoff unit is a page list)")
+        # the prefill pool never decodes, so it never drafts either
+        if cfg.speculative is not None:
+            cfg = dataclasses.replace(cfg, speculative=None)
+        super().__init__(model, cfg, device=device, telemetry=telemetry,
+                         events=events, tracer=tracer)
+
+    def take_prefilled(self) -> List[RequestState]:
+        """Pop every state whose prefill just completed: it leaves the
+        scheduler and frees its slot row (the next prompt starts at
+        once) but KEEPS its page references — the handoff still reads
+        those pages; DisaggEngine releases them once the copy is
+        enqueued. Nothing writes the kept pages meanwhile: writes go
+        through slot page tables, and the freed row's table is rebuilt
+        from its next occupant's pages."""
+        done = [st for st in self.scheduler.active if not st.prefilling]
+        for st in done:
+            self.scheduler.retire(st)
+            self.slots.release(st)
+            st.slot_released = True
+        return done
+
+
+class DecodeEngine(ServingEngine):
+    """The decode half: requests arrive prefilled through
+    `install_handoff` and flow through the shared decode step; this pool
+    never builds a prefill program (`step <= 3`, `prefill == 0`). Its
+    PageAllocator runs the same prefix cache as a colocated engine — a
+    handed-off prompt whose prefix is already resident here needs no
+    bytes moved for those pages (DisaggEngine moves only the misses)."""
+
+    def __init__(self, model: CausalLM, config: Optional[EngineConfig] = None,
+                 device=None, telemetry=None, events=None, drafter=None,
+                 tracer=None):
+        cfg = config or EngineConfig()
+        if not cfg.paged:
+            raise ValueError("disaggregated serving requires paged=True "
+                             "(the handoff unit is a page list)")
+        super().__init__(model, cfg, device=device, telemetry=telemetry,
+                         events=events, drafter=drafter, tracer=tracer)
+
+    def install_handoff(self, req: Request, reserved, now: float,
+                        cached_tokens: int = 0,
+                        ) -> Tuple[RequestState, List[Tuple[int, int]]]:
+        """Bind a prefill-complete request into a slot of THIS pool.
+        `reserved` is this pool's full-span page reservation (chain,
+        private, table) from Scheduler._reserve_pages — the chain pages
+        are decode-side prefix-cache hits whose KV is already resident.
+        Returns (state, fill): fill lists (prompt-page index, physical
+        page here) for every page whose contents must still be copied in
+        from the prefill pool; full prompt pages among them are published
+        into this pool's prefix cache at once, so the NEXT handoff
+        sharing the prefix skips their copy too.
+
+        The caller must have checked `self.slots.free` first."""
+        chain, private, table = reserved
+        alloc = self.page_allocator
+        ps = alloc.page_size
+        p1 = len(req.prompt) - 1
+        full = p1 // ps                   # complete PROMPT pages
+        # pages prefill actually wrote: positions [0, p1)
+        written = 0 if p1 < 1 else (p1 - 1) // ps + 1
+        slot = self.slots.free.pop(0)
+        st = RequestState(req=req, slot=slot, pos=p1, chunks=[],
+                          next_input=int(req.prompt[-1]), admitted_at=now)
+        if self.config.request_timeout is not None:
+            # the decode pool stamps its OWN window — the prefill-side
+            # deadline was consumed getting the request this far
+            st.deadline = now + self.config.request_timeout
+        st.page_table = table
+        st.owned_pages = chain + private
+        st.cached_tokens = cached_tokens
+        st.published_pages = full         # published below or inherited —
+        st.publish_parent = -1            # the engine never re-publishes
+        self.slots.bind(st)
+        self.scheduler.active.append(st)
+        fill = [(k, table[k]) for k in range(len(chain), written)]
+        if self.config.prefix_cache:
+            parent = chain[-1] if chain else -1
+            for k in range(len(chain), full):
+                if not alloc.publish(table[k], parent,
+                                     req.prompt[k * ps:(k + 1) * ps]):
+                    break
+                parent = table[k]
+        if self.telemetry is not None:
+            # decode-side hit/miss = handoff pages saved/moved — the
+            # same instruments a colocated engine feeds at admission
+            self.telemetry.prefix_hit_pages.inc(len(chain))
+            self.telemetry.prefix_miss_pages.inc(written - len(chain))
+        if self.events is not None:
+            self.events.emit(ev.SLOT_ADMIT, request=req.id, slot=slot,
+                             prompt_len=len(req.prompt),
+                             cached_tokens=len(chain) * ps)
+        return st, fill
+
+
+def disagg_devices(devices=None) -> Tuple[torch.device, ...]:
+    """The (prefill, decode) devices of a DisaggEngine: `devices` as
+    given (`("cpu", "cpu")` only when asked), or by default (cuda:0,
+    cuda:1) with two cards and (cuda:0, cuda:0) with one; raises without
+    a card."""
+    if devices is not None:
+        out = tuple(resolve_device(d) for d in devices)
+        if len(out) != 2:
+            raise ValueError(f"devices= names {len(out)} devices; expected "
+                             f"(prefill, decode)")
+        return out
+    resolve_device(None)                   # raises without a card
+    if torch.cuda.device_count() > 1:
+        return torch.device("cuda", 0), torch.device("cuda", 1)
+    return torch.device("cuda", 0), torch.device("cuda", 0)
+
+
+class DisaggEngine:
+    """Disaggregated prefill/decode serving: a PrefillEngine and a
+    DecodeEngine, bridged by the paged-KV handoff (serve/transfer.py).
+    A long prompt saturates the prefill pool while in-flight decodes
+    keep stepping in the decode pool, and each pool builds only its own
+    programs.
+
+    Flow per request: admit → prefill pool (prompt-span page
+    reservation, batched chunked prefill) → handoff (decode-side
+    full-span reservation; a copy of exactly the prompt pages the decode
+    pool's prefix cache does NOT already hold) → decode pool (the shared
+    double-buffered step) → retire (pages park in the decode pool's
+    prefix cache). Admission is backpressured when the decode pool's
+    free pages cannot absorb the in-flight handoffs (Scheduler.gate), so
+    a handoff can stall on slots, never deadlock on pages.
+
+    Devices: `devices=(prefill, decode)`, or by default cuda:0 and cuda:1 with two cards, cuda:0 for both with one
+    (see `disagg_devices`). The weights are cast to the compute dtype
+    once: on one card the pools are two engines over those same
+    read-only weights, each with its own cache, programs, CUDA graphs,
+    staging buffers and generator, all on the card's current stream; on
+    two cards the decode pool gets its own copy.
+
+    Token parity: at temperature 0 the facade is token for token the
+    colocated paged ServingEngine over the same trace
+    (tests/test_torch_disagg.py): per-slot prefill and step rows are
+    computed independently, the handoff copies those exact bytes (int8
+    pages with their scale planes), and the decode step is the same
+    program. Sampled rows match in distribution only: each pool has its
+    own generator."""
+
+    def __init__(self, model: CausalLM, config: Optional[EngineConfig] = None,
+                 *, prefill_config: Optional[EngineConfig] = None,
+                 registry=None, events=None, devices=None,
+                 drafter=None, tracer=None):
+        cfg = config or EngineConfig(paged=True)
+        pcfg = prefill_config or cfg
+        if not cfg.paged or not pcfg.paged:
+            raise ValueError("disaggregated serving requires paged=True")
+        if pcfg.page_size != cfg.page_size:
+            raise ValueError(
+                f"prefill/decode page_size disagree "
+                f"({pcfg.page_size} vs {cfg.page_size}) — the handoff "
+                f"moves pages verbatim")
+        self.devices = disagg_devices(devices)
+        pre_tel = dec_tel = None
+        if registry is not None:
+            from ..telemetry.worker import ServeTelemetry
+            pre_tel = ServeTelemetry(registry, labels={"pool": "prefill"})
+            dec_tel = ServeTelemetry(registry, labels={"pool": "decode"})
+        self.events = events
+        pre_ev = events.bind(pool="prefill") if events is not None else None
+        dec_ev = events.bind(pool="decode") if events is not None else None
+        self.tracer = tracer
+        # one cast for both pools: on one card they read the same weights
+        shared = cast_params(decode_model(model, cfg.decode_kernel),
+                             model.config.dtype)
+        self.prefill = PrefillEngine(
+            _on_device(shared, self.devices[0]), pcfg,
+            device=self.devices[0], telemetry=pre_tel, events=pre_ev,
+            tracer=tracer)
+        self.decode = DecodeEngine(
+            _on_device(shared, self.devices[1]), cfg,
+            device=self.devices[1], telemetry=dec_tel, events=dec_ev,
+            drafter=drafter, tracer=tracer)
+        self.transfer = PageTransfer(self.prefill.page_allocator.num_pages,
+                                     self.decode.page_allocator.num_pages)
+        self.config = cfg
+        self._handoff_q: List[RequestState] = []
+        # handoff trace for the bench: (seconds, pages moved, pages
+        # skipped via the decode-side prefix cache) per handoff
+        self.handoff_log: List[Tuple[float, int, int]] = []
+        self._install_gate()
+
+    def _install_gate(self) -> None:
+        """Decode-capacity backpressure on PREFILL admission: a request
+        enters the prefill pool only while the decode pool's available
+        pages cover every in-flight request's worst-case span plus this
+        one — so prefill cannot fill with prompts the decode pool cannot
+        absorb, and handoffs drain as decode capacity frees (the
+        scheduler's lookahead still packs smaller requests past a gated
+        head)."""
+        ps = self.config.page_size
+        dec_alloc = self.decode.page_allocator
+
+        def gate(req: Request) -> bool:
+            inflight = sum(Scheduler.pages_needed(s.req, ps)
+                           for s in self.prefill.scheduler.active)
+            inflight += sum(Scheduler.pages_needed(s.req, ps)
+                            for s in self._handoff_q)
+            return (dec_alloc.available
+                    >= inflight + Scheduler.pages_needed(req, ps))
+
+        self.prefill.scheduler.gate = gate
+
+    def reset(self) -> None:
+        """Reset both pools (queues, caches, allocators) keeping every
+        program and CUDA graph, so a warmed DisaggEngine replays a trace
+        with identical tokens and identical program counts."""
+        self.prefill.reset()
+        self.decode.reset()
+        self._handoff_q = []
+        self.handoff_log = []
+        self.transfer.pages_moved = 0
+        self._install_gate()              # reset() rebuilt the scheduler
+
+    def compile_counts(self) -> Dict[str, Dict[str, int]]:
+        """Per-pool program counts plus the transfer's widths. The
+        disaggregation pins: prefill pool `step == 0`, decode pool
+        `prefill == 0` — neither pool ever builds the other's
+        programs."""
+        return {"prefill_pool": self.prefill.compile_counts(),
+                "decode_pool": self.decode.compile_counts(),
+                "transfer": self.transfer.compile_counts()}
+
+    def capture_counts(self) -> Dict[str, Dict[str, int]]:
+        """CUDA graphs captured by each pool (serve/programs.py)."""
+        return {"prefill_pool": self.prefill.capture_counts(),
+                "decode_pool": self.decode.capture_counts()}
+
+    @property
+    def steps_dispatched(self) -> int:
+        """Decode steps the decode pool dispatched since reset()."""
+        return self.decode.steps_dispatched
+
+    def _handoff(self, st: RequestState, reserved, now: float) -> None:
+        """Move one prefill-complete request into the decode pool:
+        install it there (decode-side reservation already made), copy
+        exactly the non-cached written prompt pages, then drop the
+        prefill pool's page references — its published prompt pages
+        park in the prefill prefix cache (a repeat prompt skips the
+        recompute), the private tail returns to its free list. The copy
+        is enqueued before the release, and the next prefill that may
+        rewrite a released page is enqueued after it on the same stream
+        (serve/transfer.py)."""
+        pre, dec = self.prefill, self.decode
+        t0 = time.perf_counter()
+        chain_hits = len(reserved[0])
+        new_st, fill = dec.install_handoff(st.req, reserved, now,
+                                           cached_tokens=st.cached_tokens)
+        src_ids = [st.page_table[k] for k, _ in fill]
+        dst_ids = [p for _, p in fill]
+        with span("serve.kv_handoff"):
+            moved = self.transfer.move(pre.cache, dec.cache, src_ids,
+                                       dst_ids)
+        for p in st.owned_pages:
+            pre.page_allocator.release(p)
+        st.owned_pages = []
+        dt = time.perf_counter() - t0     # host wall: the copy is async
+        self.handoff_log.append((dt, moved, chain_hits))
+        rt = dec._trace(st.req.id)
+        if rt is not None:
+            # page counts land on the kv_handoff hop (prefill done ->
+            # installed here, queue wait included), then decode opens
+            rt.hop_attrs(pages=moved, cached_pages=chain_hits,
+                         move_seconds=dt)
+            rt.begin_hop("serve.decode", now)
+        if dec.telemetry is not None:
+            dec.telemetry.kv_handoff_seconds.observe(dt)
+            dec.telemetry.kv_handoff_pages.inc(moved)
+        if self.events is not None:
+            self.events.emit(ev.KV_HANDOFF, request=st.req.id,
+                             pages=moved, cached_pages=chain_hits,
+                             seconds=dt)
+
+    def _sweep_handoff_timeouts(self, now: float,
+                                results: Dict[int, RequestResult]) -> None:
+        """Expire past-deadline requests parked in the handoff queue.
+        These left the prefill scheduler already (take_prefilled) but
+        still hold prefill-pool page references for the pending copy —
+        the one resident claim _sweep_timeouts cannot see — so the drop
+        happens here, against the prefill allocator, before the decode
+        pool ever reserves for them."""
+        pre = self.prefill
+        still: List[RequestState] = []
+        for st in self._handoff_q:
+            if st.deadline is None or now < st.deadline:
+                still.append(st)
+                continue
+            st.finish_reason = "timeout"
+            for p in st.owned_pages:
+                pre.page_allocator.release(p)
+            st.owned_pages = []
+            if self.events is not None:
+                self.events.emit(ev.REQUEST_TIMEOUT, request=st.req.id,
+                                 slot=st.slot, new_tokens=0,
+                                 deadline_seconds=pre.config
+                                 .request_timeout,
+                                 trace=st.req.id)
+            if pre.telemetry is not None:
+                pre.telemetry.requests_total.inc()
+            rt = pre._trace(st.req.id)
+            if rt is not None:
+                rt.attrs.update(finish_reason="timeout", new_tokens=0)
+                rt.finish("timeout", now)
+            results[st.req.id] = RequestResult(
+                id=st.req.id, tokens=[], logprobs=[],
+                finish_reason="timeout", ttft=-1.0, token_times=[],
+                cached_tokens=st.cached_tokens,
+                admitted_at=st.admitted_at)
+        self._handoff_q = still
+
+    def _drain_handoffs(self, now_fn) -> None:
+        """Install every queued handoff the decode pool can take right
+        now (a free slot + a full-span page reservation); the rest stay
+        queued — backpressure keeps this queue short, and decode-side
+        retirements free the capacity that drains it."""
+        dec = self.decode
+        still: List[RequestState] = []
+        for st in self._handoff_q:
+            reserved = None
+            if dec.slots.free:
+                reserved = dec.scheduler._reserve_pages(
+                    st.req, dec.page_allocator)
+            if reserved is None:
+                still.append(st)
+                continue
+            self._handoff(st, reserved, now_fn())
+        self._handoff_q = still
+
+    def run(self, requests: Sequence[Request] = (),
+            on_token: Optional[Callable[[Request, int], None]] = None,
+            ) -> Dict[int, RequestResult]:
+        """Drive both pools to completion over `requests` — the contract
+        of ServingEngine.run (future arrivals, on_token streaming,
+        {id: RequestResult})."""
+        pre, dec = self.prefill, self.decode
+        ps = self.config.page_size
+        for r in requests:
+            need = Scheduler.pages_needed(r, ps)
+            if need > dec.page_allocator.usable:
+                raise ValueError(
+                    f"request {r.id}: worst-case span needs {need} KV "
+                    f"pages but the decode pool has "
+                    f"{dec.page_allocator.usable} usable")
+            pneed = Scheduler.prompt_pages_needed(r, ps)
+            if pneed > pre.page_allocator.usable:
+                raise ValueError(
+                    f"request {r.id}: prompt span needs {pneed} KV pages "
+                    f"but the prefill pool has "
+                    f"{pre.page_allocator.usable} usable")
+            pre.scheduler.submit(r)
+            if self.tracer is not None:
+                rt = self.tracer.begin_request(
+                    r.id, t0=r.arrival, prompt_len=len(r.prompt),
+                    max_new_tokens=r.max_new_tokens, disagg=True)
+                if rt is not None:
+                    # no front door queue: admission starts at arrival
+                    rt.begin_hop("serve.admission", r.arrival)
+        t0 = time.perf_counter()
+        now_fn = lambda: time.perf_counter() - t0   # noqa: E731
+        # both pools stamp trace hops on the SAME run clock, so a
+        # request's prefill/handoff/decode hops stay contiguous across
+        # the pool boundary
+        pre._trace_now = dec._trace_now = now_fn
+        if self.tracer is not None:
+            dec._session_span = self.tracer.begin_session(
+                now_fn(), slots=dec.config.slots, pool="decode")
+        results: Dict[int, RequestResult] = {}
+        pending = None
+
+        def retire(finished: List[RequestState]) -> None:
+            for st in finished:
+                dec._retire_state(st, results)
+
+        while not (pre.scheduler.idle and not self._handoff_q
+                   and dec.scheduler.idle and pending is None):
+            now = now_fn()
+            # per-pool deadline sweeps plus the handoff queue (a request
+            # parked between pools holds prefill-side pages)
+            pre._sweep_timeouts(now, results)
+            dec._sweep_timeouts(now, results)
+            self._sweep_handoff_timeouts(now, results)
+            with span("serve.schedule"):
+                pre._note_admissions(
+                    pre.scheduler.admit(pre.slots.free, now,
+                                        allocator=pre.page_allocator))
+            for eng, qdepth in ((pre, len(pre.scheduler.queue)),
+                                (dec, len(self._handoff_q))):
+                eng.occupancy_peak = max(eng.occupancy_peak,
+                                         eng.slots.occupied)
+                eng.pages_in_use_peak = max(eng.pages_in_use_peak,
+                                            eng.page_allocator.in_use)
+                if eng.telemetry is not None:
+                    # the decode pool's "queue" is the handoff queue —
+                    # prompts prefilled but not yet installed
+                    eng.telemetry.queue_depth.set(qdepth)
+                    eng.telemetry.slot_occupancy.set(eng.slots.occupied)
+                    eng.telemetry.pages_in_use.set(
+                        eng.page_allocator.in_use)
+                    eng.telemetry.pages_cached.set(
+                        eng.page_allocator.cached_pages)
+            if (pre.slots.occupied == 0 and not self._handoff_q
+                    and dec.slots.occupied == 0 and pending is None):
+                nxt = pre.scheduler.next_arrival()
+                if nxt is not None and nxt > now_fn():
+                    time.sleep(min(nxt - now_fn(), 0.05))
+                continue
+            lead = pre.scheduler.next_prefill()
+            if lead is not None:
+                pre._run_prefill_batched(lead)
+            self._handoff_q.extend(pre.take_prefilled())
+            self._drain_handoffs(now_fn)
+            planned = {}
+            if (dec.config.speculative is not None
+                    and dec.scheduler.decoding()):
+                # the decode pool verifies; drafting reads host history,
+                # so the step in flight is synced first
+                if pending is not None:
+                    retire(dec._sync_decode_step(pending, now_fn, on_token))
+                    pending = None
+                planned = dec._plan_drafts()
+            if planned:
+                retire(dec._spec_step(planned, now_fn, on_token))
+                new_pending = None
+            else:
+                new_pending = (dec._dispatch_decode_step()
+                               if dec.scheduler.decoding() else None)
+            if pending is not None:
+                retire(dec._sync_decode_step(pending, now_fn, on_token))
+                pending = None
+            if self.config.async_decode:
+                pending = new_pending
+            elif new_pending is not None:
+                retire(dec._sync_decode_step(new_pending, now_fn, on_token))
+        for eng in (pre, dec):
+            if eng.telemetry is not None:
+                counts = eng.compile_counts()
+                eng.telemetry.step_compiles.set(counts["step"])
+                eng.telemetry.prefill_compiles.set(counts["prefill"])
+                eng.telemetry.queue_depth.set(0)
+                eng.telemetry.slot_occupancy.set(eng.slots.occupied)
+        if dec._session_span is not None:
+            dec._session_span.end(now_fn())
+            dec._session_span = None
+        pre._trace_now = dec._trace_now = None
+        return results
+
+
+__all__ = ["DecodeEngine", "DisaggEngine", "EngineConfig", "PrefillEngine",
+           "RequestResult", "SAMPLE_POOL", "ServingEngine", "disagg_devices",
            "propose_ngram", "sample_slots"]

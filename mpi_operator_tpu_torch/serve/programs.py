@@ -144,6 +144,7 @@ class Staging:
     buffers grow to the largest program's inputs at its first upload."""
 
     def __init__(self, device: torch.device):
+        self.device = device
         self.host: List[torch.Tensor] = []
         self.events = ([torch.cuda.Event(), torch.cuda.Event()]
                        if device.type == "cuda" else None)
@@ -167,7 +168,8 @@ class Staging:
         program.pack(host.numpy(), values)
         program.buffer.copy_(host, non_blocking=True)
         if self.events is not None:
-            self.events[i].record()
+            # the copy's stream: the program's card, not the current one
+            self.events[i].record(torch.cuda.current_stream(self.device))
 
 
 __all__ = ["Input", "Program", "Staging"]

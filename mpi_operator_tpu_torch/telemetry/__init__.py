@@ -11,7 +11,8 @@ from .spans import span
 from .trace import (RequestTrace, SessionSpan, Tracer, build_trees,
                     hop_percentiles, hop_spans, orphan_spans,
                     read_trace_spans, render_tree, trace_sum_gap)
-from .worker import ServeTelemetry, TrainTelemetry, WorkerTelemetry
+from .worker import (RouterTelemetry, ServeTelemetry, TrainTelemetry,
+                     WorkerTelemetry)
 
 __all__ = [
     "Counter", "Gauge", "Histogram", "Registry",
@@ -23,5 +24,5 @@ __all__ = [
     "RequestTrace", "SessionSpan", "Tracer", "build_trees",
     "hop_percentiles", "hop_spans", "orphan_spans", "read_trace_spans",
     "render_tree", "trace_sum_gap",
-    "ServeTelemetry", "TrainTelemetry", "WorkerTelemetry",
+    "RouterTelemetry", "ServeTelemetry", "TrainTelemetry", "WorkerTelemetry",
 ]

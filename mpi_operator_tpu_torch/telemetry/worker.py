@@ -87,7 +87,24 @@ Disaggregated serving creates one ServeTelemetry per pool with
 bundle-per-label-set pattern as the fused trainer — so every serve
 series above federates per pool (tpu_job_queue_depth{pool="decode"}).
 
-The router's series (RouterTelemetry) come with the port's fleet slice.
+Router series (serve/router.py front door, prefixed ``tpu_router_``;
+the collector federates these into ``tpu_job_router_*``):
+  dispatch_total            counter   — requests dispatched, one series
+                                        per replica ({replica="N"})
+  shed_total                counter   — requests rejected at the front
+                                        door (every replica at its
+                                        in-flight cap)
+  requests_total            counter   — requests completed through the
+                                        router (sheds excluded)
+  resubmits_total           counter   — in-flight requests replayed to
+                                        survivors after a replica death
+  replica_deaths_total      counter   — replicas marked dead from
+                                        failed dispatches
+  affinity_hit_pages_total  counter   — prompt pages predicted warm on
+                                        the chosen replica at dispatch
+  affinity_miss_pages_total counter   — prompt pages predicted cold
+  queue_wait_seconds        histogram — arrival → dispatch wait at the
+                                        front door
 """
 from __future__ import annotations
 
@@ -349,6 +366,117 @@ class ServeTelemetry:
             lo=1.0, hi=64.0, labels=labels)
 
 
+class RouterTelemetry:
+    """Serving-router (front door) instruments over a shared registry.
+
+    Per-replica dispatch counters follow the bundle-per-label-set
+    pattern lazily: ``dispatch_for(i)`` creates the ``{replica="i"}``
+    series on first use, so the bundle needs no up-front fleet size
+    (failover can retarget a shrunken fleet without dead series).
+
+    Push-based load reports land here too: ``note_heartbeat(i, ...)``
+    stores the newest report per replica (``heartbeat(i)`` reads it
+    back — the router's dispatch scoring prefers a fresh report over
+    probing engine state) and mirrors it into lazy
+    ``tpu_router_replica_{queue_depth,free_slots,free_pages}{replica=}``
+    gauges so a scrape sees the same picture the router routes on."""
+
+    def __init__(self, registry: Optional[Registry] = None,
+                 labels: Optional[Dict[str, str]] = None):
+        reg = registry if registry is not None else Registry()
+        self.registry = reg
+        self.labels = dict(labels) if labels else None
+        labels = self.labels
+        self.shed_total = reg.counter(
+            "tpu_router_shed_total",
+            "requests rejected at the front door (fleet saturated)",
+            labels=labels)
+        self.requests_total = reg.counter(
+            "tpu_router_requests_total",
+            "requests completed through the router (sheds excluded)",
+            labels=labels)
+        self.resubmits_total = reg.counter(
+            "tpu_router_resubmits_total",
+            "in-flight requests replayed to survivors after a replica "
+            "death", labels=labels)
+        self.replica_deaths = reg.counter(
+            "tpu_router_replica_deaths_total",
+            "replicas marked dead from failed dispatches", labels=labels)
+        self.affinity_hit_pages = reg.counter(
+            "tpu_router_affinity_hit_pages_total",
+            "prompt pages predicted warm on the chosen replica at "
+            "dispatch", labels=labels)
+        self.affinity_miss_pages = reg.counter(
+            "tpu_router_affinity_miss_pages_total",
+            "prompt pages predicted cold at dispatch", labels=labels)
+        self.queue_wait_seconds = reg.histogram(
+            "tpu_router_queue_wait_seconds",
+            "arrival to dispatch wait at the front door",
+            lo=1e-5, hi=1e3, labels=labels)
+        self.attach_total = reg.counter(
+            "tpu_router_attach_total",
+            "replicas joined live (scale-up steps, no gang restart)",
+            labels=labels)
+        self.detach_total = reg.counter(
+            "tpu_router_detach_total",
+            "replicas drained and detached live (scale-down steps)",
+            labels=labels)
+        self._dispatch: Dict[int, object] = {}
+        self._heartbeats: Dict[int, Dict[str, float]] = {}
+        self._hb_gauges: Dict[int, tuple] = {}
+
+    def dispatch_for(self, replica: int):
+        """The ``tpu_router_dispatch_total{replica="N"}`` counter,
+        created on first use."""
+        c = self._dispatch.get(replica)
+        if c is None:
+            merged = dict(self.labels or {})
+            merged["replica"] = str(replica)
+            c = self.registry.counter(
+                "tpu_router_dispatch_total",
+                "requests dispatched to this replica", labels=merged)
+            self._dispatch[replica] = c
+        return c
+
+    def note_heartbeat(self, replica: int, now: float, queue_depth: int,
+                       free_slots: int, free_pages: int) -> None:
+        """Record one replica load report (engine heartbeat). `now` is
+        SESSION time — staleness is judged on the same clock the router
+        runs on, so wall-clock skew can never mark a fresh report
+        stale."""
+        self._heartbeats[replica] = {
+            "now": float(now), "queue_depth": float(queue_depth),
+            "free_slots": float(free_slots),
+            "free_pages": float(free_pages)}
+        gauges = self._hb_gauges.get(replica)
+        if gauges is None:
+            merged = dict(self.labels or {})
+            merged["replica"] = str(replica)
+            gauges = (
+                self.registry.gauge(
+                    "tpu_router_replica_queue_depth",
+                    "queue depth last reported by this replica's "
+                    "heartbeat", labels=merged),
+                self.registry.gauge(
+                    "tpu_router_replica_free_slots",
+                    "free slots last reported by this replica's "
+                    "heartbeat", labels=merged),
+                self.registry.gauge(
+                    "tpu_router_replica_free_pages",
+                    "free+evictable KV pages last reported by this "
+                    "replica's heartbeat", labels=merged))
+            self._hb_gauges[replica] = gauges
+        gauges[0].set(queue_depth)
+        gauges[1].set(free_slots)
+        gauges[2].set(free_pages)
+
+    def heartbeat(self, replica: int) -> Optional[Dict[str, float]]:
+        """The newest load report for one replica (None before the
+        first beat). The caller judges freshness against its own
+        staleness threshold."""
+        return self._heartbeats.get(replica)
+
+
 class WorkerTelemetry:
     """One per worker process: shared registry + lazy train/serve bundles
     + optional /metrics server + optional event log. Both hot loops feed
@@ -447,4 +575,5 @@ class WorkerTelemetry:
             self.events.close()
 
 
-__all__ = ["ServeTelemetry", "TrainTelemetry", "WorkerTelemetry"]
+__all__ = ["RouterTelemetry", "ServeTelemetry", "TrainTelemetry",
+           "WorkerTelemetry"]

@@ -19,6 +19,10 @@ from mpi_operator_tpu_torch.serve import ServingEngine
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "mpi_operator_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "mpi_operator_tpu")
+#: the serving fleet's own modules (ROADMAP step 9)
+FLEET_MODULES = ("mpi_operator_tpu_torch.serve.transfer",
+                 "mpi_operator_tpu_torch.serve.router",
+                 "mpi_operator_tpu_torch.telemetry.collector")
 
 
 def _forbidden(name: str) -> bool:
@@ -46,7 +50,8 @@ def test_importing_the_port_loads_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
-    assert "mpi_operator_tpu_torch.serve.engine" in loaded
+    for m in FLEET_MODULES + ("mpi_operator_tpu_torch.serve.engine",):
+        assert m in loaded, m
     assert not [m for m in loaded if _forbidden(m)]
 
 
@@ -66,6 +71,8 @@ def test_no_source_of_the_port_imports_jax():
             bad += [f"{f.relative_to(ROOT)}:{node.lineno} {n}"
                     for n in names if _forbidden(n)]
     assert len(files) > 10
+    for m in FLEET_MODULES:
+        assert ROOT / (m.replace(".", "/") + ".py") in files, m
     assert not bad, bad
 
 
@@ -85,3 +92,21 @@ def test_entry_points_refuse_to_run_without_a_card(monkeypatch):
     # the explicit opt-in works
     out = generate(model, np.zeros((1, 4), np.int64), 2, device="cpu")
     assert out.tokens.shape == (1, 6)
+
+
+def test_fleet_entry_points_refuse_to_run_without_a_card(monkeypatch):
+    """DisaggEngine and the fleet legs of the serving benchmark run on
+    the card unless asked for the CPU: without a card they raise."""
+    from mpi_operator_tpu_torch.examples import serve_benchmark as sb
+    from mpi_operator_tpu_torch.serve import DisaggEngine, EngineConfig
+    model = create_lm("gpt2-test", device="cpu", vocab_size=64, max_len=32)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DisaggEngine(model, EngineConfig(paged=True, page_size=8))
+    for leg in ("disagg", "router", "livescale"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            getattr(sb, f"run_{leg}_benchmark")(size="test")
+    disagg = DisaggEngine(model, EngineConfig(paged=True, page_size=8,
+                                              chunk_buckets=(8, 16)),
+                          devices=("cpu", "cpu"))
+    assert disagg.devices == (torch.device("cpu"),) * 2

@@ -183,3 +183,150 @@ def test_cache_length_rounds_as_the_reference():
     assert sb.serving_max_len((32, 64, 128), (32, 64), 128, True, 64) == 384
     assert sb.serving_max_len((8, 16, 24), (16, 32), 16, True, 16) == 80
     assert sb.serving_max_len((4,), (3,)) == 7
+
+
+FLEET = dict(size="test", slots=2, dtype_name="float32", page_size=8,
+             num_requests=4, new_grid=(3,))
+# one replica a fleet (the keys do not depend on the count; each JAX
+# engine compiles its own programs, which is most of these tests' time)
+TENANTS = dict(prompt_grid=(8,), chunk_buckets=(8, 32), shared_prefix_len=16,
+               num_tenants=2, arrival_gap=0.05, replicas=1)
+FLEET_LEGS = {
+    "disagg": dict(prompt_grid=(8, 24), chunk_buckets=(8, 16)),
+    "router": TENANTS,
+    "livescale": dict(TENANTS, scale_up_at=0.1, scale_down_at=0.2),
+}
+#: the port's additions to the fleet legs' reports
+FLEET_PORT_ONLY = {
+    "disagg": {"disagg_capture_counts", "disagg_transfer_widths",
+               "disagg_transfer_width_cap", "disagg_kv_handoff_ops_a_move",
+               "disagg_kv_page_bytes", "disagg_arm_launches",
+               "disagg_arm_decode_steps", "disagg_devices",
+               "disagg_kv_handoff_cached_pages", "disagg_pages_in_use_after",
+               "disagg_trace_max_gap_ms"},
+    "router": {"router_arm_launches", "router_arm_decode_steps",
+               "router_device", "router_noaffinity_tokens_per_sec",
+               "router_single_tokens_per_sec", "router_single_wall_seconds",
+               "router_single_ttft_p50_ms", "router_single_ttft_p99_ms",
+               "router_single_tpot_p50_ms", "router_single_tpot_p99_ms",
+               "router_single_token_identical", "router_pages_in_use_after",
+               "router_token_divergences", "router_dead_replicas"},
+    "livescale": {"livescale_arm_launches", "livescale_arm_decode_steps",
+                  "livescale_device", "livescale_pages_in_use_after",
+                  "livescale_token_divergences", "livescale_dead_replicas"},
+}
+
+
+@pytest.mark.parametrize("leg", sorted(FLEET_LEGS))
+def test_fleet_legs_report_the_jax_keys(leg):
+    """Each fleet leg reports the JAX leg's keys (the hop fields of its
+    traces included) plus the port's own, and holds its gates that do
+    not rest on wall time on the CPU: tokens identical to the oracle,
+    pins held, traces complete, no request dropped, no replica lost to
+    failover; each arm ran decode steps (the CPU launches no kernel)."""
+    from mpi_operator_tpu.examples import serve_benchmark as jsb
+    ours = getattr(sb, f"run_{leg}_benchmark")(
+        **FLEET, **FLEET_LEGS[leg], device="cpu", log=lambda s: None)
+    theirs = getattr(jsb, f"run_{leg}_benchmark")(
+        **FLEET, **FLEET_LEGS[leg], log=lambda s: None)
+    assert set(ours) - FLEET_PORT_ONLY[leg] == set(theirs)
+    assert FLEET_PORT_ONLY[leg] <= set(ours)
+    steps = ours[f"{leg}_arm_decode_steps"]
+    assert steps and all(n > 0 for n in steps.values())
+    assert all(sum(v.values()) == 0
+               for v in ours[f"{leg}_arm_launches"].values())
+    assert ours[f"{leg}_pages_in_use_after"] == 0
+    if leg == "disagg":
+        for key in ("disagg_token_identical", "disagg_pool_pins_held",
+                    "disagg_trace_complete"):
+            assert ours[key] is True, key
+        assert ours["disagg_devices"] == ["cpu", "cpu"]
+        assert ours["disagg_two_devices"] is False
+        assert (ours["disagg_kv_handoff_pages_total"]
+                == theirs["disagg_kv_handoff_pages_total"]
+                == ours["disagg_trace_handoff_pages"] > 0)
+        assert ours["disagg_transfer_widths"] <= \
+            ours["disagg_transfer_width_cap"]
+        assert ours["disagg_kv_handoff_ops_a_move"] == 2 * 2 * 2  # 2 layers
+    elif leg == "router":
+        # (whether the late recovery wave finds the burst drained is a
+        # matter of time, which a loaded CPU does not keep: chip_smoke
+        # holds it on the card)
+        for key in ("router_token_identical", "router_compile_pins_held",
+                    "router_trace_complete", "router_single_token_identical"):
+            assert ours[key] is True, key
+        assert ours["router_shed_low_load"] == 0
+        assert ours["router_burst_sheds"] == theirs["router_burst_sheds"] > 0
+        assert ours["router_burst_recovered"] == 1
+        assert ours["router_token_divergences"] == []
+        assert ours["router_dead_replicas"] == {
+            "affinity": [], "noaffinity": [], "burst": []}
+    else:
+        # (the ledger against the restart compares wall times: chip_smoke
+        # holds it on the card)
+        for key in ("livescale_token_identical",
+                    "livescale_gang_token_identical",
+                    "livescale_compile_pins_held",
+                    "livescale_trace_complete"):
+            assert ours[key] is True, key
+        assert ours["livescale_ledger_total_seconds"] > 0
+        assert ours["livescale_dropped"] == ours["livescale_sheds"] == 0
+        assert ours["livescale_detached_replicas"] == [0]
+        assert ours["livescale_attaches"] == ours["livescale_detaches"] == 1
+        assert ours["livescale_token_divergences"] == []
+        assert ours["livescale_dead_replicas"] == {"live": [], "gang": []}
+
+
+def test_fleet_cli_prints_the_leg(capsys):
+    """`--livescale` (as `--router` and `--disagg`) runs its leg and
+    prints one JSON record headed by the leg's tokens/s."""
+    assert sb.main(["--livescale", "--size", "test", "--device", "cpu",
+                    "--dtype", "float32", "--slots", "2", "--page-size", "8",
+                    "--num-requests", "4", "--shared-prefix-len", "16",
+                    "--scale-up-at", "0.1", "--scale-down-at", "0.2"]) == 0
+    rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rec["metric"] == "livescale_tokens_per_sec"
+    assert rec["livescale_dropped"] == 0
+    assert rec["livescale_token_identical"] is True
+
+
+def test_divergences_name_the_first_token_and_its_margins():
+    """The fleet legs' `*_token_divergences`: a request whose arm tokens
+    leave the oracle's at index i reports i and the dense path's margins
+    there (the oracle's greedy token its argmax: want_gap 0); a request
+    that matches reports nothing; one missing from the arm reports index
+    None."""
+    import types
+    import torch
+    from mpi_operator_tpu_torch.models import create_lm
+    from mpi_operator_tpu_torch.serve import Request
+    model = create_lm("gpt2-test", device="cpu", vocab_size=64, max_len=32,
+                      seed=0)
+    rs = np.random.RandomState(0)
+    trace = [Request(i, rs.randint(0, 64, (6,)).tolist(), 3)
+             for i in range(3)]
+
+    def logp_after(seq):
+        with torch.no_grad():
+            logits = model(torch.tensor([seq]), cache=model.new_cache(1))
+        return torch.log_softmax(logits[0, -1].float(), -1)
+
+    oracle = {}
+    for r in trace:
+        seq = list(r.prompt)
+        for _ in range(3):
+            seq.append(int(logp_after(seq).argmax()))
+        oracle[r.id] = seq[len(r.prompt):]
+    swapped = list(oracle[1])
+    swapped[1] = (swapped[1] + 1) % 64
+    arm = {0: types.SimpleNamespace(tokens=list(oracle[0])),
+           1: types.SimpleNamespace(tokens=swapped)}
+    div = sb._divergences(model, trace, oracle, {"a": arm})
+    assert [(d["arm"], d["request"], d["index"]) for d in div] == [
+        ("a", 1, 1), ("a", 2, None)]
+    d = div[0]
+    logp = logp_after(trace[1].prompt + oracle[1][:1])
+    assert d["want_gap"] == pytest.approx(0.0, abs=1e-5)
+    assert d["gap"] == pytest.approx(
+        float(logp.max() - logp[swapped[1]]), abs=1e-5)
+    assert 0.0 <= d["margin"] <= d["gap"] + 1e-6
