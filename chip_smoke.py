@@ -286,10 +286,36 @@ Phases, each of which fails the run (non-zero exit, no result line):
    total under the gang restart's, every page back. Each prints its
    numbers with the card's name and power limit.
 
+24. (Run after 22.) The operator ([operator]): the port's
+   TPUJobController on its GPU defaults (nvidia.com/gpu, 8 a worker)
+   over the in-memory API server, through the threaded run loop, with
+   LocalKubelet playing the node: one process a pod, the rendered env,
+   TPU_WORKER_ID for the missing pod hostname, the coordinator at
+   127.0.0.1, a pod-private /tmp and ConfigMap volume,
+   CUDA_VISIBLE_DEVICES the first as many of the run's own cards as the
+   nvidia.com/gpu limit (the phase fails if the run sees fewer; none
+   for the launcher), the rendered exec probe setting ready_replicas,
+   crash-loop restarts, the launcher's exit code into the Job's status.
+   Two planted faults at once: a worker that exits non-zero (an unknown
+   --size) must end Failed with the launcher mirroring its code, and a
+   worker told to expect 2 cards on a pod that sees one must never be
+   Ready nor get a launcher (held 10 s after its first exit). Then the
+   job a user submits: processingUnits 1, processingUnitsPerWorker 1,
+   nvidia.com/gpu, restart policy Never, whose pod runs the LM CLI's
+   main() (`--workload vit --size b16`, 256 x 224^2, 2 + 150 steps) and
+   reports the steps run and the launch counts: the worker set's limits
+   {nvidia.com/gpu: 1} with no TPU selector, the gate's env and probe,
+   no launcher before the marker, worker and launcher exit 0, Succeeded,
+   workers scaled to 0, rank 0's throughput line, K1-K3 12 x the steps
+   run (the decode kernels 0). Prints images/s, the seconds from submit
+   to the worker set, worker start to Ready, Ready to the launcher and
+   the launcher to Succeeded, with the card's name and power limit.
+
 The line before the last is {"kernels": [...]}: K4, K5 and K1-K3 (at
 the gpt2 training shape, with a `vit_b16` entry each: launches in
 [train-vit] and the timing row at ViT-B/16's shape; and an
-`lm_gang_of_one` entry: launches in [train-lm-ddp]'s gang of one); K5's
+`lm_gang_of_one` entry: launches in [train-lm-ddp]'s gang of one; and an
+`operator` entry: launches in the [operator] job's worker); K5's
 entry adds `disagg`, `router` and `livescale`: its launches in each
 fleet phase. The last line is {"ok": true, "device": {...}}.
 """
@@ -301,6 +327,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -3147,6 +3174,474 @@ def generate_phase(ops):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# [operator]: the control plane in GPU mode, with a local kubelet
+# ---------------------------------------------------------------------------
+
+# the operator's job: ViT-B/16 at full width (12 layers, 224^2, S = 197
+# through K1-K3), 256 images a step, one card. Rank 0 serves "done" for
+# 10 s after its run (bootstrap.StatusServer.set_done) and the launcher
+# starts only once the worker is Ready; on the card a pod takes ~20 s
+# from its start to its first poll, so the run lasts 2 + 150 steps
+# (~25 s) and the launcher polls well before the end, as it does for a
+# real job
+OPERATOR_ARGS = ("--workload", "vit", "--size", "b16", "--image-size", "224",
+                 "--batch-per-device", "256", "--warmup-steps", "2",
+                 "--num-steps", "150")
+OPERATOR_LAYERS = 12
+# the pod's command: the CLI's main() as a worker image runs it, then the
+# steps the trainer ran and the kernels' launch counts on one line
+POD_MAIN = """\
+import json, sys
+from mpi_operator_tpu_torch.examples import lm_benchmark as bench
+from mpi_operator_tpu_torch.ops import attention as ops
+steps = []
+run = bench.run_vit_benchmark
+def counted(**kw):
+    state, metrics = run(**kw)
+    steps.append(int(state.step))
+    return state, metrics
+bench.run_vit_benchmark = counted
+ops.reset_launch_counts()
+rc = bench.main(sys.argv[1:])
+print("operator-pod " + json.dumps(
+    {"steps": steps, "launches": dict(ops.launch_counts)}), flush=True)
+sys.exit(rc)
+"""
+# kubelet's CrashLoopBackOff starts at 10 s; a pod its set no longer
+# wants gets a grace period to exit before it is killed
+CRASH_BACKOFF, STOP_GRACE = 10.0, 30.0
+
+
+@dataclasses.dataclass
+class LocalPod:
+    name: str
+    root: str                      # the pod's private filesystem
+    cmd: list
+    env: dict
+    probe: object = None
+    proc: object = None
+    attempts: int = 0
+    exit_codes: list = dataclasses.field(default_factory=list)
+    restart_at: float = 0.0
+    stop_at: float = None
+    ready: bool = False
+    probed_at: float = 0.0
+
+    def output(self) -> str:
+        with open(os.path.join(self.root, "output.log"), errors="replace") \
+                as f:
+            return f.read()
+
+
+class LocalKubelet:
+    """The node, for the pods the controller renders (chip_smoke only).
+
+    One process a pod, with the pod's rendered command and env. There is
+    no pod DNS here, so a worker gets TPU_WORKER_ID=<ordinal>, and each
+    job's coordinator address becomes 127.0.0.1 at a free port beside a
+    free TPU_STATUS_PORT. A pod's /tmp is a directory of its own (the
+    readiness marker lands there), and its ConfigMap volume is written
+    there. A worker sees as many cards as its nvidia.com/gpu limit, the
+    first of the cards this run was given (CUDA_VISIBLE_DEVICES, as
+    NVIDIA's device plugin sets it); the launcher sees none. The worker's exec readiness probe runs as
+    rendered, against the pod's /tmp, and sets the StatefulSet's
+    ready_replicas. A worker that exits non-zero restarts after the
+    crash-loop backoff while its set still wants it; one its set no
+    longer wants is given STOP_GRACE seconds to exit, then killed. The
+    launcher's exit code lands in the Job's status (0 succeeded, else
+    failed).
+    """
+
+    def __init__(self, api, namespace, root):
+        from mpi_operator_tpu_torch.cluster.apiserver import ConflictError
+        self.api, self.ns, self.root = api, namespace, root
+        self.conflict = ConflictError
+        self.pods = {}
+        self.ports = {}
+        self.log = []            # (time, pod, what)
+
+    def note(self, pod, what):
+        self.log.append((time.perf_counter(), pod, what))
+
+    def first(self, pod, what):
+        return next((t for t, p, w in self.log if p == pod and w == what),
+                    None)
+
+    def _update(self, kind, name, fn):
+        for _ in range(10):
+            obj = self.api.try_get(kind, self.ns, name)
+            if obj is None:
+                return None
+            fn(obj)
+            try:
+                return self.api.update(obj)
+            except self.conflict:
+                continue
+        raise RuntimeError(f"chip_smoke: {kind}/{name} kept conflicting")
+
+    @staticmethod
+    def _cards(pod, limit):
+        """The first `limit` cards of this run's own: the entries of its
+        CUDA_VISIBLE_DEVICES where it has one (indices or UUIDs), else the
+        indices of every card the run sees."""
+        import torch
+        mask = os.environ.get("CUDA_VISIBLE_DEVICES")
+        cards = ([d.strip() for d in mask.split(",") if d.strip()]
+                 if mask is not None
+                 else [str(i) for i in range(torch.cuda.device_count())])
+        if limit > len(cards):
+            raise RuntimeError(
+                f"chip_smoke: pod {pod} asks for {limit} card(s) and this "
+                f"run sees {len(cards)}")
+        return cards[:limit]
+
+    def _pod(self, name, job, template, launcher, ordinal=None):
+        from mpi_operator_tpu_torch.api.types import RESOURCE_GPU
+        root = os.path.join(self.root, name)
+        os.makedirs(root, exist_ok=True)
+        c = template.main_container()
+
+        def local(path):
+            return (os.path.join(root, "tmp", path[len("/tmp/"):])
+                    if path.startswith("/tmp/") else path)
+        env = {k: v for k, v in os.environ.items()
+               if not k.startswith(("TPU_", "MEGASCALE_"))}
+        env.update({k: str(v) for k, v in c.env.items()})
+        coord, status = self.ports.setdefault(job, (free_port(),
+                                                    free_port()))
+        env.update(TPU_COORDINATOR_ADDRESS=f"127.0.0.1:{coord}",
+                   TPU_STATUS_PORT=str(status),
+                   TMPDIR=os.path.join(root, "tmp"))
+        if "TPU_READY_FILE" in env:
+            env["TPU_READY_FILE"] = local(env["TPU_READY_FILE"])
+        for mount in c.volume_mounts:
+            vol = next((v for v in template.volumes
+                        if v["name"] == mount["name"]), None)
+            cm = vol and self.api.try_get("ConfigMap", self.ns,
+                                          vol["configMap"])
+            if cm is not None:
+                mdir = os.path.join(root, "cm", mount["name"])
+                os.makedirs(mdir, exist_ok=True)
+                for key, value in cm.data.items():
+                    with open(os.path.join(mdir, key), "w") as f:
+                        f.write(value)
+                if env.get("TPU_CONFIG_PATH") == mount["mountPath"]:
+                    env["TPU_CONFIG_PATH"] = mdir
+        if launcher:
+            env["CUDA_VISIBLE_DEVICES"] = ""
+        else:
+            env["TPU_WORKER_ID"] = str(ordinal)
+            env["CUDA_VISIBLE_DEVICES"] = ",".join(
+                self._cards(name, int(c.limits.get(RESOURCE_GPU, 0))))
+        here = os.path.dirname(os.path.abspath(__file__))
+        env["PYTHONPATH"] = os.pathsep.join(
+            [here] + [p for p in os.environ.get("PYTHONPATH", "").split(
+                os.pathsep) if p])
+        cmd = list(c.command) + list(c.args)
+        if cmd and cmd[0] == "python":
+            cmd[0] = sys.executable
+        probe = None
+        if c.readiness_probe is not None:
+            probe = [" ".join(local(w) for w in a.split(" "))
+                     for a in c.readiness_probe["exec"]["command"]]
+        return LocalPod(name, root, cmd, env, probe)
+
+    def _start(self, pod):
+        pod.attempts += 1
+        pod.ready = False
+        # a container starts on a fresh filesystem: no marker survives
+        # a restart
+        tmp = os.path.join(pod.root, "tmp")
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.makedirs(tmp)
+        log_file = open(os.path.join(pod.root, "output.log"), "a")
+        pod.proc = subprocess.Popen(pod.cmd, env=pod.env, cwd=pod.root,
+                                    stdout=log_file,
+                                    stderr=subprocess.STDOUT)
+        log_file.close()
+        self.note(pod.name, f"start {pod.attempts}")
+
+    def _kill(self, pod):
+        if pod.proc is not None and pod.proc.poll() is None:
+            pod.proc.kill()
+            pod.proc.wait()
+            self.note(pod.name, "killed")
+
+    def stop_all(self):
+        for pod in self.pods.values():
+            self._kill(pod)
+
+    def step(self):
+        now = time.perf_counter()
+        for pod in self.pods.values():
+            code = pod.proc.poll()
+            if code is not None and len(pod.exit_codes) < pod.attempts:
+                pod.exit_codes.append(code)
+                pod.ready = False
+                pod.restart_at = now + CRASH_BACKOFF * 2 ** min(
+                    pod.attempts - 1, 5)
+                self.note(pod.name, f"exit {code}")
+        wanted = set()
+        for sts in self.api.list("StatefulSet", self.ns):
+            job = sts.metadata.labels.get("tpu_job_name")
+            for i in range(sts.spec.replicas or 0):
+                name = f"{sts.metadata.name}-{i}"
+                wanted.add(name)
+                pod = self.pods.get(name)
+                if pod is None:
+                    pod = self.pods[name] = self._pod(
+                        name, job, sts.spec.template, False, i)
+                    self._start(pod)
+                code = pod.proc.poll()
+                if code not in (None, 0) and now >= pod.restart_at:
+                    self._start(pod)
+                if (pod.proc.poll() is None and pod.probe is not None
+                        and now - pod.probed_at >= 0.2):
+                    pod.probed_at = now
+                    ok = subprocess.run(pod.probe).returncode == 0
+                    if ok and not pod.ready:
+                        self.note(name, "ready")
+                    pod.ready = ok
+            ready = sum(self.pods[n].ready for n in wanted
+                        if n.startswith(sts.metadata.name + "-"))
+            if (sts.status.ready_replicas != ready
+                    or sts.status.replicas != sts.spec.replicas):
+                def mark(s, ready=ready):
+                    s.status.ready_replicas = ready
+                    s.status.replicas = s.spec.replicas
+                self._update("StatefulSet", sts.metadata.name, mark)
+                self.note(sts.metadata.name, f"ready_replicas {ready}")
+        for launcher in self.api.list("Job", self.ns):
+            name = launcher.metadata.name
+            wanted.add(name)
+            pod = self.pods.get(name)
+            if pod is None:
+                pod = self.pods[name] = self._pod(
+                    name, launcher.metadata.labels.get("tpu_job_name"),
+                    launcher.spec.template, True)
+                self._start(pod)
+
+                def active(j):
+                    j.status.active = 1
+                    j.status.start_time = time.time()
+                self._update("Job", name, active)
+            if (self.first(name, "polling") is None
+                    and "launcher: waiting on rank-0" in pod.output()):
+                self.note(name, "polling")
+            if pod.exit_codes and not (launcher.status.succeeded
+                                       or launcher.status.failed):
+                def finished(j, code=pod.exit_codes[0]):
+                    j.status.active = 0
+                    j.status.succeeded = int(code == 0)
+                    j.status.failed = int(code != 0)
+                    j.status.completion_time = time.time()
+                self._update("Job", name, finished)
+        for name, pod in self.pods.items():
+            if name in wanted or pod.proc.poll() is not None:
+                continue
+            if pod.stop_at is None:
+                pod.stop_at = now + STOP_GRACE
+                self.note(name, "stopping")
+            elif now >= pod.stop_at:
+                self._kill(pod)
+
+
+def wait_until(step, pred, what, timeout):
+    """Call step() until pred() holds; fail after `timeout` s."""
+    deadline = time.perf_counter() + timeout
+    while time.perf_counter() < deadline:
+        step()
+        got = pred()
+        if got:
+            return got
+        time.sleep(0.05)
+    raise RuntimeError(f"chip_smoke: [operator] {what} within {timeout} s")
+
+
+def operator_job(name, args, env=None):
+    """One nvidia.com/gpu TPUJob as a user submits it: processingUnits
+    1, one a worker, restart policy Never, the pod command above."""
+    from mpi_operator_tpu_torch.api.types import RESOURCE_GPU, new_tpu_job
+    job = new_tpu_job(name, processing_units=1, processing_units_per_worker=1,
+                      processing_resource_type=RESOURCE_GPU,
+                      restart_policy="Never")
+    c = job.spec.template.main_container()
+    c.image = "tpu-bench-torch:latest"
+    c.command = ["python", "-c", POD_MAIN]
+    c.args = list(args)
+    c.env = dict(env or {})
+    return job
+
+
+def condition(api, name, kind):
+    job = api.get("TPUJob", "default", name)
+    cond = job.status.get_condition(kind)
+    return cond is not None and cond.status == "True"
+
+
+def timeline(kubelet, t0):
+    """Each pod's kubelet events, in seconds from t0."""
+    pods = {}
+    for t, pod, what in kubelet.log:
+        pods.setdefault(pod, []).append(f"{what} @{t - t0:.1f}")
+    return pods
+
+
+def operator_phase():
+    """The port's TPUJobController on its GPU defaults over the
+    in-memory API server, through the threaded run loop, with
+    LocalKubelet as the node. Three jobs at once: a worker that exits
+    non-zero (an unknown --size) must end Failed with the launcher
+    mirroring its code; a worker told to expect 2 cards on a pod that
+    sees one must never become Ready nor get a launcher (checked at
+    every kubelet step, until 10 s after its first exit); and the job,
+    ViT-B/16 through K1-K3, must reach Succeeded with its worker set
+    scaled to 0, the gate held until the marker, and K1-K3 at 12 x the
+    steps the worker ran. Returns the job's numbers."""
+    import threading
+
+    from mpi_operator_tpu_torch.api.types import RESOURCE_GPU
+    from mpi_operator_tpu_torch.cluster.apiserver import InMemoryAPIServer
+    from mpi_operator_tpu_torch.controller import TPUJobController
+    gc.collect()
+    torch.cuda.empty_cache()
+    api = InMemoryAPIServer()
+    ctrl = TPUJobController(api)
+    check(ctrl.config.processing_resource_type == RESOURCE_GPU
+          and ctrl.config.processing_units_per_worker == 8,
+          f"the operator's defaults are {ctrl.config}")
+    stop = threading.Event()
+    ctrl.run(threadiness=2, stop_event=stop)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        kubelet = LocalKubelet(api, "default", tmp)
+
+        def step():
+            kubelet.step()
+            sts = api.try_get("StatefulSet", "default", "op-chips-worker")
+            check(api.try_get("Job", "default", "op-chips-launcher") is None
+                  and (sts is None or not sts.status.ready_replicas),
+                  "op-chips: a worker that sees 1 of 2 cards became Ready "
+                  "or got its launcher")
+            vit = api.try_get("Job", "default", "vit-launcher")
+            check(vit is None or kubelet.first("vit-worker-0", "ready")
+                  is not None, "the vit launcher Job existed before the "
+                  "worker's readiness marker")
+        t0 = time.perf_counter()
+        try:
+            args = list(OPERATOR_ARGS)
+            bad = list(args)
+            bad[bad.index("--size") + 1] = "no-such-size"
+            api.create(operator_job("vit", args))
+            api.create(operator_job("op-exit", bad))
+            api.create(operator_job("op-chips", args,
+                                    env={"TPU_EXPECTED_CHIPS": "2"}))
+            sts = wait_until(step, lambda: api.try_get(
+                "StatefulSet", "default", "vit-worker"), "worker set", 30)
+            t_sts = time.perf_counter()
+            c = sts.spec.template.main_container()
+            selectors = [k for k in sts.spec.template.node_selector
+                         if k.startswith("cloud.google.com/gke-tpu-")]
+            check(c.limits == {RESOURCE_GPU: 1} and not selectors,
+                  f"vit-worker limits {c.limits}, selectors {selectors}")
+            check(c.env.get("TPU_READY_FILE") == "/tmp/tpu-ready"
+                  and c.env.get("TPU_EXPECTED_CHIPS") == "1"
+                  and c.readiness_probe is not None
+                  and c.readiness_probe["exec"]["command"][-1]
+                  == "test -f /tmp/tpu-ready",
+                  f"vit-worker gate: env {c.env}, probe "
+                  f"{c.readiness_probe}")
+            wait_until(step, lambda: api.try_get(
+                "Job", "default", "vit-launcher"),
+                "the launcher after Ready", 300)
+            t_launcher = time.perf_counter()
+            wait_until(step, lambda: condition(api, "vit", "Succeeded"),
+                       "the job Succeeded", 300)
+            t_done = time.perf_counter()
+            wait_until(step, lambda: api.get(
+                "StatefulSet", "default", "vit-worker").spec.replicas == 0,
+                "workers scaled to 0", 30)
+            wait_until(step, lambda: condition(api, "op-exit", "Failed"),
+                       "the failing worker's job ended Failed", 300)
+            chips = wait_until(
+                step, lambda: kubelet.pods.get("op-chips-worker-0")
+                if kubelet.pods.get("op-chips-worker-0") is not None
+                and kubelet.pods["op-chips-worker-0"].exit_codes else None,
+                "the 2-card worker exited", 120)
+            held = kubelet.first("op-chips-worker-0", "exit 1")
+            wait_until(step, lambda: held is None or
+                       time.perf_counter() >= held + 10.0,
+                       "10 s after the 2-card worker's exit", 30)
+            worker = kubelet.pods["vit-worker-0"]
+            wait_until(step, lambda: worker.exit_codes,
+                       "the vit worker's exit", STOP_GRACE + 10)
+            launcher = kubelet.pods["vit-launcher"]
+            text = worker.output()
+            check(worker.exit_codes == [0] and launcher.exit_codes == [0],
+                  f"vit: worker exits {worker.exit_codes}, launcher "
+                  f"{launcher.exit_codes}: {text[-3000:]}\n"
+                  f"{launcher.output()[-2000:]}")
+            bad_worker = kubelet.pods["op-exit-worker-0"]
+            bad_launcher = kubelet.pods["op-exit-launcher"]
+            check(bad_worker.exit_codes and 0 not in bad_worker.exit_codes
+                  and bad_launcher.exit_codes == [bad_worker.exit_codes[0]]
+                  and "no-such-size" in bad_worker.output(),
+                  f"op-exit: worker exits {bad_worker.exit_codes}, launcher "
+                  f"{bad_launcher.exit_codes}: "
+                  f"{bad_worker.output()[-2000:]}")
+            check(0 not in chips.exit_codes and
+                  "enumerates 1 device(s) but the controller allocated 2"
+                  in chips.output(), f"op-chips exits {chips.exit_codes}: "
+                  f"{chips.output()[-2000:]}")
+            head = [json.loads(line) for line in text.splitlines()
+                    if line.startswith('{"metric": "vit_images_per_sec"')]
+            report = [json.loads(line.split(" ", 1)[1])
+                      for line in text.splitlines()
+                      if line.startswith("operator-pod ")]
+            check(len(head) == 1 and head[0]["value"] > 0
+                  and math.isfinite(head[0]["final_loss"]),
+                  f"vit: rank 0's throughput line {head}")
+            check(len(report) == 1 and len(report[0]["steps"]) == 1,
+                  f"vit: the pod's report {report}")
+            steps = report[0]["steps"][0]
+            counts = report[0]["launches"]
+            want = OPERATOR_LAYERS * steps
+            check(all(counts[k] == want for k in FLASH_KERNELS)
+                  and all(n == 0 for k, n in counts.items()
+                          if k not in FLASH_KERNELS),
+                  f"vit: launches {counts} over {steps} steps; K1-K3 "
+                  f"expected {want} each, the decode kernels 0")
+            ready = kubelet.first("vit-worker-0", "ready")
+            started = kubelet.first("vit-worker-0", "start 1")
+            polling = kubelet.first("vit-launcher", "polling")
+            out = dict(
+                images_per_sec=head[0]["value"], steps=steps,
+                launches={k: counts[k] for k in FLASH_KERNELS},
+                submit_to_worker_set_s=t_sts - t0,
+                worker_start_to_ready_s=ready - started,
+                ready_to_launcher_s=t_launcher - ready,
+                launcher_start_to_polling_s=(
+                    None if polling is None else
+                    polling - kubelet.first("vit-launcher", "start 1")),
+                launcher_to_succeeded_s=t_done - t_launcher,
+                job_s=t_done - t0, phase_s=time.perf_counter() - t0,
+                op_exit=dict(worker_exits=bad_worker.exit_codes,
+                             launcher_exits=bad_launcher.exit_codes),
+                op_chips=dict(worker_exits=chips.exit_codes),
+                card=device_line())
+            log(f"  operator: {json.dumps(out)}")
+        except Exception:
+            log(f"  operator timeline: {json.dumps(timeline(kubelet, t0))}")
+            raise
+        finally:
+            kubelet.stop_all()
+            stop.set()
+            ctrl.queue.shut_down()
+        log(f"  operator timeline: {json.dumps(timeline(kubelet, t0))}")
+    return out
+
+
 # the warp-specialised flash kernels: 384 threads at 168 registers fill
 # the register file, which setmaxnreg splits 40/232 between the producer
 # and the consumer warpgroups
@@ -3438,6 +3933,15 @@ def main() -> int:
         f"{RESUME_KILL}, resume; the CLI pair at 2 layers")
     train_resume_phase(ops)
     log(f"[train-resume] {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    log("[operator] the port's TPUJobController in GPU mode over the "
+        "in-memory API server, a local kubelet as the node: an "
+        "nvidia.com/gpu job (processingUnits 1) whose worker trains "
+        "ViT-B/16 through K1-K3, after two planted faults")
+    operator = operator_phase()
+    log(f"[operator] images/s {operator['images_per_sec']}, "
+        f"{time.perf_counter() - t0:.1f} s ({device_line()})")
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
 
     source = "mpi_operator_tpu_torch/ops/csrc/decode_attention.cu"
@@ -3456,7 +3960,8 @@ def main() -> int:
              **flash_rows["gpt2-medium"][name],
              vit_b16=dict(launches=vit_counts[name],
                           **flash_rows["vit-b16"][name]),
-             lm_gang_of_one=dict(launches=gang_counts[name]))
+             lm_gang_of_one=dict(launches=gang_counts[name]),
+             operator=dict(launches=operator["launches"][name]))
         for name, line in flash_lines.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

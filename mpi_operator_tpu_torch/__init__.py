@@ -1,7 +1,9 @@
-"""tpu-job-operator's data plane ported to PyTorch and CUDA (NVIDIA H100).
+"""tpu-job-operator ported to PyTorch and CUDA (NVIDIA H100).
 
-A package of its own beside the JAX reference (`mpi_operator_tpu`): it
-imports torch and never jax, flax or the reference package. Each module
+A package of its own beside the JAX reference (`mpi_operator_tpu`): its
+data plane imports torch and never jax, flax or the reference package;
+its control plane (api/, cluster/, controller/, `python -m
+mpi_operator_tpu_torch`) imports neither torch nor jax. Each module
 mirrors the reference module of the same path; each TPU kernel on a
 ported path is a kernel hand-written for Hopper (ops/csrc/), beside its
 plain PyTorch version.
@@ -20,7 +22,8 @@ data-parallel image training: ResNet (models/resnet.py) and ViT through
 the image Trainer (train/trainer.py) under DistributedDataParallel, the
 npy image shards (data/imagefolder.py, native/), the worker bootstrap
 on torch.distributed (bootstrap/) and the image benchmark
-(examples/benchmark.py).
+(examples/benchmark.py); and the operator in GPU mode, whose jobs ask
+for `nvidia.com/gpu` (controller/).
 Entry points run on the CUDA card unless the caller passes
 device="cpu".
 """

@@ -564,9 +564,10 @@ def main(argv=None) -> int:
                          f"(ROADMAP.md step 10e)")
 
     from ..bootstrap import initialize
-    from ..bootstrap.bootstrap import (ENV_LAUNCHER, ENV_NUM_PROCESSES,
-                                       StatusServer, launcher_wait,
-                                       status_port)
+    from ..bootstrap.bootstrap import (ENV_COORDINATOR, ENV_EXPECTED_CHIPS,
+                                       ENV_LAUNCHER, ENV_NUM_PROCESSES,
+                                       ENV_READY_FILE, StatusServer,
+                                       launcher_wait, status_port)
     from ..telemetry import EventLog
     from ..train.resilience import DivergenceError, Preempted
 
@@ -577,11 +578,17 @@ def main(argv=None) -> int:
         if args.train_dir else None)
     events = EventLog(ev_path) if ev_path else None
     procs = int(os.environ.get(ENV_NUM_PROCESSES, "1") or "1")
-    gang = procs > 1 or os.environ.get(ENV_LAUNCHER) == "1"
+    # under the controller's env contract even a one-process job
+    # bootstraps: device_check writes the readiness marker the gate waits
+    # on, and rank 0's status channel is what the launcher polls
+    managed = any(os.environ.get(k) for k in (
+        ENV_COORDINATOR, ENV_READY_FILE, ENV_EXPECTED_CHIPS))
+    gang = procs > 1 or os.environ.get(ENV_LAUNCHER) == "1" or managed
     info = initialize(events=events, device=args.device) if gang else None
     if info is not None and info.is_launcher:
         if events is not None:
             events.close()
+        print("launcher: waiting on rank-0 status channel", flush=True)
         return launcher_wait(info, port=status_port())
     coordinator = info is None or info.is_coordinator
     num_slices = info.num_slices if info is not None else 1

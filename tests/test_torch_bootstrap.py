@@ -24,6 +24,8 @@ from mpi_operator_tpu_torch.bootstrap import bootstrap as tbs
 from mpi_operator_tpu_torch.bootstrap.launch import launch
 from mpi_operator_tpu_torch.telemetry import events as tev
 
+torch.set_num_threads(1)   # six test processes share the CPU (xdist -n 6)
+
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 COORD = "job-worker-0.job-worker.default.svc:8476"
 

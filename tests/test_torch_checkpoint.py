@@ -27,6 +27,8 @@ from mpi_operator_tpu_torch.train.lm_trainer import (
     AdamWState, LMTrainer, LMTrainerConfig, LMTrainState)
 from mpi_operator_tpu_torch.train.resilience import corrupt_latest_checkpoint
 
+torch.set_num_threads(1)   # six test processes share the CPU (xdist -n 6)
+
 V, S, B = 64, 16, 2
 
 

@@ -33,6 +33,8 @@ from mpi_operator_tpu.utils.compat import shard_map
 from mpi_operator_tpu_torch.parallel import collectives as tcol
 from mpi_operator_tpu_torch.parallel import mesh as tmesh
 
+torch.set_num_threads(1)   # six test processes share the CPU (xdist -n 6)
+
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 RTOL = ATOL = 1e-6
 

@@ -30,6 +30,8 @@ from mpi_operator_tpu_torch.data.prefetch import PrefetchDataset
 from mpi_operator_tpu_torch.examples.lm_benchmark import run_lm_benchmark
 from mpi_operator_tpu_torch.utils.profiling import WindowProfiler
 
+torch.set_num_threads(1)   # six test processes share the CPU (xdist -n 6)
+
 
 # ---------------------------------------------------------------------------
 # PrefetchDataset (tests/test_prefetch.py, on the port's copy)

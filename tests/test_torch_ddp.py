@@ -22,6 +22,8 @@ import sys
 import numpy as np
 import torch
 
+torch.set_num_threads(1)   # six test processes share the CPU (xdist -n 6)
+
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT / "tests"))
 

@@ -23,6 +23,8 @@ from test_torch_kernels_cuda import poisoned_inputs as _inputs
 from mpi_operator_tpu.ops.attention import decode_attention as jax_decode
 from mpi_operator_tpu_torch.ops import attention as port
 
+torch.set_num_threads(1)   # six test processes share the CPU (xdist -n 6)
+
 
 def _dense_oracle(q, k, v, curs, ks=None, vs=None):
     """The dense decode oracle in float64 numpy: dequant, GQA repeat,

@@ -47,6 +47,8 @@ from mpi_operator_tpu_torch.serve.transfer import _bucket
 from mpi_operator_tpu_torch.telemetry import EventLog, Registry, read_events
 from mpi_operator_tpu_torch.telemetry import events as ev
 
+torch.set_num_threads(1)   # six test processes share the CPU (xdist -n 6)
+
 V, PS = 64, 8
 ECFG = dict(slots=4, chunk_buckets=(4, 8), paged=True, page_size=PS)
 

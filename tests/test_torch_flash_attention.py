@@ -22,6 +22,8 @@ import numpy as np
 import pytest
 import torch
 
+torch.set_num_threads(1)   # six test processes share the CPU (xdist -n 6)
+
 ja = importlib.import_module("mpi_operator_tpu.ops.attention")
 jt = importlib.import_module("mpi_operator_tpu.models.transformer")
 port = importlib.import_module("mpi_operator_tpu_torch.ops.attention")

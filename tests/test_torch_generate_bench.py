@@ -20,6 +20,8 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+torch.set_num_threads(1)   # six test processes share the CPU (xdist -n 6)
+
 jflops = importlib.import_module("mpi_operator_tpu.utils.flops")
 jt = importlib.import_module("mpi_operator_tpu.models.transformer")
 tflops = importlib.import_module("mpi_operator_tpu_torch.utils.flops")
@@ -130,6 +132,49 @@ def _free_port():
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         return s.getsockname()[1]
+
+
+def test_cli_one_process_under_the_env_contract_writes_the_marker(
+        tmp_path, monkeypatch, capsys):
+    """A one-worker job under the controller's env contract bootstraps
+    like a gang: initialize writes the readiness marker the gate waits on
+    (the launcher is created only after it), and rank 0 serves the status
+    channel a launcher polls for the exit code. A solo run without that
+    env writes nothing and needs no coordinator."""
+    import threading
+
+    from mpi_operator_tpu_torch.bootstrap.bootstrap import (ProcessInfo,
+                                                            launcher_wait)
+    marker = tmp_path / "ready"
+    coordinator, status = f"127.0.0.1:{_free_port()}", _free_port()
+    seen = []
+    launcher = threading.Thread(target=lambda: seen.append(launcher_wait(
+        ProcessInfo(coordinator, num_processes=1, process_id=0,
+                    is_launcher=True), port=status, poll_interval=0.1,
+        startup_timeout=120.0)), daemon=True)
+    launcher.start()
+    args = ["--workload", "vit", "--size", "test", "--image-size", "32",
+            "--batch-per-device", "2", "--num-steps", "2",
+            "--warmup-steps", "1", "--dtype", "float32", "--device", "cpu"]
+    for k in ("TPU_WORKER_ID", "TPU_LOCAL_RANK", "TPU_LAUNCHER",
+              "TPU_NUM_SLICES", "TPU_EXPECTED_CHIPS", "TPU_FAULT_INJECT"):
+        monkeypatch.delenv(k, raising=False)
+    monkeypatch.delenv("TPU_JOB_TOKEN", raising=False)
+    monkeypatch.setenv("TPU_COORDINATOR_ADDRESS", coordinator)
+    monkeypatch.setenv("TPU_NUM_PROCESSES", "1")
+    monkeypatch.setenv("TPU_STATUS_PORT", str(status))
+    monkeypatch.setenv("TPU_READY_FILE", str(marker))
+    assert bench.main(args) == 0
+    assert marker.read_text() == "ok\n"
+    launcher.join(timeout=30)
+    assert seen == [0]
+    assert '"metric": "vit_images_per_sec"' in capsys.readouterr().out
+    marker.unlink()
+    for k in ("TPU_COORDINATOR_ADDRESS", "TPU_NUM_PROCESSES",
+              "TPU_STATUS_PORT", "TPU_READY_FILE"):
+        monkeypatch.delenv(k)
+    assert bench.main(args) == 0
+    assert not marker.exists()
 
 
 @pytest.mark.parametrize("workload,extra", [

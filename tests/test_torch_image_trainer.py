@@ -21,6 +21,8 @@ import numpy as np
 import pytest
 import torch
 
+torch.set_num_threads(1)   # six test processes share the CPU (xdist -n 6)
+
 jres = importlib.import_module("mpi_operator_tpu.models.resnet")
 jtf = importlib.import_module("mpi_operator_tpu.models.transformer")
 jtr = importlib.import_module("mpi_operator_tpu.train.trainer")

@@ -16,6 +16,8 @@ import torch
 from mpi_operator_tpu_torch.models import create_lm, generate
 from mpi_operator_tpu_torch.serve import ServingEngine
 
+torch.set_num_threads(1)   # six test processes share the CPU (xdist -n 6)
+
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "mpi_operator_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "mpi_operator_tpu")
@@ -23,6 +25,46 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "mpi_operator_tpu")
 FLEET_MODULES = ("mpi_operator_tpu_torch.serve.transfer",
                  "mpi_operator_tpu_torch.serve.router",
                  "mpi_operator_tpu_torch.telemetry.collector")
+#: the operator's control plane (ROADMAP step 8a), which loads no torch
+CONTROL_PLANE = ("mpi_operator_tpu_torch.__main__",
+                 "mpi_operator_tpu_torch.api.types",
+                 "mpi_operator_tpu_torch.api.validation",
+                 "mpi_operator_tpu_torch.cluster.apiserver",
+                 "mpi_operator_tpu_torch.cluster.chaos",
+                 "mpi_operator_tpu_torch.cluster.informers",
+                 "mpi_operator_tpu_torch.cluster.kubeclient",
+                 "mpi_operator_tpu_torch.cluster.resources",
+                 "mpi_operator_tpu_torch.cluster.serialize",
+                 "mpi_operator_tpu_torch.cluster.workqueue",
+                 "mpi_operator_tpu_torch.controller",
+                 "mpi_operator_tpu_torch.controller.autoscale",
+                 "mpi_operator_tpu_torch.controller.metrics",
+                 "mpi_operator_tpu_torch.controller.packing",
+                 "mpi_operator_tpu_torch.controller.scheduler")
+#: the telemetry modules the control plane imports
+CONTROL_TELEMETRY = ("mpi_operator_tpu_torch.telemetry.events",
+                     "mpi_operator_tpu_torch.telemetry.core",
+                     "mpi_operator_tpu_torch.telemetry.prometheus",
+                     "mpi_operator_tpu_torch.telemetry.collector")
+#: a fresh interpreter in which importing torch or jax raises, as in an
+#: operator image that holds neither (Dockerfile:14-23)
+NO_DATA_PLANE = ("import sys\n"
+                 "for m in ('torch', 'jax', 'jaxlib', 'triton'):\n"
+                 "    sys.modules[m] = None\n")
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT)] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                       if p])
+    return env
+
+
+def _python(code, *args):
+    return subprocess.run([sys.executable, *args, "-c", code], cwd=ROOT,
+                          env=_env(), capture_output=True, text=True,
+                          timeout=120)
 
 
 def _forbidden(name: str) -> bool:
@@ -42,12 +84,7 @@ def test_importing_the_port_loads_no_jax():
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         "print(json.dumps(sorted(set(sys.modules) - before)))\n")
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.pathsep.join(
-        [str(ROOT)] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
-                       if p])
-    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
-                         capture_output=True, text=True, timeout=120)
+    out = _python(code)
     assert out.returncode == 0, out.stderr
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
     for m in FLEET_MODULES + ("mpi_operator_tpu_torch.serve.engine",):
@@ -71,9 +108,71 @@ def test_no_source_of_the_port_imports_jax():
             bad += [f"{f.relative_to(ROOT)}:{node.lineno} {n}"
                     for n in names if _forbidden(n)]
     assert len(files) > 10
-    for m in FLEET_MODULES:
-        assert ROOT / (m.replace(".", "/") + ".py") in files, m
+    for m in FLEET_MODULES + CONTROL_PLANE:
+        path = ROOT / (m.replace(".", "/") + ".py")
+        if not path.exists():
+            path = ROOT / m.replace(".", "/") / "__init__.py"
+        assert path in files, m
     assert not bad, bad
+
+
+def test_the_control_plane_loads_neither_torch_nor_jax():
+    """In a fresh interpreter where importing torch or jax raises, the
+    operator's modules and the telemetry they use import, and none of
+    them is the JAX package; an AST scan finds no torch import in their
+    sources at any depth."""
+    mods = CONTROL_PLANE + CONTROL_TELEMETRY
+    out = _python(NO_DATA_PLANE + (
+        "import importlib, json\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "print(json.dumps(sorted(k for k, v in sys.modules.items()\n"
+        "                        if v is not None)))\n"))
+    assert out.returncode == 0, out.stderr
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert not [m for m in loaded if _forbidden(m)]
+    for pkg in ("api", "cluster", "controller"):
+        for f in (PORT / pkg).rglob("*.py"):
+            for node in ast.walk(ast.parse(f.read_text(), str(f))):
+                names = ([a.name for a in node.names]
+                         if isinstance(node, ast.Import) else
+                         [node.module or ""]
+                         if isinstance(node, ast.ImportFrom) else [])
+                assert not [n for n in names
+                            if n.split(".")[0] in ("torch", "triton")], f
+
+
+def test_the_operator_cli_runs_without_torch():
+    """`python -m mpi_operator_tpu_torch --help` exits 0, and --demo
+    drives a GPU job to completion, with torch and jax unimportable."""
+    out = subprocess.run([sys.executable, "-m", "mpi_operator_tpu_torch",
+                          "--help"], cwd=ROOT, env=_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "nvidia.com/gpu" in out.stdout
+    run = ("import runpy\n"
+           "sys.argv = ['mpi_operator_tpu_torch'] + {argv!r}\n"
+           "runpy.run_module('mpi_operator_tpu_torch', run_name='__main__',"
+           " alter_sys=True)\n")
+    out = _python(NO_DATA_PLANE + run.format(argv=["--help"]))
+    assert out.returncode == 0, out.stderr
+    out = _python(NO_DATA_PLANE + run.format(argv=["--demo"]))
+    assert out.returncode == 0, out.stderr
+    assert "submitted TPUJob demo (nvidia.com/gpu: 2 workers x 8)" in (
+        out.stderr)
+    assert "demo lifecycle complete" in out.stderr
+
+
+def test_span_still_loads_for_the_data_plane():
+    """telemetry's `span` (which needs torch) loads on first use."""
+    from mpi_operator_tpu_torch import telemetry
+    from mpi_operator_tpu_torch.telemetry import span
+    from mpi_operator_tpu_torch.telemetry.spans import span as direct
+    assert span is direct and telemetry.span is direct
+    with span("test.region"):
+        pass
+    with pytest.raises(AttributeError):
+        telemetry.no_such_name
 
 
 def test_entry_points_refuse_to_run_without_a_card(monkeypatch):

@@ -32,6 +32,8 @@ import numpy as np
 import pytest
 import torch
 
+torch.set_num_threads(1)   # six test processes share the CPU (xdist -n 6)
+
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 import torch_lm_gang_worker as worker  # noqa: E402

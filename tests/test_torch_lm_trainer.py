@@ -30,6 +30,8 @@ import pytest
 import torch
 from flax.core import meta
 
+torch.set_num_threads(1)   # six test processes share the CPU (xdist -n 6)
+
 jt = importlib.import_module("mpi_operator_tpu.models.transformer")
 jtr = importlib.import_module("mpi_operator_tpu.train.lm_trainer")
 jpar = importlib.import_module("mpi_operator_tpu.parallel")

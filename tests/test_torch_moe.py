@@ -24,6 +24,8 @@ from flax.core import meta
 from torch_parity import (assert_params_match, jax_trainer, perturbed_params,
                           port_trainer, to_port)
 
+torch.set_num_threads(1)   # six test processes share the CPU (xdist -n 6)
+
 jmoe = importlib.import_module("mpi_operator_tpu.parallel.moe")
 jt = importlib.import_module("mpi_operator_tpu.models.transformer")
 jtr = importlib.import_module("mpi_operator_tpu.train.lm_trainer")

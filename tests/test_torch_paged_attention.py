@@ -24,6 +24,8 @@ from mpi_operator_tpu.ops.attention import \
     paged_decode_attention as jax_paged
 from mpi_operator_tpu_torch.ops import attention as port
 
+torch.set_num_threads(1)   # six test processes share the CPU (xdist -n 6)
+
 
 def _t(x):
     return None if x is None else torch.from_numpy(np.ascontiguousarray(x))

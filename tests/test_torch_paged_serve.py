@@ -26,6 +26,8 @@ from mpi_operator_tpu.serve import ServingEngine as JServingEngine
 from mpi_operator_tpu_torch.models import transformer as tt
 from mpi_operator_tpu_torch.serve import EngineConfig, Request, ServingEngine
 
+torch.set_num_threads(1)   # six test processes share the CPU (xdist -n 6)
+
 V = 64
 PS = 8
 

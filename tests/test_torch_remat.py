@@ -15,6 +15,8 @@ import pytest
 import torch
 from torch.utils.checkpoint import CheckpointPolicy
 
+torch.set_num_threads(1)   # six test processes share the CPU (xdist -n 6)
+
 jt = importlib.import_module("mpi_operator_tpu.models.transformer")
 tt = importlib.import_module("mpi_operator_tpu_torch.models.transformer")
 ttr = importlib.import_module("mpi_operator_tpu_torch.train.lm_trainer")

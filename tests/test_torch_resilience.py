@@ -44,6 +44,8 @@ from mpi_operator_tpu_torch.train import checkpoint as ck
 from mpi_operator_tpu_torch.train import resilience as tres
 from mpi_operator_tpu_torch.train.lm_trainer import AdamWState, LMTrainState
 
+torch.set_num_threads(1)   # six test processes share the CPU (xdist -n 6)
+
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
 

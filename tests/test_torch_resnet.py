@@ -28,6 +28,8 @@ from mpi_operator_tpu.models import resnet as jres
 from mpi_operator_tpu_torch.models import convert
 from mpi_operator_tpu_torch.models import resnet as tres
 
+torch.set_num_threads(1)   # six test processes share the CPU (xdist -n 6)
+
 IMG, CLASSES, B = 32, 10, 4
 BLOCKS = {"basic": ("resnet18", None), "bottleneck": (None, [1, 1, 1, 1])}
 

@@ -24,6 +24,7 @@ import logging
 
 import numpy as np
 import pytest
+import torch
 from test_torch_serve import _pair
 
 from mpi_operator_tpu.serve import EngineConfig as JEngineConfig
@@ -45,6 +46,8 @@ from mpi_operator_tpu_torch.serve.slots import PageAllocator
 from mpi_operator_tpu_torch.serve.slots import prefix_chain_windows
 from mpi_operator_tpu_torch.telemetry import RouterTelemetry
 from mpi_operator_tpu_torch.telemetry.prometheus import render_registry
+
+torch.set_num_threads(1)   # six test processes share the CPU (xdist -n 6)
 
 V = 64
 

@@ -27,6 +27,8 @@ from mpi_operator_tpu_torch.serve import (
     EngineConfig, Request, ServingEngine, sample_slots,
 )
 
+torch.set_num_threads(1)   # six test processes share the CPU (xdist -n 6)
+
 jt = importlib.import_module("mpi_operator_tpu.models.transformer")
 tt = importlib.import_module("mpi_operator_tpu_torch.models.transformer")
 tg = importlib.import_module("mpi_operator_tpu_torch.models.generate")

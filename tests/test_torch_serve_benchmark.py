@@ -16,11 +16,14 @@ import urllib.request
 
 import numpy as np
 import pytest
+import torch
 
 from mpi_operator_tpu.examples.serve_benchmark import (
     run_serving_benchmark as jax_run_serving_benchmark)
 from mpi_operator_tpu_torch.examples import serve_benchmark as sb
 from mpi_operator_tpu_torch.serve import ServingEngine
+
+torch.set_num_threads(1)   # six test processes share the CPU (xdist -n 6)
 
 SMALL = dict(size="test", slots=2, num_requests=4, prompt_grid=(4, 8),
              new_grid=(3, 5), chunk_buckets=(4, 8), dtype_name="float32")

@@ -26,6 +26,8 @@ from mpi_operator_tpu_torch.models import transformer as tt
 from mpi_operator_tpu_torch.serve import EngineConfig, Request, ServingEngine
 from mpi_operator_tpu_torch.serve import programs
 
+torch.set_num_threads(1)   # six test processes share the CPU (xdist -n 6)
+
 V, L = 64, 64
 PINNED = ("step", "prefill")
 

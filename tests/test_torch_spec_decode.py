@@ -34,6 +34,8 @@ from mpi_operator_tpu_torch.serve import (
 )
 from mpi_operator_tpu_torch.serve import programs
 
+torch.set_num_threads(1)   # six test processes share the CPU (xdist -n 6)
+
 V, L = 64, 64
 PAGED = dict(paged=True, page_size=8)
 

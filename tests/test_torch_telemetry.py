@@ -34,6 +34,8 @@ from mpi_operator_tpu_torch import telemetry as ttel
 from mpi_operator_tpu_torch.serve import EngineConfig, Request, ServingEngine
 from mpi_operator_tpu_torch.telemetry import trace as ttrace
 
+torch.set_num_threads(1)   # six test processes share the CPU (xdist -n 6)
+
 V = 64
 
 

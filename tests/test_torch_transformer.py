@@ -28,6 +28,8 @@ import pytest
 import torch
 from flax.core import meta
 
+torch.set_num_threads(1)   # six test processes share the CPU (xdist -n 6)
+
 jt = importlib.import_module("mpi_operator_tpu.models.transformer")
 jg = importlib.import_module("mpi_operator_tpu.models.generate")
 tt = importlib.import_module("mpi_operator_tpu_torch.models.transformer")

@@ -21,6 +21,8 @@ import numpy as np
 import pytest
 import torch
 
+torch.set_num_threads(1)   # six test processes share the CPU (xdist -n 6)
+
 jt = importlib.import_module("mpi_operator_tpu.models.transformer")
 tt = importlib.import_module("mpi_operator_tpu_torch.models.transformer")
 convert = importlib.import_module("mpi_operator_tpu_torch.models.convert")
