@@ -310,6 +310,28 @@ Phases, each of which fails the run (non-zero exit, no result line):
    run (the decode kernels 0). Prints images/s, the seconds from submit
    to the worker set, worker start to Ready, Ready to the launcher and
    the launcher to Succeeded, with the card's name and power limit.
+   The controller runs its job observatory (a worker metrics port, an
+   events directory in the phase's temporary directory, scrapes at most
+   every 2 s): LocalKubelet gives each worker pod a free
+   TPU_METRICS_PORT of its own, and the observatory's fetch maps the
+   rendered pod URL to 127.0.0.1 at that port; the phase resyncs every
+   job each second, as an informer's resync period would (the
+   controller scrapes only in its syncs). The ViT-B/16 job sets
+   progressDeadlineSeconds 60 and writes its worker event log: the
+   observatory must scrape the live worker at least 3 times with the
+   step frontier advancing, the lease must never fire on it (Succeeded,
+   restart count 0), and its merged timeline must hold the controller's
+   and the worker's records, on which postmortem.summarize reports a
+   goodput ledger and render prints the report. Then a third planted
+   fault, after the ViT-B/16 job: a hung worker (ViT at 2 layers of
+   B/16 width, batch 16, restart policy OnFailure,
+   progressDeadlineSeconds 10) that LocalKubelet stops with SIGSTOP
+   once the observatory's scrape shows a step > 0; the lease must
+   declare the gang stuck and restart it (restart count 1, the
+   Restarting condition's reason GangStuck, a StuckGang condition, one
+   gang_stuck record with a stall of at least 10 s) at most 25 s after
+   the stop, and LocalKubelet kills the stopped process when the
+   controller deletes its pod.
 
 The line before the last is {"kernels": [...]}: K4, K5 and K1-K3 (at
 the gpt2 training shape, with a `vit_b16` entry each: launches in
@@ -323,11 +345,13 @@ import contextlib
 import dataclasses
 import functools
 import gc
+import io
 import json
 import math
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -3189,6 +3213,26 @@ OPERATOR_ARGS = ("--workload", "vit", "--size", "b16", "--image-size", "224",
                  "--batch-per-device", "256", "--warmup-steps", "2",
                  "--num-steps", "150")
 OPERATOR_LAYERS = 12
+# the worker's fsync'd event log (its /events endpoint serves it), in the
+# pod's own directory
+OPERATOR_EVENTS = ("--event-log", "events.jsonl")
+# the observatory: the worker metrics port the controller renders (each
+# pod's real port is LocalKubelet's), the scrape rate limit, the phase's
+# resync period and the ViT-B/16 job's progress lease
+OPERATOR_METRICS_PORT, OPERATOR_SCRAPE_S, OPERATOR_RESYNC_S = 9100, 2.0, 1.0
+OPERATOR_DEADLINE = 60
+# the hung worker: ViT at 2 layers of B/16 width, batch 16. The first
+# scrape that sees it train already reads tens of steps, so 400 steps
+# could end between two scrapes: it is given far more than it runs
+# before it is stopped
+HUNG_ARGS = ("--workload", "vit", "--size", "b16", "--num-layers", "2",
+             "--image-size", "224", "--batch-per-device", "16",
+             "--warmup-steps", "2", "--num-steps", "100000")
+HUNG_DEADLINE = 10
+# the lease must fire at most this long after the SIGSTOP, and not before
+# HUNG_DEADLINE of stall (its clock starts at the last scrape that saw
+# the frontier move, just before the stop)
+HUNG_FIRES_BY = 25.0
 # the pod's command: the CLI's main() as a worker image runs it, then the
 # steps the trainer ran and the kernels' launch counts on one line
 POD_MAIN = """\
@@ -3220,6 +3264,7 @@ class LocalPod:
     cmd: list
     env: dict
     probe: object = None
+    labels: dict = None            # a worker pod's labels (its Pod object)
     proc: object = None
     attempts: int = 0
     exit_codes: list = dataclasses.field(default_factory=list)
@@ -3251,6 +3296,17 @@ class LocalKubelet:
     longer wants is given STOP_GRACE seconds to exit, then killed. The
     launcher's exit code lands in the Job's status (0 succeeded, else
     failed).
+
+    Each worker pod also gets a Pod object in the API (its name and
+    labels; its status is not written), so the controller's gang deletes
+    reach it: when a worker's Pod object is deleted, its process is
+    killed and a fresh one started with a new Pod object, as the
+    StatefulSet controller recreates a deleted pod. A worker rendered
+    with TPU_METRICS_PORT gets a free port of its own instead (jobs
+    share one host here), and `fetch` is the observatory's transport:
+    it maps a rendered pod URL (http://<pod>.<service>...:<port>/path)
+    to 127.0.0.1 at that pod's port, and logs every /metrics scrape.
+    `pause` stops a pod's process with SIGSTOP (a hung worker).
     """
 
     def __init__(self, api, namespace, root):
@@ -3259,6 +3315,9 @@ class LocalKubelet:
         self.conflict = ConflictError
         self.pods = {}
         self.ports = {}
+        self.metrics_ports = {}  # worker pod -> its TPU_METRICS_PORT
+        self.scrapes = []        # (time, pod, the step it reported or None)
+        self.stopped_at = {}     # pod -> wall time of its SIGSTOP
         self.log = []            # (time, pod, what)
 
     def note(self, pod, what):
@@ -3334,6 +3393,9 @@ class LocalKubelet:
             env["TPU_WORKER_ID"] = str(ordinal)
             env["CUDA_VISIBLE_DEVICES"] = ",".join(
                 self._cards(name, int(c.limits.get(RESOURCE_GPU, 0))))
+            if "TPU_METRICS_PORT" in env:
+                env["TPU_METRICS_PORT"] = str(
+                    self.metrics_ports.setdefault(name, free_port()))
         here = os.path.dirname(os.path.abspath(__file__))
         env["PYTHONPATH"] = os.pathsep.join(
             [here] + [p for p in os.environ.get("PYTHONPATH", "").split(
@@ -3345,7 +3407,50 @@ class LocalKubelet:
         if c.readiness_probe is not None:
             probe = [" ".join(local(w) for w in a.split(" "))
                      for a in c.readiness_probe["exec"]["command"]]
-        return LocalPod(name, root, cmd, env, probe)
+        labels = (None if launcher else
+                  dict(template.metadata.labels))
+        return LocalPod(name, root, cmd, env, probe, labels)
+
+    def _pod_object(self, pod):
+        """Write the worker's Pod object, fresh (a new uid) each start
+        after a delete."""
+        from mpi_operator_tpu_torch.api.types import ObjectMeta
+        from mpi_operator_tpu_torch.cluster.resources import Pod
+        if pod.labels is not None and self.api.try_get(
+                "Pod", self.ns, pod.name) is None:
+            self.api.create(Pod(metadata=ObjectMeta(
+                name=pod.name, namespace=self.ns, labels=dict(pod.labels))))
+
+    def fetch(self, url):
+        """The observatory's scrape of a rendered pod URL, sent to the
+        pod's own port on this host."""
+        import urllib.parse
+        import urllib.request
+        parts = urllib.parse.urlsplit(url)
+        pod = (parts.hostname or "").split(".")[0]
+        port = self.metrics_ports.get(pod)
+        step = None
+        try:
+            if port is None:
+                raise OSError(f"no metrics port for pod {pod!r}")
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{port}{parts.path}",
+                    timeout=2.0) as resp:
+                text = resp.read().decode("utf-8", "replace")
+            if parts.path == "/metrics":
+                m = re.search(r"^tpu_worker_step(?:\{[^}]*\})? (\S+)$",
+                              text, re.M)
+                step = int(float(m.group(1))) if m else 0
+            return text
+        finally:
+            if parts.path == "/metrics":
+                self.scrapes.append((time.perf_counter(), pod, step))
+
+    def pause(self, name):
+        pod = self.pods[name]
+        os.kill(pod.proc.pid, signal.SIGSTOP)
+        self.stopped_at[name] = time.time()     # the controller's clock
+        self.note(name, "stopped")
 
     def _start(self, pod):
         pod.attempts += 1
@@ -3360,6 +3465,7 @@ class LocalKubelet:
                                     stdout=log_file,
                                     stderr=subprocess.STDOUT)
         log_file.close()
+        self._pod_object(pod)
         self.note(pod.name, f"start {pod.attempts}")
 
     def _kill(self, pod):
@@ -3392,6 +3498,14 @@ class LocalKubelet:
                 if pod is None:
                     pod = self.pods[name] = self._pod(
                         name, job, sts.spec.template, False, i)
+                    self._start(pod)
+                if (pod.proc.poll() is None and self.api.try_get(
+                        "Pod", self.ns, name) is None):
+                    # the controller deleted the pod: kill what runs and
+                    # start it afresh, as its StatefulSet recreates it
+                    self._kill(pod)
+                    pod.exit_codes.append(pod.proc.returncode)
+                    self.note(name, "pod deleted")
                     self._start(pod)
                 code = pod.proc.poll()
                 if code not in (None, 0) and now >= pod.restart_at:
@@ -3459,13 +3573,16 @@ def wait_until(step, pred, what, timeout):
     raise RuntimeError(f"chip_smoke: [operator] {what} within {timeout} s")
 
 
-def operator_job(name, args, env=None):
+def operator_job(name, args, env=None, restart_policy="Never",
+                 deadline=None):
     """One nvidia.com/gpu TPUJob as a user submits it: processingUnits
-    1, one a worker, restart policy Never, the pod command above."""
+    1, one a worker, the pod command above; `deadline` sets
+    progressDeadlineSeconds (the observatory's progress lease)."""
     from mpi_operator_tpu_torch.api.types import RESOURCE_GPU, new_tpu_job
     job = new_tpu_job(name, processing_units=1, processing_units_per_worker=1,
                       processing_resource_type=RESOURCE_GPU,
-                      restart_policy="Never")
+                      restart_policy=restart_policy)
+    job.spec.progress_deadline_seconds = deadline
     c = job.spec.template.main_container()
     c.image = "tpu-bench-torch:latest"
     c.command = ["python", "-c", POD_MAIN]
@@ -3491,34 +3608,67 @@ def timeline(kubelet, t0):
 def operator_phase():
     """The port's TPUJobController on its GPU defaults over the
     in-memory API server, through the threaded run loop, with
-    LocalKubelet as the node. Three jobs at once: a worker that exits
-    non-zero (an unknown --size) must end Failed with the launcher
-    mirroring its code; a worker told to expect 2 cards on a pod that
-    sees one must never become Ready nor get a launcher (checked at
-    every kubelet step, until 10 s after its first exit); and the job,
-    ViT-B/16 through K1-K3, must reach Succeeded with its worker set
-    scaled to 0, the gate held until the marker, and K1-K3 at 12 x the
-    steps the worker ran. Returns the job's numbers."""
+    LocalKubelet as the node and the job observatory on. Three jobs at
+    once: a worker that exits non-zero (an unknown --size) must end
+    Failed with the launcher mirroring its code; a worker told to expect
+    2 cards on a pod that sees one must never become Ready nor get a
+    launcher (checked at every kubelet step, until 10 s after its first
+    exit); and the job, ViT-B/16 through K1-K3, must reach Succeeded
+    with its worker set scaled to 0, the gate held until the marker,
+    K1-K3 at 12 x the steps the worker ran, at least 3 scrapes of its
+    live worker with the step frontier advancing, no lease restart, and
+    a merged timeline the postmortem renders. Then, after it, the hung
+    worker: stopped once a scrape shows a step, it must be declared
+    stuck and restarted by the lease within HUNG_FIRES_BY of the stop
+    and not before HUNG_DEADLINE of stall. Returns the numbers."""
     import threading
 
-    from mpi_operator_tpu_torch.api.types import RESOURCE_GPU
+    from mpi_operator_tpu_torch import postmortem
+    from mpi_operator_tpu_torch.api.types import COND_STUCK, RESOURCE_GPU
     from mpi_operator_tpu_torch.cluster.apiserver import InMemoryAPIServer
-    from mpi_operator_tpu_torch.controller import TPUJobController
+    from mpi_operator_tpu_torch.controller import (ControllerConfig,
+                                                   TPUJobController)
+    from mpi_operator_tpu_torch.telemetry.collector import JobObservatory
     gc.collect()
     torch.cuda.empty_cache()
-    api = InMemoryAPIServer()
-    ctrl = TPUJobController(api)
-    check(ctrl.config.processing_resource_type == RESOURCE_GPU
-          and ctrl.config.processing_units_per_worker == 8,
-          f"the operator's defaults are {ctrl.config}")
-    stop = threading.Event()
-    ctrl.run(threadiness=2, stop_event=stop)
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
+        api = InMemoryAPIServer()
         kubelet = LocalKubelet(api, "default", tmp)
+        events_dir = os.path.join(tmp, "events")
+        config = ControllerConfig(worker_metrics_port=OPERATOR_METRICS_PORT,
+                                  events_dir=events_dir,
+                                  scrape_interval=OPERATOR_SCRAPE_S)
+        # the controller's own observatory, but for its transport: the
+        # pods' DNS names do not resolve here, LocalKubelet maps them
+        obs = JobObservatory(events_dir=events_dir,
+                             scrape_interval=config.scrape_interval,
+                             fetch=kubelet.fetch)
+        ctrl = TPUJobController(api, config=config, observatory=obs)
+        check(ctrl.config.processing_resource_type == RESOURCE_GPU
+              and ctrl.config.processing_units_per_worker == 8,
+              f"the operator's defaults are {ctrl.config}")
+        stop = threading.Event()
+        ctrl.run(threadiness=2, stop_event=stop)
+        resynced = [0.0]
+
+        def scraped(pod):
+            return [(t, n) for t, p, n in kubelet.scrapes
+                    if p == pod and n is not None]
 
         def step():
             kubelet.step()
+            now = time.perf_counter()
+            if now - resynced[0] >= OPERATOR_RESYNC_S:
+                resynced[0] = now
+                for job in api.list("TPUJob", "default"):
+                    ctrl.enqueue_tpu_job(job)
+            hung = kubelet.pods.get("hung-worker-0")
+            if (hung is not None and kubelet.first("hung-worker-0",
+                                                   "stopped") is None
+                    and hung.proc.poll() is None
+                    and any(n > 0 for _, n in scraped("hung-worker-0"))):
+                kubelet.pause("hung-worker-0")
             sts = api.try_get("StatefulSet", "default", "op-chips-worker")
             check(api.try_get("Job", "default", "op-chips-launcher") is None
                   and (sts is None or not sts.status.ready_replicas),
@@ -3533,7 +3683,8 @@ def operator_phase():
             args = list(OPERATOR_ARGS)
             bad = list(args)
             bad[bad.index("--size") + 1] = "no-such-size"
-            api.create(operator_job("vit", args))
+            api.create(operator_job("vit", args + list(OPERATOR_EVENTS),
+                                    deadline=OPERATOR_DEADLINE))
             api.create(operator_job("op-exit", bad))
             api.create(operator_job("op-chips", args,
                                     env={"TPU_EXPECTED_CHIPS": "2"}))
@@ -3547,6 +3698,8 @@ def operator_phase():
                   f"vit-worker limits {c.limits}, selectors {selectors}")
             check(c.env.get("TPU_READY_FILE") == "/tmp/tpu-ready"
                   and c.env.get("TPU_EXPECTED_CHIPS") == "1"
+                  and c.env.get("TPU_METRICS_PORT")
+                  == str(OPERATOR_METRICS_PORT)
                   and c.readiness_probe is not None
                   and c.readiness_probe["exec"]["command"][-1]
                   == "test -f /tmp/tpu-ready",
@@ -3559,6 +3712,12 @@ def operator_phase():
             wait_until(step, lambda: condition(api, "vit", "Succeeded"),
                        "the job Succeeded", 300)
             t_done = time.perf_counter()
+            # the third planted fault runs after the ViT-B/16 job: a
+            # worker that hangs once it has trained a few steps
+            api.create(operator_job("hung", HUNG_ARGS,
+                                    restart_policy="OnFailure",
+                                    deadline=HUNG_DEADLINE))
+            t_hung = time.perf_counter()
             wait_until(step, lambda: api.get(
                 "StatefulSet", "default", "vit-worker").spec.replicas == 0,
                 "workers scaled to 0", 30)
@@ -3612,6 +3771,79 @@ def operator_phase():
                           if k not in FLASH_KERNELS),
                   f"vit: launches {counts} over {steps} steps; K1-K3 "
                   f"expected {want} each, the decode kernels 0")
+            # the observatory on the live ViT-B/16 worker
+            frontier = [n for _, n in scraped("vit-worker-0")]
+            check(len(frontier) >= 3 and frontier == sorted(frontier)
+                  and frontier[-1] > frontier[0],
+                  f"vit: the observatory's scrapes of the live worker "
+                  f"read steps {frontier}: at least 3, advancing")
+            vit_job = api.get("TPUJob", "default", "vit")
+            check(vit_job.status.restart_count == 0
+                  and vit_job.status.get_condition(COND_STUCK) is None,
+                  f"vit: the progress lease fired on a live job "
+                  f"(restarts {vit_job.status.restart_count}, "
+                  f"{vit_job.status.get_condition(COND_STUCK)})")
+            records = postmortem.read_timeline(
+                os.path.join(events_dir, "vit", "timeline.jsonl"))
+            hosts = {r.get("host") for r in records}
+            worker_hosts = {h for h in hosts
+                            if str(h).startswith("vit-worker-0.")}
+            check("controller" in hosts and worker_hosts
+                  and not [r for r in records
+                           if r["event"] == "gang_stuck"],
+                  f"vit: the merged timeline's hosts are {sorted(hosts)}")
+            summary = postmortem.summarize(records)
+            ledger = summary["ledger"]
+            check(math.isfinite(ledger["goodput"])
+                  and 0.0 <= ledger["goodput"] <= 1.0,
+                  f"vit: the postmortem's goodput ledger {ledger}")
+            buf = io.StringIO()
+            postmortem.render(summary, buf)
+            rendered = buf.getvalue()
+            check("goodput" in rendered, "vit: the rendered postmortem "
+                  "has no goodput ledger")
+            for line in rendered.splitlines():
+                log(f"  operator postmortem | {line}")
+            # the hung worker: stopped, caught by the lease, restarted
+            wait_until(step, lambda: kubelet.first("hung-worker-0",
+                                                   "stopped"),
+                       "a scrape of the hung worker showing a step", 180)
+            t_stop = kubelet.stopped_at["hung-worker-0"]
+
+            def verdict():
+                # the StuckGang condition is set with the restart; the
+                # restarted gang's first scrape re-arms the lease and
+                # retires it (ProgressResumed), so the timeline's
+                # gang_stuck record carries the verdict's time
+                job = api.get("TPUJob", "default", "hung")
+                recs = [r for r in obs.merged_records("hung")
+                        if r["event"] == "gang_stuck"]
+                restarting = job.status.get_condition("Restarting")
+                return (recs if job.status.restart_count >= 1
+                        and restarting is not None
+                        and restarting.reason == "GangStuck"
+                        and job.status.get_condition(COND_STUCK)
+                        is not None else None)
+            stuck_recs = wait_until(step, verdict, "the lease's verdict on "
+                                    "the hung worker",
+                                    HUNG_FIRES_BY + 15)
+            wait_until(step, lambda: kubelet.first("hung-worker-0",
+                                                   "pod deleted"),
+                       "the stopped worker killed", 30)
+            hung_job = api.get("TPUJob", "default", "hung")
+            # the lease runs from the last scrape that saw the frontier
+            # move, which comes just before the stop: it must not fire
+            # before its deadline, nor later than the window's end
+            fired_after = stuck_recs[0]["ts"] - t_stop
+            check(len(stuck_recs) == 1
+                  and stuck_recs[0]["stall_seconds"] >= HUNG_DEADLINE
+                  and fired_after <= HUNG_FIRES_BY
+                  and hung_job.status.restart_count == 1,
+                  f"hung: the lease fired {fired_after:.1f} s after the "
+                  f"stop (at most {HUNG_FIRES_BY} s, stall at least "
+                  f"{HUNG_DEADLINE} s): {stuck_recs}, "
+                  f"restarts {hung_job.status.restart_count}")
+            hung_steps = [n for _, n in scraped("hung-worker-0")]
             ready = kubelet.first("vit-worker-0", "ready")
             started = kubelet.first("vit-worker-0", "start 1")
             polling = kubelet.first("vit-launcher", "polling")
@@ -3625,11 +3857,31 @@ def operator_phase():
                     None if polling is None else
                     polling - kubelet.first("vit-launcher", "start 1")),
                 launcher_to_succeeded_s=t_done - t_launcher,
-                job_s=t_done - t0, phase_s=time.perf_counter() - t0,
+                job_s=t_done - t0,
+                scrapes=len(frontier), first_frontier=frontier[0],
+                last_frontier=frontier[-1], timeline_records=len(records),
+                timeline_hosts=sorted(hosts), goodput=ledger["goodput"],
+                hung=dict(
+                    submit_to_stop_s=kubelet.first("hung-worker-0",
+                                                   "stopped") - t_hung,
+                    steps_seen=hung_steps,
+                    stop_to_stuck_s=fired_after,
+                    stall_s=stuck_recs[0]["stall_seconds"],
+                    restarts=hung_job.status.restart_count,
+                    restarting=hung_job.status.get_condition(
+                        "Restarting").message),
+                phase_s=time.perf_counter() - t0,
                 op_exit=dict(worker_exits=bad_worker.exit_codes,
                              launcher_exits=bad_launcher.exit_codes),
                 op_chips=dict(worker_exits=chips.exit_codes),
                 card=device_line())
+            log(f"  operator: scrapes of the live vit worker "
+                f"{out['scrapes']}, frontier {out['first_frontier']} -> "
+                f"{out['last_frontier']}; timeline {len(records)} records "
+                f"from {len(hosts)} hosts; goodput {ledger['goodput']}")
+            log(f"  operator: hung worker stopped at step "
+                f"{max(hung_steps)}, declared stuck and restarted "
+                f"{fired_after:.1f} s after the stop")
             log(f"  operator: {json.dumps(out)}")
         except Exception:
             log(f"  operator timeline: {json.dumps(timeline(kubelet, t0))}")
@@ -3638,6 +3890,7 @@ def operator_phase():
             kubelet.stop_all()
             stop.set()
             ctrl.queue.shut_down()
+            obs.close()
         log(f"  operator timeline: {json.dumps(timeline(kubelet, t0))}")
     return out
 
@@ -3936,11 +4189,18 @@ def main() -> int:
 
     t0 = time.perf_counter()
     log("[operator] the port's TPUJobController in GPU mode over the "
-        "in-memory API server, a local kubelet as the node: an "
-        "nvidia.com/gpu job (processingUnits 1) whose worker trains "
-        "ViT-B/16 through K1-K3, after two planted faults")
+        "in-memory API server, a local kubelet as the node, the job "
+        "observatory scraping the workers: an nvidia.com/gpu job "
+        "(processingUnits 1) whose worker trains ViT-B/16 through K1-K3, "
+        "beside two planted faults, then a hung worker for the progress "
+        "lease")
     operator = operator_phase()
-    log(f"[operator] images/s {operator['images_per_sec']}, "
+    log(f"[operator] images/s {operator['images_per_sec']}, scrapes "
+        f"{operator['scrapes']}, frontier {operator['first_frontier']} -> "
+        f"{operator['last_frontier']}, timeline "
+        f"{operator['timeline_records']} records, goodput "
+        f"{operator['goodput']}, hung worker stuck "
+        f"{operator['hung']['stop_to_stuck_s']:.1f} s after its stop, "
         f"{time.perf_counter() - t0:.1f} s ({device_line()})")
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
 

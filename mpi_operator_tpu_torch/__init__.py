@@ -23,7 +23,11 @@ the image Trainer (train/trainer.py) under DistributedDataParallel, the
 npy image shards (data/imagefolder.py, native/), the worker bootstrap
 on torch.distributed (bootstrap/) and the image benchmark
 (examples/benchmark.py); and the operator in GPU mode, whose jobs ask
-for `nvidia.com/gpu` (controller/).
+for `nvidia.com/gpu` (controller/), with its job observatory (metrics
+federation, merged timelines and the progress lease:
+telemetry/collector.py), the postmortem CLI (postmortem.py), the chaos
+soak (controller/chaos.py, telemetry/chaos.py) and its own CRD, images
+and GPU manifests (deploy/).
 Entry points run on the CUDA card unless the caller passes
 device="cpu".
 """

@@ -10,10 +10,13 @@ the in-memory API server so the operator is drivable end-to-end on a laptop.
 
 The PyTorch port's copy of mpi_operator_tpu/__main__.py, in GPU mode: the
 defaults are `--processing-resource-type nvidia.com/gpu` and
-`--processing-units-per-worker 8` (the reference's --gpus-per-node 8),
-`--demo` submits a GPU job, and `--events-dir`, `--worker-metrics-port`
-and `--scrape-interval` are refused until the job observatory is ported (ROADMAP.md step 8b). The
-operator process imports neither torch nor jax.
+`--processing-units-per-worker 8` (the reference's --gpus-per-node 8)
+and `--demo` submits a GPU job. `--worker-metrics-port` and
+`--events-dir` turn on the job observatory (telemetry/collector.py): the
+controller scrapes each worker's /metrics + /events every
+`--scrape-interval` seconds and writes each job's merged timeline, which
+`python -m mpi_operator_tpu_torch.postmortem` renders. The operator
+process imports neither torch nor jax.
 """
 from __future__ import annotations
 
@@ -69,16 +72,17 @@ def build_parser() -> argparse.ArgumentParser:
                         "8080 and probes /healthz)")
     p.add_argument("--worker-metrics-port", type=int, default=0,
                    help="scrape each worker pod's /metrics + /events on "
-                        "this port (0 = disabled); refused until the job "
-                        "observatory is ported (ROADMAP.md step 8b)")
+                        "this port and re-export federated tpu_job_* "
+                        "series on --metrics-port (0 = disabled); also "
+                        "injects TPU_METRICS_PORT into worker env so the "
+                        "benchmarks serve it without per-job flags")
     p.add_argument("--events-dir", default=None,
                    help="directory for the controller's own event log and "
-                        "per-job merged timelines; refused until the job "
-                        "observatory is ported (ROADMAP.md step 8b)")
-    p.add_argument("--scrape-interval", type=float, default=None,
+                        "per-job merged timeline.jsonl files (feeds "
+                        "python -m mpi_operator_tpu_torch.postmortem)")
+    p.add_argument("--scrape-interval", type=float, default=10.0,
                    help="seconds between worker /metrics federation "
-                        "scrapes per job; refused until the job "
-                        "observatory is ported (ROADMAP.md step 8b)")
+                        "scrapes per job")
     p.add_argument("--demo", action="store_true",
                    help="run against the in-memory API server with a sample "
                         "GPU TPUJob and simulated kubelet")
@@ -124,6 +128,24 @@ def run_demo(controller: TPUJobController, api: InMemoryAPIServer) -> int:
     return 0
 
 
+def demo_observatory(config: ControllerConfig):
+    """The job observatory of a --demo run, when the flags ask for one.
+    The demo's simulated kubelet starts no worker process, so no pod
+    serves /metrics: every scrape fails as a dark pod's would, without
+    looking up the pod's DNS name (there is no cluster to ask)."""
+    if not (config.events_dir or config.worker_metrics_port):
+        return None
+    from .telemetry.collector import JobObservatory
+
+    def no_pod(url: str) -> str:
+        raise OSError(f"--demo runs no worker process to serve {url}")
+
+    return JobObservatory(events_dir=config.events_dir,
+                          scrape_interval=config.scrape_interval,
+                          serving_rate_floor=config.serving_rate_floor,
+                          fetch=no_pod)
+
+
 def main(argv=None, stop_event=None) -> int:
     args = build_parser().parse_args(argv)
     logging.basicConfig(
@@ -159,7 +181,8 @@ def main(argv=None, stop_event=None) -> int:
 
     if args.demo:
         api = InMemoryAPIServer()
-        controller = TPUJobController(api, config=config)
+        controller = TPUJobController(api, config=config,
+                                      observatory=demo_observatory(config))
         metrics = None
         try:
             # bind before run(): the probe target must exist while caches

@@ -278,6 +278,9 @@ def _tpujob_spec_to_manifest(s: TPUJobSpec) -> dict:
         "launcherOnMaster": s.launcher_on_master or None,
         "backoffLimit": s.backoff_limit,
         "activeDeadlineSeconds": s.active_deadline_seconds,
+        # the observatory's progress lease (the JAX package's serializer
+        # drops it, so a job read from a real API server never arms it)
+        "progressDeadlineSeconds": s.progress_deadline_seconds,
         "gangScheduling": s.gang_scheduling or None,
         "cleanPodPolicy": s.clean_pod_policy,
         "restartPolicy": s.restart_policy,
@@ -304,6 +307,7 @@ def _tpujob_spec_from_manifest(m: dict) -> TPUJobSpec:
         launcher_on_master=bool(m.get("launcherOnMaster", False)),
         backoff_limit=m.get("backoffLimit"),
         active_deadline_seconds=m.get("activeDeadlineSeconds"),
+        progress_deadline_seconds=m.get("progressDeadlineSeconds"),
         gang_scheduling=bool(m.get("gangScheduling", False)),
         clean_pod_policy=m.get("cleanPodPolicy", "Running"),
         restart_policy=m.get("restartPolicy", "Never"),

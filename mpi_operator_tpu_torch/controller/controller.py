@@ -21,8 +21,8 @@ The PyTorch port's copy of mpi_operator_tpu/controller/controller.py. It
 imports neither torch nor jax, and differs from that file in GPU mode
 only: the operator's defaults are `nvidia.com/gpu` at 8 per worker (the
 reference's --gpus-per-node 8), GPU workers get the readiness gate as TPU
-workers do (and no TPU node selectors), and the job observatory's
-switches are refused (ROADMAP.md step 8b).
+workers do (and no TPU node selectors). Its job observatory
+(telemetry/collector.py JobObservatory) is the port's own copy.
 """
 from __future__ import annotations
 
@@ -316,12 +316,15 @@ class ControllerConfig:
     # shrunken job runs before the full spec size is retried
     elastic_degraded_seconds: int = 300
     elastic_recovery_seconds: int = 1800
-    # job-level observability (metrics federation from each worker's
-    # /metrics + /events, the controller's event log and per-job
-    # timelines): not in the port yet, so each switch is refused
+    # job-level observability (telemetry/collector.py): when
+    # worker_metrics_port is set the controller injects TPU_METRICS_PORT
+    # into workers, scrapes each pod's /metrics + /events every
+    # scrape_interval seconds, and re-exports federated tpu_job_* series
+    # on its own MetricsServer. events_dir roots the controller's own
+    # event log and the per-job timeline.jsonl files.
     worker_metrics_port: Optional[int] = None
     events_dir: Optional[str] = None
-    scrape_interval: Optional[float] = None
+    scrape_interval: float = 10.0
     # serving progress lease TPOT-slope floor (observed tokens+requests
     # per second between frontier advances): a serving gang whose
     # frontier creeps below this rate arms the lease like a frozen one.
@@ -342,17 +345,6 @@ class ControllerConfig:
     # the StatefulSet reschedules it — at most once per degraded
     # window, counted as status.migration_count (never a gang restart)
     sched_migration: bool = True
-
-    def __post_init__(self):
-        # the job observatory (metrics federation, merged timelines) is
-        # not in the port yet: its switches are refused, never ignored
-        for flag, value in (("events_dir", self.events_dir),
-                            ("worker_metrics_port", self.worker_metrics_port),
-                            ("scrape_interval", self.scrape_interval)):
-            if value is not None:
-                raise ValueError(
-                    f"{flag}={value!r}: the job observatory is not in the "
-                    f"port yet (ROADMAP.md step 8b)")
 
 
 @dataclass
@@ -401,9 +393,16 @@ class TPUJobController:
         self.api = api_server
         self.config = config or ControllerConfig()
         # job-level observability: controller event log + metrics
-        # federation + timeline merge. The config refuses to build one
-        # here (ControllerConfig.__post_init__); tests inject their own
-        # with a fake clock/fetcher. None disables every hook.
+        # federation + timeline merge (telemetry/collector.py). Built
+        # when the config asks for it; tests inject their own with a
+        # fake clock/fetcher. None disables every hook.
+        if observatory is None and (self.config.events_dir
+                                    or self.config.worker_metrics_port):
+            from ..telemetry.collector import JobObservatory
+            observatory = JobObservatory(
+                events_dir=self.config.events_dir,
+                scrape_interval=self.config.scrape_interval,
+                serving_rate_floor=self.config.serving_rate_floor)
         self.observatory = observatory
         # default recorder posts real core-v1 Events through the same API
         # server the reconciler writes to (ref StartRecordingToSink,
@@ -790,8 +789,8 @@ class TPUJobController:
                 and not resized and alloc.worker_replicas > 0):
             self.observatory.note_pods_ready(
                 job.metadata.name, replicas=alloc.worker_replicas)
-            # partial-partition verdict off the observatory's latest
-            # scrape: some
+            self._observe_job(job, alloc)
+            # partial-partition verdict off the scrape just taken: some
             # ranks dark + frontier advancing = DegradedGang (observed,
             # never restarted); genuine stalls stay with the progress
             # lease below
@@ -888,6 +887,21 @@ class TPUJobController:
                                          members=list(pack.members),
                                          k=pack.k, labels=pack.labels())
         return job
+
+    def _observe_job(self, job: TPUJob, alloc: AllocationResult) -> None:
+        """One federation pass: scrape every worker pod's /metrics and
+        /events through the observatory (rate-limited there). Targets
+        come from the same slice-major hostname order as the discovery
+        data, so replica_rank labels match TPU_PROCESS_ID. Serving jobs
+        flip the progress frontier to the retired-request/token counters
+        (a serving gang has no training step to watch)."""
+        if self.observatory is None or not self.config.worker_metrics_port:
+            return
+        targets = {
+            rank: f"http://{host}:{self.config.worker_metrics_port}"
+            for rank, host in enumerate(self.worker_hostnames(job, alloc))}
+        self.observatory.observe(job.metadata.name, targets,
+                                 serving=job.spec.serving is not None)
 
     def _check_degraded_gang(self, job: TPUJob) -> TPUJob:
         """Partial-partition verdict off the latest scrape pass: SOME
@@ -2371,6 +2385,11 @@ class TPUJobController:
             "TPU_NUM_SLICES": str(job.spec.num_slices),
             "TPU_WORKERS_PER_SLICE": str(alloc.workers_per_slice),
         }
+        if self.config.worker_metrics_port:
+            # federation contract: workers serve /metrics + /events here
+            # (lm_benchmark defaults --metrics-port from this env), and
+            # the controller scrapes the same port (_observe_job)
+            env["TPU_METRICS_PORT"] = str(self.config.worker_metrics_port)
         if alloc.num_slices > 1:
             # megascale-style coordinator config (SURVEY §7 "Multi-slice
             # (DCN) bootstrap"): the libtpu multislice runtime reads

@@ -40,6 +40,12 @@ from typing import Callable, Iterable, Optional, Tuple
 import torch
 import torch.distributed as dist
 
+# the drain budget and the cadence it implies live in a module without
+# torch, which the postmortem CLI imports in the operator's image
+from ..telemetry.drain import (  # noqa: F401
+    DRAIN_TARGET_SECONDS, ENV_DRAIN_TARGET, suggest_stop_check_every,
+)
+
 #: env var holding the fault-injection spec (see FaultInjector)
 ENV_FAULT_INJECT = "TPU_FAULT_INJECT"
 #: env var default for ResilienceConfig.step_deadline (seconds)
@@ -47,11 +53,6 @@ ENV_STEP_DEADLINE = "TPU_STEP_DEADLINE"
 #: stop-bit cadence: an integer, or "auto" to derive it from the last
 #: run's measured drain latency in <train-dir>/events.jsonl
 ENV_STOP_CHECK_EVERY = "TPU_STOP_CHECK_EVERY"
-#: drain-latency budget (seconds) the auto cadence targets
-ENV_DRAIN_TARGET = "TPU_DRAIN_TARGET_SECONDS"
-#: default drain budget: well inside a preemption notice, leaving the
-#: emergency checkpoint write the rest of the grace window
-DRAIN_TARGET_SECONDS = 5.0
 
 # Exit codes in the controller's 128-255 "retryable" band: its ExitCode
 # restart policy relaunches the gang on any of these.
@@ -125,24 +126,6 @@ class PreemptionListener:
             except (ValueError, TypeError):  # non-main thread / weird prev
                 pass
         self._prev.clear()
-
-
-def suggest_stop_check_every(drain_seconds: float, cadence: int,
-                             target: Optional[float] = None,
-                             lo: int = 1, hi: int = 256) -> Optional[int]:
-    """The cadence that would have landed a measured drain inside the
-    target budget, assuming drain latency scales roughly linearly with
-    the cadence. Returns None when the inputs can't support one."""
-    if target is None:
-        raw = os.environ.get(ENV_DRAIN_TARGET, "")
-        try:
-            target = float(raw) if raw else DRAIN_TARGET_SECONDS
-        except ValueError:
-            target = DRAIN_TARGET_SECONDS
-    if drain_seconds <= 0 or cadence <= 0 or target <= 0:
-        return None
-    return max(lo, min(hi, int(round(cadence * target / drain_seconds))
-                       or lo))
 
 
 def drain_latency_from_events(events_path: str

@@ -133,17 +133,21 @@ def test_example_manifests_validate():
 
 
 def test_crd_carries_cel_validation_rules():
-    """deploy/0-crd.yaml must enforce the api/validation.py invariants
-    SERVER-side via x-kubernetes-validations (the reference's schema-first
-    posture — ALL its sizing constraints live in the CRD schema so
-    `kubectl create` rejects bad specs, ref deploy/0-crd.yaml:16-99).
-    Real clusters never run our in-process admission for user objects."""
+    """The port's CRD (mpi_operator_tpu_torch/deploy/0-crd.yaml) must
+    enforce the port's api/validation.py invariants SERVER-side via
+    x-kubernetes-validations (the reference's schema-first posture — ALL
+    its sizing constraints live in the CRD schema so `kubectl create`
+    rejects bad specs, ref deploy/0-crd.yaml:16-99), the GPU ones too:
+    the resource types the validation accepts, and tpus refused with
+    nvidia.com/gpu. Real clusters never run our in-process admission for
+    user objects."""
     import os
 
     import yaml
 
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    with open(os.path.join(repo, "deploy", "0-crd.yaml")) as f:
+    with open(os.path.join(repo, "mpi_operator_tpu_torch", "deploy",
+                           "0-crd.yaml")) as f:
         crd = yaml.safe_load(f)
     spec_schema = crd["spec"]["versions"][0]["schema"]["openAPIV3Schema"][
         "properties"]["spec"]
@@ -156,6 +160,13 @@ def test_crd_carries_cel_validation_rules():
     assert "sliceTopology" in rules      # topology-product check
     for v in validations:
         assert v.get("message"), f"CEL rule without a message: {v['rule']}"
+    # the GPU spelling is admitted, and the tpus mode refuses it
+    from mpi_operator_tpu_torch.api.types import (RESOURCE_CPU, RESOURCE_GPU,
+                                                  RESOURCE_TPU)
+    enum = spec_schema["properties"]["processingResourceType"]["enum"]
+    assert set(enum) == {RESOURCE_GPU, RESOURCE_CPU, RESOURCE_TPU}
+    assert any("self.tpus" in v["rule"] and "'nvidia.com/gpu'" in v["rule"]
+               for v in validations)
 
 
 def test_mode_a_explicit_per_worker_divisibility():

@@ -3,10 +3,10 @@ against the PyTorch port's copies (mpi_operator_tpu_torch.controller.
 autoscale, mpi_operator_tpu_torch.api.validation).
 
 The scenarios of tests/test_router.py that go through those two modules,
-copied with their imports changed. The controller-integration scenario
-there (test_autoscale_scale_up_lands_in_status_and_pools) drives the job
-observatory and the soak harness, which the port does not have yet
-(ROADMAP.md step 8b).
+copied with their imports changed, and its controller-integration
+scenario (test_autoscale_scale_up_lands_in_status_and_pools), which
+drives the port's job observatory and soak harness (controller/chaos.py
+_observed_harness) on a fake clock.
 """
 import pytest
 
@@ -149,3 +149,58 @@ def test_slo_validation():
     with pytest.raises(ValidationError, match="breachSeconds"):
         validate_spec(_serving_spec(ServingSLO(
             ttft_p99_seconds=0.5, breach_seconds=-1.0)))
+
+
+# ---------------------------------------------------------------------------
+# controller integration: status-override scale-up
+# ---------------------------------------------------------------------------
+
+def test_autoscale_scale_up_lands_in_status_and_pools():
+    from mpi_operator_tpu_torch.controller.chaos import _observed_harness
+
+    qd = {"v": 0.0}
+
+    def fetch(url):
+        if url.endswith("/metrics"):
+            return f"tpu_worker_queue_depth {qd['v']}\n"
+        raise IOError("no events endpoint")
+
+    h, obs, clock = _observed_harness(0, fetch)
+    # the autoscaler's persistence windows read controller time; pin it
+    # to the same fake clock the observatory scrapes on
+    h.controller.now = lambda: clock["now"]
+    name = "as-up"
+    slo = ServingSLO(queue_depth=4.0, breach_seconds=30.0,
+                     clear_seconds=600.0, cooldown_floor_seconds=0.0,
+                     max_decode_replicas=4)
+    h.create_job(name, tpus=8, serving=ServingSpec(
+        prefill_replicas=1, decode_replicas=1, slo=slo))
+    h.drive_until(lambda: len(h.worker_sets(name)) == 2,
+                  f"{name}: prefill+decode pools")
+    h.make_workers_ready(name)
+    h.drive_until(lambda: h.launcher(name) is not None, f"{name}: launcher")
+    h.set_launcher_active(name)
+    h.drive_until(lambda: h.cond(name, "Running") == "True",
+                  f"{name}: Running")
+    sync = lambda: h.controller.sync_handler(f"{h.ns}/{name}")  # noqa: E731
+    # healthy queue: no override appears no matter how long we watch
+    for _ in range(4):
+        clock["now"] += 15
+        sync()
+        h.resync()
+    assert h.job(name).status.serving_decode_replicas is None
+    # the queue blows past the target and STAYS there past breachSeconds
+    qd["v"] = 9.0
+    for _ in range(4):
+        clock["now"] += 15
+        sync()
+        h.resync()
+    job = h.job(name)
+    assert job.status.serving_decode_replicas == 2
+    assert job.status.serving_scaled_at is not None
+    # the override flows into the decode pool via the ordinary resize
+    # machinery: the user's spec is untouched, the StatefulSet grows
+    assert job.spec.serving.decode_replicas == 1
+    h.drive_until(lambda: any(
+        s.metadata.name.endswith("-decode") and s.spec.replicas == 2
+        for s in h.worker_sets(name)), f"{name}: decode pool resized")

@@ -14,7 +14,9 @@ controller (mpi_operator_tpu_torch.controller), in TPU mode as the JAX
 tests run them: every controller here is built on TPU_MODE, the JAX
 controller's defaults (the port's own defaults are GPU ones). The GPU
 cases, the differential test against the JAX controller and the
-observatory refusals follow the copied scenarios.
+observatory's switches (each builds the job observatory, the worker env
+carries TPU_METRICS_PORT, the demo runs with them and without torch)
+follow the copied scenarios.
 """
 import pytest
 
@@ -2240,23 +2242,146 @@ def test_gpu_jobs_bypass_the_fleet_scheduler():
     assert sts.spec.replicas == 2
 
 
+class ScrapeLog:
+    """An injected observatory that records the controller's scrape
+    calls and answers the readers with "nothing observed yet"."""
+
+    def __init__(self):
+        self.observed = []
+
+    def observe(self, job, targets, force=False, serving=False):
+        self.observed.append((job, dict(targets), serving))
+
+    def __getattr__(self, name):
+        if name.startswith("note_") or name == "reset_progress_lease":
+            return lambda *a, **k: None
+        if name in ("stall_seconds", "partition_state"):
+            return lambda *a, **k: None if name == "stall_seconds" \
+                else (set(), 0)
+        raise AttributeError(name)
+
+
 @pytest.mark.parametrize("flag", ["events_dir", "worker_metrics_port",
                                   "scrape_interval"])
-def test_observatory_switches_refused(flag, tmp_path):
-    """The job observatory is not in the port yet: its config switches and
-    CLI flags raise, naming the ROADMAP step; an injected observatory
-    stays possible."""
-    from mpi_operator_tpu_torch.__main__ import main
-    value = {"events_dir": str(tmp_path), "worker_metrics_port": 9100,
-             "scrape_interval": 10.0}[flag]
-    with pytest.raises(ValueError, match="ROADMAP.md step 8b"):
-        ControllerConfig(**{flag: value})
-    cli = "--" + flag.replace("_", "-")
-    with pytest.raises(ValueError, match="ROADMAP.md step 8b"):
-        main(["--demo", cli, str(value)])
-    sentinel = object()
-    ctrl = TPUJobController(InMemoryAPIServer(), observatory=sentinel)
-    assert ctrl.observatory is sentinel and ctrl.config.events_dir is None
+def test_observatory_switches_build_the_observatory(flag, tmp_path):
+    """Each switch does what the JAX controller's does: --events-dir or
+    --worker-metrics-port builds a JobObservatory (the port's collector)
+    with the config's scrape interval, which defaults to the reference's
+    10 s; neither leaves the controller without one; an injected
+    observatory wins."""
+    from mpi_operator_tpu.controller import ControllerConfig as JConfig
+    from mpi_operator_tpu_torch.__main__ import build_parser
+    from mpi_operator_tpu_torch.telemetry.collector import JobObservatory
+    assert ControllerConfig().scrape_interval == JConfig().scrape_interval \
+        == build_parser().parse_args([]).scrape_interval == 10.0
+    kw = {"events_dir": {"events_dir": str(tmp_path)},
+          "worker_metrics_port": {"worker_metrics_port": 9100},
+          "scrape_interval": {"worker_metrics_port": 9100,
+                              "scrape_interval": 2.5}}[flag]
+    ctrl = TPUJobController(InMemoryAPIServer(),
+                            config=ControllerConfig(**kw))
+    obs = ctrl.observatory
+    assert isinstance(obs, JobObservatory)
+    assert obs.scrape_interval == kw.get("scrape_interval", 10.0)
+    assert obs.events_dir == kw.get("events_dir")
+    assert (obs.events is not None) == (flag == "events_dir")
+    assert TPUJobController(InMemoryAPIServer()).observatory is None
+    sentinel = ScrapeLog()
+    ctrl = TPUJobController(InMemoryAPIServer(),
+                            config=ControllerConfig(**kw),
+                            observatory=sentinel)
+    assert ctrl.observatory is sentinel
+
+
+@pytest.mark.parametrize("mode", ["gpu", "tpu"])
+def test_metrics_port_reaches_the_worker_env_and_the_scrape(mode):
+    """With a worker metrics port, every worker's env carries
+    TPU_METRICS_PORT (the port's lm_benchmark serves /metrics there) and
+    the controller scrapes each worker pod's hostname at that port, rank
+    by rank, once the gang is ready; the TPU-mode env equals the JAX
+    controller's. Without the port there is neither."""
+    from mpi_operator_tpu.api.types import new_tpu_job as j_new_tpu_job
+    from mpi_operator_tpu.cluster.apiserver import \
+        InMemoryAPIServer as JAPIServer
+    from mpi_operator_tpu.controller import ControllerConfig as JConfig
+    from mpi_operator_tpu.controller import TPUJobController as JController
+    log = ScrapeLog()
+    f = (GPUFixture if mode == "gpu" else Fixture)(worker_metrics_port=9100)
+    f.controller.observatory = log
+    f.seed(gpu_job() if mode == "gpu" else new_job())
+    f.run("default/test")
+    sts = f.api.get("StatefulSet", "default", "test" + WORKER_SUFFIX)
+    env = sts.spec.template.main_container().env
+    assert env["TPU_METRICS_PORT"] == "9100"
+    assert log.observed == []                # not ready: nothing to scrape
+    sts.status.ready_replicas = sts.spec.replicas
+    f.api.update(sts)
+    f.run("default/test")
+    host = "test-worker-{}.test-worker.default.svc:9100"
+    assert log.observed == [("test", {r: "http://" + host.format(r)
+                                      for r in range(2)}, False)]
+    if mode == "tpu":
+        japi = JAPIServer()
+        jctrl = JController(japi, config=JConfig(worker_metrics_port=9100))
+        jctrl.observatory = ScrapeLog()
+        jctrl.factory.start_all()
+        job = j_new_tpu_job("test", tpus=8)
+        job.spec.template.main_container().image = "tpu-bench:latest"
+        japi.create(job)
+        jctrl.sync_handler("default/test")
+        jenv = japi.get("StatefulSet", "default", "test" + WORKER_SUFFIX
+                        ).spec.template.main_container().env
+        assert jenv == env
+    bare = (GPUFixture if mode == "gpu" else Fixture)()
+    bare.seed(gpu_job() if mode == "gpu" else new_job())
+    bare.run("default/test")
+    assert "TPU_METRICS_PORT" not in bare.api.get(
+        "StatefulSet", "default", "test" + WORKER_SUFFIX
+    ).spec.template.main_container().env
+
+
+def test_demo_with_the_observatory_runs_without_torch(tmp_path):
+    """`python -m mpi_operator_tpu_torch --demo --worker-metrics-port 9100
+    --events-dir <dir>` in an interpreter where torch and jax cannot
+    load: the GPU job reaches Succeeded, the controller's event log and
+    the job's merged timeline land under the events dir (its scrapes
+    fail, as the demo starts no worker process), and the postmortem
+    renders that timeline."""
+    import json
+    import os
+    import pathlib
+    import subprocess
+    import sys
+    root = pathlib.Path(__file__).resolve().parent.parent
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(root)] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                       if p])
+    code = ("import runpy, sys\n"
+            "for m in ('torch', 'jax', 'jaxlib', 'triton'):\n"
+            "    sys.modules[m] = None\n"
+            "sys.argv = ['x'] + sys.argv[1:]\n"
+            "runpy.run_module(sys.argv.pop(1), run_name='__main__',"
+            " alter_sys=True)\n")
+    events = tmp_path / "events"
+    out = subprocess.run(
+        [sys.executable, "-c", code, "mpi_operator_tpu_torch", "--demo",
+         "--worker-metrics-port", "9100", "--events-dir", str(events)],
+        cwd=root, env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "demo lifecycle complete" in out.stderr
+    timeline = events / "demo" / "timeline.jsonl"
+    kinds = [json.loads(line)["event"]
+             for line in timeline.read_text().splitlines()]
+    assert kinds[0] == "job_created" and kinds[-1] == "job_succeeded"
+    assert "pods_ready" in kinds
+    assert (events / "controller-events.jsonl").exists()
+    out = subprocess.run(
+        [sys.executable, "-c", code, "mpi_operator_tpu_torch.postmortem",
+         str(timeline)], cwd=root, env=env, capture_output=True,
+        text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "postmortem: job demo" in out.stdout and "goodput" in out.stdout
 
 
 def test_gpu_job_lifecycle_through_the_run_loop():

@@ -14,9 +14,11 @@ synthetic stream is step-keyed and a checkpoint is a copy.
 The CLI legs of the controller's resilience smoke run as subprocesses
 with `--device cpu` (215 with step_5, resume 0 with step_8,
 `die-at-step:11` 217 with no step_11, resume 0 with step_12), and the
-JAX package's collector, playing the controller between them, merges
-the port's event log into steps lost 3 and goodput 0.8 — the proof
-that the port's worker speaks the controller's event contract. Two
+port's collector CLI, playing the controller between them, merges the
+port's event log into steps lost 3 and goodput 0.8 — the proof that
+the port's worker speaks the controller's event contract — and the JAX
+package's collector merges the same logs into the same timeline and the
+same federated text. Two
 gloo processes show that one rank's stop request stops both at the same
 step.
 """
@@ -35,6 +37,7 @@ import torch
 
 from mpi_operator_tpu.examples import lm_benchmark as jbench
 from mpi_operator_tpu.telemetry import collector as jcollector
+from mpi_operator_tpu_torch.telemetry import collector as tcollector
 from mpi_operator_tpu.telemetry import events as jevents
 from mpi_operator_tpu.train import resilience as jres
 from mpi_operator_tpu_torch.examples import lm_benchmark as tbench
@@ -354,7 +357,7 @@ def test_sigterm_resume_bit_equal_with_the_reference_event_log(
 
 
 # ---------------------------------------------------------------------------
-# the CLI legs, with the JAX collector playing the controller
+# the CLI legs, with the port's collector playing the controller
 # ---------------------------------------------------------------------------
 
 def _cli(train_dir, *extra, fault=None, timeout=120):
@@ -378,7 +381,7 @@ def test_cli_legs_speak_the_controllers_event_contract(tmp_path):
     ckpt, ctl = tmp_path / "ckpt", str(tmp_path / "controller.jsonl")
 
     def emit(*args):
-        assert jcollector.main(["emit", "--log", ctl, "--job", "smoke",
+        assert tcollector.main(["emit", "--log", ctl, "--job", "smoke",
                                 *args]) == 0
 
     emit("job_created", "tpus=8")
@@ -406,15 +409,19 @@ def test_cli_legs_speak_the_controllers_event_contract(tmp_path):
     for kind in ("preemption_drain", "emergency_checkpoint",
                  "fault_injected", "checkpoint_restore", "run_complete"):
         assert kind in kinds, kinds
-    prom = tmp_path / "federated.prom"
-    assert jcollector.main([
-        "merge", "--job", "smoke", "--controller", ctl,
-        "--worker", f"worker-0={ckpt / 'events.jsonl'}",
-        "--out", str(tmp_path / "timeline.jsonl"),
-        "--metrics-out", str(prom)]) == 0
-    text = prom.read_text()
+    merged = {}
+    for side, collector in (("torch", tcollector), ("jax", jcollector)):
+        prom = tmp_path / f"federated-{side}.prom"
+        timeline = tmp_path / f"timeline-{side}.jsonl"
+        assert collector.main([
+            "merge", "--job", "smoke", "--controller", ctl,
+            "--worker", f"worker-0={ckpt / 'events.jsonl'}",
+            "--out", str(timeline), "--metrics-out", str(prom)]) == 0
+        merged[side] = (timeline.read_text(), prom.read_text())
+    text = merged["torch"][1]
     assert 'tpu_job_steps_lost_total{job="smoke"} 3\n' in text, text
     assert 'tpu_job_goodput{job="smoke"} 0.8\n' in text, text
+    assert merged["torch"] == merged["jax"]
 
 
 def test_cli_exits_1_on_divergence_and_refuses_more_processes(
