@@ -109,7 +109,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    launch and finiteness checks.
 12. (Run after 8.) The serving benchmark (examples/serve_benchmark.py)
    at bench.py's
-   `serving` leg (gpt2-medium, 8 slots, 32 requests, prompts 32/64/128,
+   `serving` leg (gpt2-medium, 8 slots, 12 requests, prompts 32/64/128,
    32/64 new tokens, buckets (32, 128), the sequential generate()
    baseline and the sync A/B), the same leg with odd ids sampled, and
    the `serving_paged` leg (pages of 64, a 128-token shared prefix).
@@ -169,9 +169,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    equal remat off's bit for bit; K1 launches 2 x 24 x steps under
    remat, K2/K3 24 x steps; peak memory and step p50 of each arm.
 17. Generate: run_generate_benchmark for gpt2-medium and llama-1b,
-   bf16 and int8 KV, batch 8, prompt 128, 128 new tokens, greedy,
-   decode_kernel=True, 2 timed calls after a warm one: K4 launches
-   layers x 127 decode steps x calls (the prefill runs the dense path),
+   bf16 and int8 KV, batch 8, prompt 128, 16 new tokens, greedy,
+   decode_kernel=True, 1 timed call after a warm one: K4 launches
+   layers x 15 decode steps x calls (the prefill runs the dense path),
    no other kernel; the last call's tokens against decode_kernel=False
    on the same model, each row's first divergence a near tie of the
    dense path; tokens/s and MBU against 3.35 TB/s. Every phase from 14
@@ -333,11 +333,39 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the stop, and LocalKubelet kills the stopped process when the
    controller deletes its pod.
 
+25. (Run after 21.) [train-lm-mp]: tests/torch_mp_worker.py as one gang
+   of 4 gloo ranks on the card (launch.py, TPU_SLOTS_PER_WORKER 4, the
+   bootstrap), every leg laying its own mesh over the same processes.
+   (a) gpt2-medium at full width and depth, bf16 over f32 masters,
+   attention flash, (dp, fsdp, tp) = (1, 2, 2), global batch 16 x 512,
+   2 + 5 steps through LMTrainer.benchmark: finite losses, no skip, each
+   rank's K1-K3 launches 24 x 7 with 8 heads a launch; its tokens/s and
+   step p50 beside [train]'s one process (4 ranks sharing one card over
+   gloo: not a scale-out figure), each rank's masters + mu + nu against
+   one process's / (fsdp x tp), peak memory a rank. (b) f32 parity at
+   gpt2-medium's width, 2 layers, dense attention, 8 x 256, 3 AdamW
+   steps from seed 0's weights and numpy batches, against this
+   process's run of the same: (1, 2, 2), (2, 2, 1), (1, 2, 2) with
+   tp_overlap uni and bidir, and gpt2-small's width with 8 experts
+   (capacity factor 1.25, accum_steps 2) at (dp, ep) = (2, 2); update,
+   mu, nu within LM_DDP_REL, the ranks' gathered state equal. (c) ring
+   attention through K1-K3 at sp 2 and 4, B 4, S 2048, 16 heads, D 64,
+   bf16, causal and not, against K1-K3 over the whole sequence in this
+   process (RING_REL) with H28's launch plan on each rank; then a
+   trainer at (dp, sp, tp) = (1, 2, 2), gpt2-medium's width at 2 layers,
+   bf16, S 512: its launches H28's plan, its losses and update within
+   LM_DDP_BF16_REL of one process's K1-K3 run. (d) The planted faults
+   (one layer's row-parallel all-reduce skipped, fsdp's reduce-scatter
+   over tp, a tp-replicated parameter counted tp times in the norm,
+   the ring's diagonal block non-causal) must each exceed the limit.
+
 The line before the last is {"kernels": [...]}: K4, K5 and K1-K3 (at
 the gpt2 training shape, with a `vit_b16` entry each: launches in
 [train-vit] and the timing row at ViT-B/16's shape; and an
-`lm_gang_of_one` entry: launches in [train-lm-ddp]'s gang of one; and an
-`operator` entry: launches in the [operator] job's worker); K5's
+`lm_gang_of_one` entry: launches in [train-lm-ddp]'s gang of one; an
+`lm_mp` entry: rank 0's launches in [train-lm-mp] (a) and each rank's
+in its causal rings; and an `operator` entry: launches in the
+[operator] job's worker); K5's
 entry adds `disagg`, `router` and `livescale`: its launches in each
 fleet phase. The last line is {"ok": true, "device": {...}}.
 """
@@ -1086,8 +1114,10 @@ def ab_runs(model, trace, configs):
 
 
 # the serving benchmark's legs (bench.py's `serving` and `serving_paged`
-# at full size), and a sampled variant of the first for the graphs A/B
-BENCH_COMMON = dict(size="medium", slots=8, num_requests=32,
+# at full size), and a sampled variant of the first for the graphs A/B;
+# 12 requests of bench.py's 32, to make room for [train-lm-mp] in the
+# run's time (PERF.md section 6)
+BENCH_COMMON = dict(size="medium", slots=8, num_requests=12,
                     prompt_grid=(32, 64, 128), new_grid=(32, 64),
                     chunk_buckets=(32, 128), compare_graphs=True)
 BENCH_LEGS = [
@@ -1279,7 +1309,9 @@ def bench_phase():
 
 # the JAX bench's serving_spec leg at full size (bench.py:558-583): the
 # paged serving leg with prompt-lookup drafting, then the same contiguous
-SPEC_COMMON = dict(size="medium", slots=8, num_requests=32,
+# 16 requests of the leg's 32, to make room for [train-lm-mp] in the
+# run's time (PERF.md section 6)
+SPEC_COMMON = dict(size="medium", slots=8, num_requests=16,
                    prompt_grid=(32, 64, 128), new_grid=(32, 64),
                    chunk_buckets=(32, 128), shared_prefix_len=128,
                    decode_kernel=True, speculative="ngram", draft_k=4,
@@ -2816,7 +2848,7 @@ def train_ddp_phase(dev):
 # (a): the [train] leg's gpt2-medium at full width and depth as a gang of
 # one over NCCL (the bootstrap's rendezvous, the flat all-reduce)
 LM_GANG1 = dict(workload="gpt2", size="medium", batch_per_device=16,
-                seq_len=512, num_steps=30, warmup_steps=3, attention="flash")
+                seq_len=512, num_steps=10, warmup_steps=3, attention="flash")
 # (b), (c): tests/torch_lm_gang_worker.py's chip configs, 3 AdamW steps on
 # a global batch of 8 x 256, gangs against this process, compared by the
 # relative error of the update, mu and nu. (b) runs the three models in
@@ -2960,6 +2992,211 @@ def train_lm_ddp_phase(ops, dev, single):
 
 
 # ---------------------------------------------------------------------------
+# [train-lm-mp]: fsdp, tensor, sequence and expert parallelism
+# ---------------------------------------------------------------------------
+
+# tests/torch_mp_worker.py's legs, one gang of 4 gloo ranks on the card
+# (launch.py, TPU_SLOTS_PER_WORKER 4, the bootstrap), each leg laying its
+# own mesh over the same processes
+LM_MP_FULL = "chip/full-fsdp2-tp2"
+LM_MP_PARITY = ("chip/fsdp2-tp2", "chip/dp2-fsdp2", "chip/fsdp2-tp2-uni",
+                "chip/fsdp2-tp2-bidir", "chip/moe-dp2-ep2")
+LM_MP_RINGS = ("chip/ring-sp2", "chip/ring-sp4")
+LM_MP_RING_ALONE_FAULT = "chip/ring-sp2/ring-diagonal-noncausal"
+# The ring in bf16 against K1-K3 over the whole sequence: every visible
+# block's output and gradients leave K1-K3 rounded to bf16 before the
+# f32 combine, where the whole-sequence kernels round once, so the two
+# differ by a few bf16 rounding errors of a partial: 1.0e-3 to 3.1e-3
+# relative on the H100 at sp 2 and 4 (the whole-sequence K1-K3 chain
+# against its plain chain reads 2.4e-4 to 2.3e-3). `out` stays within
+# F3's K1 limit (FLASH_REL["flash_fwd"]); F3's K2/K3 limit (4e-4) holds
+# a kernel against its plain version given the same lse and delta, not
+# a different summation, so dq, dk and dv are held to RING_REL, under
+# which the ring with its diagonal block run non-causal must fail.
+RING_REL = {"out": FLASH_REL["flash_fwd"], "dq": 1e-2, "dk": 1e-2,
+            "dv": 1e-2}
+LM_MP_RING_TRAIN = "chip/sp2-tp2"
+LM_MP_FAULTS = ("chip/fsdp2-tp2/allreduce-skipped",
+                "chip/fsdp2-tp2/fsdp-wrong-group",
+                "chip/fsdp2-tp2/norm-tp-times")
+LM_MP_RING_FAULT = "chip/sp2-tp2/ring-diagonal-noncausal"
+LM_MP_RANKS = 4
+
+
+def one_process_leg(worker, name, dev):
+    """A leg's model at one process on the card from the same weights and
+    numpy batches: attention as the size gives it (K1-K3 in bf16, dense
+    in f32), no fault, no overlap rings."""
+    spec = dict(worker.LEGS[name], fault=None)
+    spec["cfg"] = {k: v for k, v in spec["cfg"].items()
+                   if k not in ("attention", "tp_overlap", "tp_ring")}
+    try:
+        return worker.train_leg(spec, dev)
+    finally:
+        torch.cuda.empty_cache()
+
+
+def ring_errors(worker, name, res, dev):
+    """The ring's out, dq, dk, dv (gathered, rank 0) against K1-K3 over
+    the whole sequence in this process, same inputs and cotangent, as
+    relative errors; and the plain versions' against K1-K3, the same
+    comparison without the ring."""
+    from mpi_operator_tpu_torch.ops import attention as ops
+    q, k, v, do = worker.ring_inputs(*worker.LEGS[name]["ring"]["shape"],
+                                     torch.bfloat16, device=dev)
+    out = {}
+    for causal in (True, False):
+        qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
+        o = ops.flash_attention(qs, ks, vs, causal=causal)
+        o.backward(do)
+        got = res[causal]
+        out[causal] = {n: rel_err(got[n].to(dev).float(), t.float())
+                       for n, t in (("out", o), ("dq", qs.grad),
+                                    ("dk", ks.grad), ("dv", vs.grad))}
+        del qs, ks, vs, o
+    return out
+
+
+def lm_mp_check(label, err, limit, fault=False):
+    """Print a leg's errors against one process; check the worst of the
+    update, mu and nu (those the leg gathered) against `limit` (for a
+    planted fault, that it exceeds it)."""
+    worst = max(err.get(k, 0.0) for k in ("update", "mu", "nu"))
+    log(f"  lm-mp {label} ({device_line()}): relative error "
+        + ", ".join(f"{k} {v:.3e}" for k, v in err.items())
+        + f" (limit {limit:.0e})")
+    if fault:
+        check(worst > limit, f"lm-mp {label}: the planted fault passed the "
+              f"check ({err} <= {limit})")
+    else:
+        check(worst <= limit, f"lm-mp {label}: {err} > {limit}")
+
+
+def train_lm_mp_phase(ops, dev, single):
+    """fsdp, tp, sp and ep on one card: (a) gpt2-medium whole at (dp,
+    fsdp, tp) = (1, 2, 2), bf16, K1-K3, 16 x 512, 2 + 5 steps; (b) f32
+    parity legs against one process; (c) the ring through K1-K3 alone
+    against whole-sequence K1-K3, then a trainer step at (dp, sp, tp) =
+    (1, 2, 2); (d) the planted faults. Returns {kernel: rank 0's
+    launches in (a)} and the ring's."""
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tests"))
+    import torch_mp_worker as worker
+    torch.cuda.empty_cache()
+    legs = ((LM_MP_FULL,) + LM_MP_PARITY + LM_MP_RINGS
+            + (LM_MP_RING_ALONE_FAULT, LM_MP_RING_TRAIN) + LM_MP_FAULTS
+            + (LM_MP_RING_FAULT,))
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        got = worker.gang(LM_MP_RANKS, os.path.join(tmp, "r"), legs,
+                          device="cuda", timeout=900)
+    log(f"  one gang of {LM_MP_RANKS} ranks over {got[0]['backend']} on the "
+        f"card, {len(legs)} legs: {time.perf_counter() - t0:.1f} s")
+    check(got[0]["backend"] == "gloo", "ranks sharing one card not gloo")
+
+    # (a) gpt2-medium at full width and depth
+    cfg = worker.config_of(worker.LEGS[LM_MP_FULL])
+    ranks = [r[LM_MP_FULL] for r in got]
+    one_bytes = 12 * sum(math.prod(s) for s in
+                         worker.tt.param_shapes(cfg).values())
+    for i, r in enumerate(ranks):
+        check(all(math.isfinite(x) for x in r["losses"]),
+              f"(a) rank {i}: non-finite loss {r['losses']}")
+        check(r["streak"] == 0, f"(a) rank {i}: the guard skipped a step")
+        want = cfg.num_layers * r["steps"]
+        check(r["launches"] == {k: want for k in worker.FLASH},
+              f"(a) rank {i}: K1-K3 launches {r['launches']} != "
+              f"{cfg.num_layers} x {r['steps']}")
+        check(r["heads_per_launch"] == cfg.num_heads // 2,
+              f"(a) rank {i}: {r['heads_per_launch']} heads a launch")
+        ratio = r["masters_bytes"] / (one_bytes / 4)
+        log(f"  (a) rank {i} ({device_line()}): masters + mu + nu "
+            f"{r['masters_bytes'] / 1e9:.3f} GB = {ratio:.4f} x one "
+            f"process's {one_bytes / 1e9:.3f} GB / (fsdp 2 x tp 2); peak "
+            f"memory {r['peak_bytes'] / 1e9:.2f} GB; losses "
+            f"{[round(x, 4) for x in r['losses']]}")
+        check(1.0 <= ratio < 1.01, f"(a) rank {i}: state bytes ratio {ratio}")
+    log(f"  (a) gpt2-medium at (dp, fsdp, tp) = (1, 2, 2), 4 ranks sharing "
+        f"one card over gloo (not a scale-out figure; {device_line()}): "
+        f"tokens/s {ranks[0]['tokens_per_sec']:.1f} (the gang's), step p50 "
+        f"{ranks[0]['step_time_p50_ms']:.1f} ms, against [train]'s one "
+        f"process {single['tokens_per_sec']:.1f} tokens/s, step p50 "
+        f"{single['step_time_p50_ms']:.1f} ms; K1-K3 "
+        f"{ranks[0]['launches']} a rank, 8 heads a launch")
+
+    # (b) f32 parity against one process
+    refs = {}
+    for name in LM_MP_PARITY:
+        want = refs[name] = one_process_leg(worker, name, dev)
+        mine = [r[name] for r in got if name in r]
+        lm_mp_check(name, worker.compare(mine[0], want), LM_DDP_REL)
+        check(all(r["digest"] == mine[0]["digest"] for r in mine),
+              f"(b) {name}: the ranks' gathered shards differ")
+
+    # (c) the ring through K1-K3
+    ring_counts = {}
+    for name in LM_MP_RINGS:
+        n = worker.LEGS[name]["mesh"]["sp"]
+        errs = ring_errors(worker, name, got[0][name], dev)
+        for causal, e in errs.items():
+            log(f"  (c) {name} {'causal' if causal else 'non-causal'} "
+                f"({device_line()}): against K1-K3 over the whole "
+                f"sequence, relative error "
+                + ", ".join(f"{k} {v:.3e}" for k, v in e.items())
+                + f" (limits {RING_REL})")
+            for k, v in e.items():
+                check(v <= RING_REL[k], f"(c) {name} causal={causal}: {k} "
+                      f"{v} > {RING_REL[k]}")
+            for r in got:
+                if name not in r:
+                    continue
+                res = r[name][causal]
+                want = res["sp_index"] + 1 if causal else n
+                check(res["launches"] == {k: want for k in worker.FLASH},
+                      f"(c) {name} causal={causal} sp rank "
+                      f"{res['sp_index']}: launches {res['launches']}, "
+                      f"H28's plan {want}")
+        ring_counts[name] = [r[name][True]["launches"]
+                             for r in got if name in r]
+    fault = ring_errors(worker, LM_MP_RING_ALONE_FAULT,
+                        got[0][LM_MP_RING_ALONE_FAULT], dev)[True]
+    log(f"  (c) planted: {LM_MP_RING_ALONE_FAULT} causal, relative error "
+        + ", ".join(f"{k} {v:.3e}" for k, v in fault.items()))
+    check(all(fault[k] > RING_REL[k] for k in ("out", "dq")),
+          f"(c) the ring's non-causal diagonal passed RING_REL: {fault}")
+    cfg = worker.config_of(worker.LEGS[LM_MP_RING_TRAIN])
+    want = one_process_leg(worker, LM_MP_RING_TRAIN, dev)
+    for i, r in enumerate(got):
+        res = r[LM_MP_RING_TRAIN]
+        sp_index = i // 2 % 2                  # (sp, tp) = (2, 2), tp inner
+        plan = cfg.num_layers * len(res["losses"]) * (sp_index + 1)
+        check(res["launches"] == {k: plan for k in worker.FLASH},
+              f"(c) ring step rank {i}: launches {res['launches']}, H28's "
+              f"plan {plan}")
+        loss_rel = max(abs(a - b) / abs(b) for a, b in
+                       zip(res["losses"], want["losses"]))
+        log(f"  (c) trainer at (dp, sp, tp) = (1, 2, 2), bf16, rank {i}: "
+            f"K1-K3 {res['launches']} (plan {plan}), losses "
+            f"{res['losses']} against one process's {want['losses']}: "
+            f"relative {loss_rel:.3e} (limit {LM_DDP_BF16_REL:.0e})")
+        check(loss_rel <= LM_DDP_BF16_REL, f"(c) ring step loss {loss_rel}")
+        check(res["digest"] == got[0][LM_MP_RING_TRAIN]["digest"],
+              f"(c) ring step rank {i}: the gathered shards differ")
+    lm_mp_check(LM_MP_RING_TRAIN, worker.compare(got[0][LM_MP_RING_TRAIN],
+                                                 want), LM_DDP_BF16_REL)
+
+    # (d) the planted faults
+    base = refs["chip/fsdp2-tp2"]
+    for name in LM_MP_FAULTS:
+        lm_mp_check(name, worker.compare(got[0][name], base), LM_DDP_REL,
+                    fault=True)
+    lm_mp_check(LM_MP_RING_FAULT, worker.compare(got[0][LM_MP_RING_FAULT],
+                                                 want),
+                LM_DDP_BF16_REL, fault=True)
+    return ranks[0]["launches"], ring_counts
+
+
+# ---------------------------------------------------------------------------
 # BERT, MoE and remat training; the generate leg
 # ---------------------------------------------------------------------------
 
@@ -2973,14 +3210,17 @@ MOE_COMMON = dict(workload="gpt2", size="small", batch_per_device=16,
 # a capacity factor of 1.25 admits 1.25x the balanced load an expert;
 # past half the routes dropped the router has collapsed onto few experts
 MOE_DROP_MAX = 0.5
+# 3 timed steps an arm (10 before [train-lm-mp] needed the run's time)
 REMAT_COMMON = dict(workload="gpt2", size="medium", batch_per_device=16,
-                    seq_len=512, attention="flash", num_steps=10,
+                    seq_len=512, attention="flash", num_steps=3,
                     warmup_steps=2)
 REMAT_ARMS = [("off", {}), ("none", dict(remat=True, remat_policy="none")),
               ("dots", dict(remat=True, remat_policy="dots"))]
-# the generate leg (bench.py:382 decode_leg): batch 8, prompt 128, 128
-# new tokens, greedy, decode_kernel=True; timed calls cut to 2
-GEN_COMMON = dict(batch=8, prompt_len=128, new_tokens=128, num_iters=2,
+# the generate leg (bench.py:382 decode_leg): batch 8, prompt 128,
+# greedy, decode_kernel=True; cut to 16 new tokens (of 128) and one timed
+# call, to make room for [train-lm-mp] in the run's time (PERF.md
+# section 6)
+GEN_COMMON = dict(batch=8, prompt_len=128, new_tokens=16, num_iters=1,
                   decode_kernel=True)
 GEN_LEGS = [("gpt2", "medium", None), ("gpt2", "medium", "int8"),
             ("llama", "1b", None), ("llama", "1b", "int8")]
@@ -4143,7 +4383,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     log("[generate] run_generate_benchmark: gpt2-medium and llama-1b, "
-        "batch 8, prompt 128, 128 new tokens, bf16 and int8 KV, "
+        "batch 8, prompt 128, 16 new tokens, bf16 and int8 KV, "
         "decode_kernel=True")
     generate_phase(ops)
     log(f"[generate] {time.perf_counter() - t0:.1f} s")
@@ -4179,6 +4419,15 @@ def main() -> int:
     with cudnn_heuristics():
         gang_counts = train_lm_ddp_phase(ops, dev, train_metrics)
     log(f"[train-lm-ddp] {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    log("[train-lm-mp] one gang of 4 gloo ranks on the card: gpt2-medium "
+        "at (dp, fsdp, tp) = (1, 2, 2) in bf16 through K1-K3; f32 parity "
+        "at (1, 2, 2), (2, 2, 1), tp_overlap uni and bidir, MoE at (dp, "
+        "ep) = (2, 2); ring attention through K1-K3 at sp 2 and 4 and a "
+        "trainer at (dp, sp, tp) = (1, 2, 2); the planted faults")
+    mp_counts, ring_counts = train_lm_mp_phase(ops, dev, train_metrics)
+    log(f"[train-lm-mp] {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     log(f"[train-resume] gpt2-medium, bf16, attention=flash, 16 x 512: "
@@ -4221,6 +4470,10 @@ def main() -> int:
              vit_b16=dict(launches=vit_counts[name],
                           **flash_rows["vit-b16"][name]),
              lm_gang_of_one=dict(launches=gang_counts[name]),
+             lm_mp=dict(launches=mp_counts[name], ranks=LM_MP_RANKS,
+                        ring_causal_launches={
+                            leg: [c[name] for c in counts]
+                            for leg, counts in ring_counts.items()}),
              operator=dict(launches=operator["launches"][name]))
         for name, line in flash_lines.items()]}))
     print(json.dumps({"ok": True, "device": {

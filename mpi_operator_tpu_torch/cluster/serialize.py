@@ -32,6 +32,8 @@ from ..api.types import (
     OwnerReference,
     PodTemplateSpec,
     ReplicaStatus,
+    ServingSLO,
+    ServingSpec,
     TPUJob,
     TPUJobSpec,
     TPUJobStatus,
@@ -263,6 +265,39 @@ def template_from_manifest(m: dict) -> PodTemplateSpec:
 # v1alpha2 status, common_types.go:23-156)
 # ---------------------------------------------------------------------------
 
+#: ServingSLO's fields by their wire names
+_SLO_FIELDS = (("ttftP99Seconds", "ttft_p99_seconds"),
+               ("tpotP99Seconds", "tpot_p99_seconds"),
+               ("queueDepth", "queue_depth"),
+               ("minDecodeReplicas", "min_decode_replicas"),
+               ("maxDecodeReplicas", "max_decode_replicas"),
+               ("breachSeconds", "breach_seconds"),
+               ("clearSeconds", "clear_seconds"),
+               ("cooldownMultiplier", "cooldown_multiplier"),
+               ("cooldownFloorSeconds", "cooldown_floor_seconds"))
+
+
+def _serving_to_manifest(sv: Optional[ServingSpec]) -> Optional[dict]:
+    if sv is None:
+        return None
+    slo = (None if sv.slo is None else _prune(
+        {wire: getattr(sv.slo, attr) for wire, attr in _SLO_FIELDS}))
+    return _prune({"prefillReplicas": sv.prefill_replicas,
+                   "decodeReplicas": sv.decode_replicas, "slo": slo})
+
+
+def _serving_from_manifest(m: Optional[dict]) -> Optional[ServingSpec]:
+    if m is None:
+        return None
+    slo = m.get("slo")
+    if slo is not None:
+        slo = ServingSLO(**{attr: slo[wire] for wire, attr in _SLO_FIELDS
+                            if wire in slo})
+    return ServingSpec(prefill_replicas=int(m.get("prefillReplicas", 1)),
+                       decode_replicas=int(m.get("decodeReplicas", 1)),
+                       slo=slo)
+
+
 def _tpujob_spec_to_manifest(s: TPUJobSpec) -> dict:
     return _prune({
         "tpus": s.tpus,
@@ -288,6 +323,11 @@ def _tpujob_spec_to_manifest(s: TPUJobSpec) -> dict:
         "minTpus": s.min_tpus,
         "resize": s.resize,
         "priority": s.priority or None,
+        # the job-packing group and the serving pools (the JAX package's
+        # serializer drops both, so a job read back from a real API server
+        # loses them)
+        "packGroup": s.pack_group,
+        "serving": _serving_to_manifest(s.serving),
         "template": template_to_manifest(s.template),
     })
 
@@ -315,6 +355,8 @@ def _tpujob_spec_from_manifest(m: dict) -> TPUJobSpec:
         min_tpus=m.get("minTpus"),
         resize=m.get("resize"),
         priority=int(m.get("priority", 0)),
+        pack_group=m.get("packGroup"),
+        serving=_serving_from_manifest(m.get("serving")),
         template=template_from_manifest(m.get("template") or {}),
     )
 

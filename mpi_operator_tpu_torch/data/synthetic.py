@@ -20,6 +20,11 @@ ranks, so rank r holds rows [m B/A + r b, m B/A + (r + 1) b) of each
 microbatch m, b = B / (A W). The MLM mask is drawn over the global batch
 and follows the tokens.
 
+Over a model-parallel mesh (`mesh=`) a rank's rows are those of its
+place on the batch axes (dcn, dp, fsdp): tp and ep ranks take the same
+rows, and sp ranks the same rows and each its own sequence shard
+(`mesh_share`).
+
 `SyntheticImageDataset` is step-keyed too but yields this rank's b =
 batch_size / world rows of the global batch, drawn from a generator
 keyed by (seed, step, rank): each rank makes only its own rows, as the
@@ -41,6 +46,7 @@ from typing import Iterator, Tuple
 import numpy as np
 import torch
 
+from ..parallel.mesh import BATCH_AXES
 from ..utils.device import DeviceLike, rank_and_world, resolve_device
 
 #: the BERT objective's corruption rate; the mask id is vocab - 1
@@ -99,6 +105,35 @@ def rank_share(x, rank: int, world: int, accum_steps: int = 1):
     return x.reshape((A, world, b) + rest)[:, rank].reshape((A * b,) + rest)
 
 
+def seq_share(x, index: int, n: int):
+    """Sequence shard `index` of `n` of a [B, S, ...] batch."""
+    if n == 1:
+        return x
+    S = x.shape[1]
+    if S % n:
+        raise ValueError(f"sequence of {S} does not split over sp={n}")
+    return x[:, index * (S // n):(index + 1) * (S // n)]
+
+
+def placement(mesh=None):
+    """(rank, world, sp index, sp) of this process's share of a global
+    batch: its place on the mesh's batch axes and sequence axis, or with
+    no mesh its rank and world in the process group."""
+    if mesh is None:
+        rank, world = rank_and_world()
+        return rank, world, 0, 1
+    return (mesh.position(), mesh.dim_size(BATCH_AXES),
+            mesh.coords()["sp"], mesh.shape["sp"])
+
+
+def mesh_share(x, mesh=None, accum_steps: int = 1):
+    """This rank's part of a global [B, S, ...] batch: its rows
+    (`rank_share` at its place on the batch axes) and, under sp, its
+    sequence shard of them."""
+    rank, world, i, n = placement(mesh)
+    return seq_share(rank_share(x, rank, world, accum_steps), i, n)
+
+
 def _step_seed(seed: int, step: int, *more: int) -> int:
     """The 64-bit seed of batch `step` of a stream seeded `seed` (and of
     the part of it that `more`, e.g. a rank, names)."""
@@ -111,14 +146,15 @@ class TokenStream:
     comes from its own torch.Generator seeded by (seed, i), so a stream
     started at step N yields exactly the batches an uninterrupted stream
     yields from N on; this rank keeps its rows of it (`rank_share`, with
-    the rank and world of the process group). (tokens, targets), or with
-    `masked_lm` (corrupted tokens, original tokens, f32 mask). Runs on
-    the CUDA card unless `device="cpu"`."""
+    the rank and world of the process group, or its place on `mesh`'s
+    batch axes and its sequence shard under sp: `mesh_share`).
+    (tokens, targets), or with `masked_lm` (corrupted tokens, original
+    tokens, f32 mask). Runs on the CUDA card unless `device="cpu"`."""
 
     def __init__(self, batch_size: int, seq_len: int, vocab_size: int,
                  seed: int = 1, start: int = 0, device: DeviceLike = None,
-                 masked_lm: bool = False, accum_steps: int = 1):
-        self.rank, self.world = rank_and_world()
+                 masked_lm: bool = False, accum_steps: int = 1, mesh=None):
+        self.rank, self.world, self.sp_index, self.sp = placement(mesh)
         if batch_size % (accum_steps * self.world):
             raise ValueError(f"global batch {batch_size} does not split "
                              f"into {accum_steps} microbatch(es) over "
@@ -143,8 +179,9 @@ class TokenStream:
                               device=self.device) < MLM_MASK_RATE
             out = (torch.where(mask, self.vocab_size - 1, toks), toks,
                    mask.float())
-        return tuple(rank_share(t, self.rank, self.world, self.accum_steps)
-                     for t in out)
+        return tuple(seq_share(rank_share(t, self.rank, self.world,
+                                          self.accum_steps),
+                               self.sp_index, self.sp) for t in out)
 
     def __iter__(self) -> Iterator[Tuple[torch.Tensor, ...]]:
         return self
@@ -192,5 +229,5 @@ class SyntheticImageDataset:
 
 
 __all__ = ["MLM_MASK_RATE", "SyntheticImageDataset", "TokenStream",
-           "rank_rows", "rank_share", "synthetic_image_batch",
-           "synthetic_token_batch"]
+           "mesh_share", "placement", "rank_rows", "rank_share",
+           "seq_share", "synthetic_image_batch", "synthetic_token_batch"]

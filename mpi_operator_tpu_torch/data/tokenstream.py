@@ -35,7 +35,7 @@ import torch
 
 from ..utils.device import DeviceLike, rank_and_world, resolve_device
 from .prefetch import PrefetchDataset
-from .synthetic import MLM_MASK_RATE, rank_share
+from .synthetic import MLM_MASK_RATE, placement, rank_share, seq_share
 
 
 def discover_token_shards(data_dir: str):
@@ -66,8 +66,9 @@ class NpyTokenDataset(PrefetchDataset):
                  device: DeviceLike = None, seed: int = 0, prefetch: int = 2,
                  vocab_size: Optional[int] = None,
                  host_transform: Optional[Callable] = None,
-                 accum_steps: int = 1):
-        self.rank, self.world = rank_and_world()
+                 accum_steps: int = 1, mesh=None):
+        self.rank, self.world, self.sp_index, self.sp = (
+            placement(mesh) if mesh is not None else (*rank_and_world(), 0, 1))
         if batch_size % (accum_steps * self.world):
             raise ValueError(f"global batch {batch_size} does not split "
                              f"into {accum_steps} microbatch(es) over "
@@ -129,8 +130,9 @@ class NpyTokenDataset(PrefetchDataset):
                         f"{self.vocab_size}; the shards were tokenized "
                         f"for a different vocabulary")
             win = win.astype(np.int32)
-            yield tuple(self._host_tensor(rank_share(
-                a, self.rank, self.world, self.accum_steps))
+            yield tuple(self._host_tensor(seq_share(rank_share(
+                a, self.rank, self.world, self.accum_steps),
+                self.sp_index, self.sp))
                 for a in self._host_transform(win))
 
     def __next__(self):

@@ -1,16 +1,21 @@
-"""LM training and decode benchmarks: the data-parallel path of the
-reference's `mpi_operator_tpu/examples/lm_benchmark.py::run_lm_benchmark`
-(over a dcn x dp mesh of the gang's ranks, one process without a gang),
-its `run_generate_benchmark`, and its CLI.
+"""LM training and decode benchmarks: the reference's
+`mpi_operator_tpu/examples/lm_benchmark.py::run_lm_benchmark` (over a
+dcn x dp x ep x sp x tp mesh of the gang's ranks, one process without a
+gang), its `run_generate_benchmark`, and its CLI.
 
 `run_lm_benchmark(workload="gpt2", size="medium", batch_per_device=16,
 seq_len=512)` builds the model with max_len = max(seq_len, 32), an
-LMTrainer over it on the data-parallel mesh of every rank of the
-process group (`num_slices` of them on dcn) and the step-keyed
+LMTrainer over it on the mesh of every rank of the process group
+(`num_slices` of them on dcn, `tp`, `ep` and `sp` as asked, dp filling
+what they leave, with the reference's checks) and the step-keyed
 synthetic TokenStream of the global batch, batch_per_device x ranks
-rows of which each rank keeps its share (or, with `data_dir`, the
-`<stem>_tokens.npy` shards through NpyTokenDataset), runs `trainer.benchmark` and, with `eval_steps`, `evaluate` on the
-batches that follow. `workload="bert"` trains the MaskedLM on the MLM
+rows of which each rank keeps its share (its place on the batch axes,
+and under sp its sequence shard; or, with `data_dir`, the
+`<stem>_tokens.npy` shards through NpyTokenDataset), runs
+`trainer.benchmark` and, with `eval_steps`, `evaluate` on the batches
+that follow. `sp` > 1 sets attention "ring" where it is "auto";
+`tp_overlap` runs the tp projections and the fused loss as ring
+collective-matmuls (`tp_ring` "uni" or "bidir"). `workload="bert"` trains the MaskedLM on the MLM
 objective (MLM_MASK_RATE of the tokens replaced by the mask id, scored
 against the originals); `moe_experts` turns every second FFN into a
 top-2 mixture of experts (`moe_dropless`: every expert runs every
@@ -41,8 +46,8 @@ the reference's ViT leg: the image Trainer (train/trainer.py) over
 benchmark here, alone or as a gang of processes through the bootstrap.
 
 The arguments of the parts not ported yet raise, naming the ROADMAP.md
-step that ports them; none is ignored: tp/sp/ep meshes (10c), pp (10d),
-HFTA and a resharding restore (10e).
+step that ports them; none is ignored: pp (10d), HFTA and a resharding
+restore (10e).
 """
 from __future__ import annotations
 
@@ -55,15 +60,35 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
-from ..data.synthetic import TokenStream, rank_share, synthetic_token_batch
+from ..data.synthetic import TokenStream, mesh_share, synthetic_token_batch
 from ..models.transformer import lm_config
-from ..parallel.mesh import data_parallel_mesh
+from ..parallel.mesh import MeshConfig, data_parallel_mesh, make_mesh
 from ..train.lm_trainer import LMTrainer, LMTrainerConfig, LMTrainState
 from ..utils.device import DeviceLike, rank_and_world, resolve_device
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-# the ROADMAP.md step that ports each mesh degree the CLI still refuses
-_UNPORTED = {"tp": "10c", "sp": "10c", "ep": "10c", "pp": "10d"}
+
+
+def lm_mesh(tp: int = 1, ep: int = 1, sp: int = 1, num_slices: int = 1,
+            moe_experts: int = 0):
+    """The benchmark's mesh over every rank of the process group (one
+    process without one): tp, ep and sp as asked, `num_slices` on dcn,
+    dp filling what they leave, with the reference's checks."""
+    n = rank_and_world()[1]
+    if ep > 1 and not moe_experts:
+        raise ValueError("--ep needs --moe-experts (nothing to shard)")
+    if moe_experts and moe_experts % ep:
+        # the sharding rules REPLICATE a non-divisible expert dim, which
+        # would mislabel a data-parallel run as expert-parallel
+        raise ValueError(f"--moe-experts={moe_experts} must be divisible "
+                         f"by --ep={ep}")
+    if tp == ep == sp == 1:
+        return data_parallel_mesh(num_slices)
+    if n % (tp * ep * sp * num_slices):
+        raise ValueError(f"{n} devices not divisible by tp={tp} × ep={ep} "
+                         f"× sp={sp} × slices={num_slices}")
+    return make_mesh(MeshConfig(dp=n // (tp * ep * sp * num_slices), tp=tp,
+                                ep=ep, sp=sp, dcn=num_slices))
 
 
 def _worker_telemetry(metrics_port, event_log, train_dir, events, log):
@@ -104,6 +129,8 @@ def run_lm_benchmark(
     sp: int = 1,
     ep: int = 1,
     num_slices: int = 1,
+    tp_overlap: bool = False,
+    tp_ring: str = "uni",
     attention: str = "auto",
     remat: bool = False,
     remat_policy: str = "none",
@@ -131,10 +158,10 @@ def run_lm_benchmark(
     device: DeviceLike = None,
     log: Callable[[str], None] = print,
 ) -> Tuple[LMTrainState, Dict[str, object]]:
-    """GPT-2 / llama / BERT token-stream benchmark over the data-parallel
-    mesh of the process group's ranks (`num_slices` of them on dcn; one
-    process when no group was joined), at a global batch of
-    batch_per_device x ranks. Parameters from seed 0 and the synthetic
+    """GPT-2 / llama / BERT token-stream benchmark over the mesh of the
+    process group's ranks (`lm_mesh`: `num_slices` of them on dcn, tp, ep
+    and sp as asked; one process when no group was joined), at a global
+    batch of batch_per_device x ranks. Parameters from seed 0 and the synthetic
     stream's global batches from seed 1, step-keyed, as the reference's
     PRNGKey(0) and PRNGKey(1); the MoE drop-rate probe's global batch
     from seed 7 (the reference's PRNGKey(7)).
@@ -154,11 +181,28 @@ def run_lm_benchmark(
     if moe_dropless and not moe_experts:
         raise ValueError("--moe-dropless needs --moe-experts (no MoE is "
                          "built without it)")
-    for name, degree in (("tp", tp), ("pp", pp), ("sp", sp), ("ep", ep)):
-        if degree > 1:
-            raise ValueError(f"{name}={degree}: not in the port yet (data "
-                             f"parallelism over dcn x dp only; {name} is "
-                             f"ROADMAP.md step {_UNPORTED[name]})")
+    if pp > 1:
+        raise ValueError(f"pp={pp}: pipelines are not in the port yet "
+                         f"(ROADMAP.md step 10d)")
+    if sp > 1:
+        # context parallelism: seq sharded over sp, attention rings the
+        # K/V shards (parallel/ring_attention.py)
+        if seq_len % sp:
+            raise ValueError(f"--seq-len={seq_len} must be divisible by "
+                             f"--sp={sp}")
+        if attention == "auto":
+            attention = "ring"
+        elif attention != "ring":
+            raise ValueError(f"--sp={sp} shards the sequence axis; "
+                             f"--attention must be 'ring' (got "
+                             f"{attention!r})")
+    if tp_overlap:
+        if tp <= 1:
+            raise ValueError("--tp-overlap needs --tp > 1 (nothing to "
+                             "ring over)")
+    elif tp_ring != "uni":
+        raise ValueError("--tp-ring=bidir only changes the overlap ring "
+                         "collectives; it needs --tp-overlap")
     if dtype_name not in _DTYPES:
         raise ValueError(f"dtype_name={dtype_name!r}; expected one of "
                          f"{sorted(_DTYPES)}")
@@ -175,8 +219,10 @@ def run_lm_benchmark(
         overrides.update(num_experts=moe_experts, moe_dropless=moe_dropless)
     if num_layers:
         overrides["num_layers"] = num_layers
+    if tp_overlap:
+        overrides.update(tp_overlap=True, tp_ring=tp_ring)
     cfg = lm_config(f"{workload}-{size}" if size else workload, **overrides)
-    mesh = data_parallel_mesh(num_slices)
+    mesh = lm_mesh(tp, ep, sp, num_slices, moe_experts)
     global_batch = batch_per_device * mesh.size
     opt_overrides = {}
     if lr is not None:
@@ -226,11 +272,12 @@ def run_lm_benchmark(
                 vocab_size=cfg.vocab_size,
                 host_transform=(mlm_host_transform(cfg.vocab_size)
                                 if masked else None),
-                accum_steps=accum_steps)
+                accum_steps=accum_steps, mesh=mesh)
         else:
             stream = TokenStream(global_batch, seq_len, cfg.vocab_size,
                                  seed=1, start=resumed_step, device=dev,
-                                 masked_lm=masked, accum_steps=accum_steps)
+                                 masked_lm=masked, accum_steps=accum_steps,
+                                 mesh=mesh)
         try:
             state, metrics = trainer.benchmark(
                 state, stream, num_steps=num_steps,
@@ -260,7 +307,7 @@ def run_lm_benchmark(
         resilience.__exit__(None, None, None)
         wtel.close(close_events=owns_events)
     if moe_experts:
-        rate = _moe_drop_rate(state.model, global_batch, seq_len, dev)
+        rate = _moe_drop_rate(state.model, global_batch, seq_len, dev, mesh)
         metrics["moe_drop_rate"] = rate
         log(f"moe drop rate: {rate:.3f}")
     wait_for_checkpoints()
@@ -268,14 +315,15 @@ def run_lm_benchmark(
 
 
 @torch.no_grad()
-def _moe_drop_rate(model, batch: int, seq_len: int, device) -> float:
+def _moe_drop_rate(model, batch: int, seq_len: int, device,
+                   mesh=None) -> float:
     """The MoE layers' mean drop rate over one forward of a fresh
-    synthetic global batch (seed 7), each rank running its rows and the
+    synthetic global batch (seed 7), each rank running its share and the
     layers routing globally: the reference's diagnostics probe."""
     gen = torch.Generator(device=device).manual_seed(7)
     toks, _ = synthetic_token_batch(gen, batch, seq_len,
                                     model.config.vocab_size)
-    model.forward_train(rank_share(toks, *rank_and_world()))
+    model.forward_train(mesh_share(toks, mesh))
     rates = model.moe_drop_rates()
     return float(torch.stack(rates).mean())
 
@@ -461,8 +509,10 @@ def run_vit_benchmark(
 
 def main(argv=None) -> int:
     """The CLI, with the reference's flags; those of the parts not
-    ported (--tp, --pp, --sp or --ep above 1, --hfta) raise, naming the
-    ROADMAP.md step that ports them. `--workload vit` runs
+    ported (--pp above 1, --hfta) raise, naming the ROADMAP.md step that
+    ports them. --tp, --sp and --ep lay the gang's mesh (dp fills what
+    they leave; --sp defaults --attention to ring), --tp-overlap and
+    --tp-ring pick the ring collective-matmuls. `--workload vit` runs
     run_vit_benchmark, the others run_lm_benchmark. A gang
     (TPU_NUM_PROCESSES > 1, or the launcher role) goes through the
     bootstrap (bootstrap/bootstrap.py), its slices (TPU_NUM_SLICES) on
@@ -490,12 +540,29 @@ def main(argv=None) -> int:
     parser.add_argument("--accum-steps", type=int, default=1)
     parser.add_argument("--fused-xent", action="store_true")
     parser.add_argument("--attention", default="auto",
-                        choices=["auto", "dense", "flash"])
-    for name, step in _UNPORTED.items():
-        parser.add_argument(f"--{name}", type=int, default=1,
-                            help=f"the reference's mesh degree; the port "
-                                 f"is data-parallel only (> 1 raises: "
-                                 f"ROADMAP.md step {step})")
+                        choices=["auto", "dense", "flash", "ring"])
+    parser.add_argument("--tp", type=int, default=1,
+                        help="tensor-parallel degree (Megatron: heads, mlp "
+                             "and vocab over tp)")
+    parser.add_argument("--sp", type=int, default=1,
+                        help="sequence/context-parallel degree: seq axis "
+                             "sharded over sp, ring attention through "
+                             "K1-K3 over the sp ranks")
+    parser.add_argument("--ep", type=int, default=1,
+                        help="expert-parallel degree (shards MoE experts; "
+                             "needs --moe-experts)")
+    parser.add_argument("--pp", type=int, default=1,
+                        help="pipeline stages (> 1 raises: ROADMAP.md "
+                             "step 10d)")
+    parser.add_argument("--tp-overlap", action="store_true",
+                        help="ring collective-matmul tp projections and "
+                             "overlapped vocab-parallel loss (needs "
+                             "--tp > 1 and --fused-xent for the loss)")
+    parser.add_argument("--tp-ring", default="uni",
+                        choices=["uni", "bidir"],
+                        help="overlap ring direction: bidir splits each "
+                             "shard in half and rotates the halves in "
+                             "opposite directions (needs --tp-overlap)")
     parser.add_argument("--hfta", type=int, default=0,
                         help="the reference's fused sweep (> 0 raises: "
                              "train/hfta.py is ROADMAP.md step 10e)")
@@ -622,7 +689,8 @@ def main(argv=None) -> int:
                 warmup_steps=args.warmup_steps, eval_steps=args.eval_steps,
                 dtype_name=args.dtype, num_layers=args.num_layers or None,
                 tp=args.tp, pp=args.pp, sp=args.sp, ep=args.ep,
-                num_slices=num_slices,
+                num_slices=num_slices, tp_overlap=args.tp_overlap,
+                tp_ring=args.tp_ring,
                 accum_steps=args.accum_steps, fused_xent=args.fused_xent,
                 attention=args.attention, remat=args.remat,
                 remat_policy=args.remat_policy,

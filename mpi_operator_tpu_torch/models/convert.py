@@ -133,26 +133,36 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
     """Random f32 parameters drawn from `generator` (on its device unless
     `device` says otherwise): weights and embeddings normal(0, 0.02),
     biases zero, norm scales one."""
-    return _draw(param_shapes(cfg).items(), generator, device)
+    return dict(draw_params(cfg, generator, device))
+
+
+def draw_params(cfg: TransformerConfig, generator: torch.Generator,
+                device=None):
+    """`init_params` one (name, tensor) at a time, in `param_shapes`
+    order: the same draws, with one parameter alive at a time for a
+    caller that keeps only its shard (parallel/sharding.shard_init)."""
+    return _draw_iter(param_shapes(cfg).items(), generator, device)
 
 
 def _draw(shapes, generator: torch.Generator,
           device=None) -> Dict[str, torch.Tensor]:
+    return dict(_draw_iter(shapes, generator, device))
+
+
+def _draw_iter(shapes, generator: torch.Generator, device=None):
     """init_params' rules over (name, shape) pairs: norm scales one,
     biases (and `cls`) zero, everything else normal(0, 0.02)."""
     dev = torch.device(device) if device is not None else generator.device
-    out: Dict[str, torch.Tensor] = {}
     for name, shape in shapes:
         leaf = name.rsplit(".", 1)[0].rsplit(".", 1)[-1]
         if leaf.startswith("ln_") or leaf == "mlm_ln":
             fill = 1.0 if name.endswith("weight") else 0.0
-            out[name] = torch.full(shape, fill, device=dev)
+            yield name, torch.full(shape, fill, device=dev)
         elif name.endswith("bias") or name == "cls":
-            out[name] = torch.zeros(shape, device=dev)
+            yield name, torch.zeros(shape, device=dev)
         else:
-            out[name] = torch.empty(shape, device=dev).normal_(
+            yield name, torch.empty(shape, device=dev).normal_(
                 0.0, 0.02, generator=generator)
-    return out
 
 
 # ---------------------------------------------------------------------------
@@ -214,5 +224,5 @@ def resnet_params_from_flax(model, params: Mapping,
     return out
 
 
-__all__ = ["init_params", "init_vit", "params_from_flax",
+__all__ = ["draw_params", "init_params", "init_vit", "params_from_flax",
            "resnet_params_from_flax", "vit_params_from_flax"]

@@ -106,7 +106,16 @@ not max_len; the f32 head reads token 0. `attention="auto"` is K1-K3 on
 a CUDA tensor, at S = 197 for ViT-B/16. The trainer is the image
 `Trainer` (train/trainer.py), which calls `model(images, train=...)`.
 
-Not here yet (a later slice): tp_overlap.
+Model parallelism (`layout`, a parallel.sharding.ModelLayout over a
+mesh with tp, ep or sp; training forward only, decode raises): Attention
+and Mlp are Megatron's column- and row-parallel pairs over tp (with
+`tp_overlap` their ring collective-matmul form), the token table and
+the tied head are vocab-parallel over tp (`embed_tokens`, `tied_head`),
+MoE experts lie over ep (parallel/moe.py), and under sp each rank holds
+a sequence shard: learned positions and RoPE start at sp_rank x S, and
+attention must be "ring" (parallel/ring_attention.py). `param_axes` is
+the reference's logical-axes table of the parameters, which
+parallel/sharding.py maps to placements.
 """
 from __future__ import annotations
 
@@ -124,6 +133,9 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ..ops.attention import (NEG_INF, decode_attention, flash_attention,
                              gather_pages, paged_decode_attention)
+from ..parallel.collectives import (allgather_matmul, copy_to, gather_from,
+                                    matmul_reducescatter, reduce_from,
+                                    scatter_to)
 from ..parallel.moe import MoeMlp
 from ..utils.device import resolve_device
 
@@ -167,6 +179,12 @@ class TransformerConfig:
     moe_every: int = 2
     moe_top_k: int = 2
     moe_dropless: bool = False
+    # tensor parallelism with the tp all-gather and reduce-scatter as ring
+    # collective-matmuls (parallel/collectives.py) in Attention's qkv/out,
+    # the FFN and the trainer's loss; "uni" or "bidir" rings. False keeps
+    # the all-reduce path, the oracle (the same parameters either way)
+    tp_overlap: bool = False
+    tp_ring: str = "uni"
 
     @property
     def head_dim(self) -> int:
@@ -451,14 +469,76 @@ class Norm(nn.Module):
         return y.to(self.dtype)
 
 
+def _seq_offset(layout, S: int) -> int:
+    """The first position of this rank's sequence shard: sp_rank x S
+    under sequence parallelism, else 0."""
+    return 0 if layout is None else layout.sp_rank * S
+
+
+def _overlap_ring(cfg: TransformerConfig, layout) -> int:
+    """The tp ring of the tp_overlap path, or 0 for the all-reduce path
+    (the reference's `tp_overlap_ring`): cfg.tp_overlap on a mesh with
+    tp > 1; sp > 1 raises (both shard the sequence dim)."""
+    if not cfg.tp_overlap or layout is None or layout.tp <= 1:
+        return 0
+    if layout.sp > 1:
+        raise ValueError(
+            f"tp_overlap=True does not compose with sp={layout.sp}>1 — "
+            f"both shard the sequence dim (the ring rotates seq-over-tp "
+            f"shards); set sp=1 or tp_overlap=False")
+    if cfg.tp_ring not in ("uni", "bidir"):
+        raise ValueError(
+            f"tp_ring={cfg.tp_ring!r}; expected 'uni' or 'bidir'")
+    return layout.tp
+
+
+def _pad_seq(x: torch.Tensor, n: int) -> torch.Tensor:
+    """Zero-pad dim 1 (the sequence) up to a multiple of n."""
+    pad = (-x.shape[1]) % n
+    return F.pad(x, (0, 0, 0, pad)) if pad else x
+
+
+def _no_decode(layout) -> None:
+    if layout is not None:
+        raise ValueError("decode mode runs on one device: a model built "
+                         "over a model-parallel mesh trains only")
+
+
 class Attention(nn.Module):
     """Self-attention over the decode cache. K/V project to cfg.kv_heads
-    (GQA); the cache stores the unrepeated kv heads."""
+    (GQA); the cache stores the unrepeated kv heads.
 
-    def __init__(self, cfg: TransformerConfig):
+    Over a mesh with tp (`layout`): Megatron's column-parallel q/k/v (a
+    rank's H/tp query heads and KV/tp kv heads) and row-parallel out
+    (its partial product all-reduced over tp, then the bias), the input
+    entering through `copy_to`. Heads that tp does not divide replicate
+    (the whole attention on every rank); query heads that divide with kv
+    heads that do not raise, as the reference does. With cfg.tp_overlap
+    the projections are ring collective-matmuls over the sequence
+    sharded over tp."""
+
+    def __init__(self, cfg: TransformerConfig, layout=None):
         super().__init__()
         self.config = cfg
+        self.layout = layout
         E, H, KV, D = cfg.embed_dim, cfg.num_heads, cfg.kv_heads, cfg.head_dim
+        tp = layout.tp if layout is not None else 1
+        self.heads_tp = (layout is not None
+                         and layout.tp_split("attn.query.weight"))
+        if self.heads_tp and not layout.tp_split("attn.key.weight"):
+            raise ValueError(
+                f"num_kv_heads={KV} must be divisible by the mesh's tp={tp}"
+                f" when num_heads={H} is (K/V heads shard over tp); choose "
+                f"tp from the divisors of num_kv_heads")
+        self.ring = _overlap_ring(cfg, layout)
+        if self.ring and (H % self.ring or KV % self.ring):
+            raise ValueError(
+                f"tp_overlap=True needs num_heads={H} and kv_heads={KV} "
+                f"divisible by tp={self.ring} (head groups are the ring's "
+                f"stationary weight shards); choose tp from their common "
+                f"divisors or disable tp_overlap")
+        if self.heads_tp:
+            H, KV = H // tp, KV // tp
         self.query = nn.Linear(E, H * D)
         self.key = nn.Linear(E, KV * D)
         self.value = nn.Linear(E, KV * D)
@@ -472,30 +552,77 @@ class Attention(nn.Module):
         cfg = self.config
         dt = cfg.dtype
         B, S, _ = x.shape
-        H, KV, D = cfg.num_heads, cfg.kv_heads, cfg.head_dim
-        q = _linear(x, self.query, dt).view(B, S, H, D)
-        k = _linear(x, self.key, dt).view(B, S, KV, D)
-        v = _linear(x, self.value, dt).view(B, S, KV, D)
+        D = cfg.head_dim
+        H, KV = self.query.out_features // D, self.key.out_features // D
+        if cache is not None:
+            _no_decode(self.layout)
+        if cache is None and self.ring:
+            q, k, v = self._overlap_qkv(x)
+        else:
+            if self.heads_tp:
+                x = copy_to(x, self.layout.mesh, "tp")
+            q = _linear(x, self.query, dt).view(B, S, H, D)
+            k = _linear(x, self.key, dt).view(B, S, KV, D)
+            v = _linear(x, self.value, dt).view(B, S, KV, D)
         if cache is None:
             out = self._train_attend(q, k, v, mask)
         else:
             out = self._decode_attend(q, k, v, pos, pos_host, cache, pages)
-        return _linear(out.reshape(B, S, H * D), self.out, dt)
+        out = out.reshape(B, S, H * D)
+        if cache is None and self.ring:
+            return self._overlap_out(out)
+        if not self.heads_tp:
+            return _linear(out, self.out, dt)
+        y = torch.matmul(out, self.out.weight.to(dt).t())
+        return reduce_from(y, self.layout.mesh, "tp") + self.out.bias.to(dt)
+
+    def _overlap_qkv(self, x):
+        """q, k, v as ONE ring allgather_matmul: the three column shards
+        concatenated, the sequence sharded over tp (zero-padded to a
+        multiple of it) rotating once for all three."""
+        cfg, mesh = self.config, self.layout.mesh
+        dt, D, S = cfg.dtype, cfg.head_dim, x.shape[1]
+        B = x.shape[0]
+        H, KV = self.query.out_features // D, self.key.out_features // D
+        x_l = scatter_to(_pad_seq(x, self.ring), mesh, "tp", 1)
+        w = torch.cat([self.query.weight, self.key.weight,
+                       self.value.weight]).to(dt).t()
+        y = allgather_matmul(x_l.to(dt), w, mesh, "tp",
+                             cfg.tp_ring)[:, :S]
+        q = y[..., :H * D] + self.query.bias.to(dt)
+        k = y[..., H * D:(H + KV) * D] + self.key.bias.to(dt)
+        v = y[..., (H + KV) * D:] + self.value.bias.to(dt)
+        return (q.view(B, S, H, D), k.view(B, S, KV, D),
+                v.view(B, S, KV, D))
+
+    def _overlap_out(self, a):
+        """The row-parallel out projection as a ring
+        matmul_reducescatter: each rank's sequence shard of the summed
+        product (+ the bias, which enters through `copy_to`: each rank
+        adds it to its own rows), gathered back over tp."""
+        cfg, mesh = self.config, self.layout.mesh
+        dt, S = cfg.dtype, a.shape[1]
+        y = matmul_reducescatter(a, self.out.weight.to(dt).t(), mesh, "tp",
+                                 cfg.tp_ring) \
+            + copy_to(self.out.bias, mesh, "tp").to(dt)
+        return gather_from(y, mesh, "tp", 1)[:, :S]
 
     def _train_attend(self, q, k, v, mask=None):
-        """The reference's non-decode branch: RoPE at arange(S), K/V
-        repeated across each query group, then `attend`."""
+        """The reference's non-decode branch: RoPE at the positions of
+        this rank's sequence shard (arange(S) without sp), K/V repeated
+        across each query group, then `attend`."""
         cfg = self.config
         S, H = q.shape[1], q.shape[2]
         if cfg.pos_embedding == "rope":
-            pos = torch.arange(S, device=q.device)
+            pos = torch.arange(S, device=q.device) \
+                + _seq_offset(self.layout, S)
             q = rope(q, pos)
             k = rope(k, pos)
         if k.shape[2] != H:
             g = H // k.shape[2]
             k = k.repeat_interleave(g, dim=2)
             v = v.repeat_interleave(g, dim=2)
-        return attend(q, k, v, mask, cfg)
+        return attend(q, k, v, mask, cfg, self.layout)
 
     def _decode_attend(self, q, k, v, pos, pos_host, cache: LayerCache,
                        pages: Optional[PageIndex] = None):
@@ -571,37 +698,81 @@ class Attention(nn.Module):
 
 class Mlp(nn.Module):
     """FFN: "gelu" (fc_in -> tanh-gelu -> fc_out) or "swiglu"
-    (silu(fc_gate) * fc_in -> fc_out)."""
+    (silu(fc_gate) * fc_in -> fc_out). Over a mesh with tp: fc_in and
+    fc_gate column-parallel (a rank's mlp_dim / tp columns), fc_out
+    row-parallel (partial product all-reduced over tp, then the bias);
+    with cfg.tp_overlap the whole FFN is one ring region."""
 
-    def __init__(self, cfg: TransformerConfig):
+    def __init__(self, cfg: TransformerConfig, layout=None):
         super().__init__()
         if cfg.activation not in ("gelu", "swiglu"):
             raise ValueError(f"activation={cfg.activation!r}; expected "
                              f"'gelu' or 'swiglu'")
         self.config = cfg
+        self.layout = layout
+        self.tp = layout is not None and layout.tp_split("mlp.fc_in.weight")
+        self.ring = _overlap_ring(cfg, layout)
+        if self.ring and cfg.mlp_dim % self.ring:
+            raise ValueError(
+                f"tp_overlap=True needs mlp_dim={cfg.mlp_dim} divisible by "
+                f"tp={self.ring} (hidden columns are the ring's stationary "
+                f"weight shards); resize mlp_dim or disable tp_overlap")
         E, M = cfg.embed_dim, cfg.mlp_dim
+        if self.tp:
+            M //= layout.tp
         self.fc_gate = nn.Linear(E, M) if cfg.activation == "swiglu" else None
         self.fc_in = nn.Linear(E, M)
         self.fc_out = nn.Linear(M, E)
 
     def forward(self, x):
         dt = self.config.dtype
+        if self.ring:
+            return self._overlap(x)
+        if self.tp:
+            x = copy_to(x, self.layout.mesh, "tp")
         if self.fc_gate is not None:
             h = (F.silu(_linear(x, self.fc_gate, dt))
                  * _linear(x, self.fc_in, dt))
         else:
             h = F.gelu(_linear(x, self.fc_in, dt), approximate="tanh")
-        return _linear(h, self.fc_out, dt)
+        if not self.tp:
+            return _linear(h, self.fc_out, dt)
+        y = torch.matmul(h, self.fc_out.weight.to(dt).t())
+        return reduce_from(y, self.layout.mesh, "tp") \
+            + self.fc_out.bias.to(dt)
+
+    def _overlap(self, x):
+        """allgather_matmul for fc_in (and fc_gate, one ring for both),
+        the activation on the local hidden columns, matmul_reducescatter
+        for fc_out, the sequence shards gathered back over tp."""
+        cfg, mesh = self.config, self.layout.mesh
+        dt, S = cfg.dtype, x.shape[1]
+        x_l = scatter_to(_pad_seq(x, self.ring), mesh, "tp", 1).to(dt)
+        if self.fc_gate is not None:
+            M = self.fc_in.out_features
+            w = torch.cat([self.fc_gate.weight, self.fc_in.weight]).to(dt)
+            y = allgather_matmul(x_l, w.t(), mesh, "tp", cfg.tp_ring)
+            h = (F.silu(y[..., :M] + self.fc_gate.bias.to(dt))
+                 * (y[..., M:] + self.fc_in.bias.to(dt)))
+        else:
+            h = F.gelu(allgather_matmul(x_l, self.fc_in.weight.to(dt).t(),
+                                        mesh, "tp", cfg.tp_ring)
+                       + self.fc_in.bias.to(dt), approximate="tanh")
+        y = matmul_reducescatter(h, self.fc_out.weight.to(dt).t(), mesh,
+                                 "tp", cfg.tp_ring) \
+            + copy_to(self.fc_out.bias, mesh, "tp").to(dt)
+        return gather_from(y, mesh, "tp", 1)[:, :S]
 
 
 class Block(nn.Module):
     """Pre-LN transformer block; `use_moe` swaps the FFN for a MoeMlp.
     Returns (x, aux): the block's MoE load-balancing loss, or None."""
 
-    def __init__(self, cfg: TransformerConfig, use_moe: bool = False):
+    def __init__(self, cfg: TransformerConfig, use_moe: bool = False,
+                 layout=None):
         super().__init__()
         self.ln_1 = Norm(cfg)
-        self.attn = Attention(cfg)
+        self.attn = Attention(cfg, layout)
         self.ln_2 = Norm(cfg)
         if use_moe:
             if cfg.activation != "gelu":
@@ -611,11 +782,11 @@ class Block(nn.Module):
                     f"experts are gelu FFNs); got {cfg.activation!r}")
             self.moe = MoeMlp(cfg.num_experts, cfg.embed_dim, cfg.mlp_dim,
                               top_k=cfg.moe_top_k, dropless=cfg.moe_dropless,
-                              dtype=cfg.dtype)
+                              dtype=cfg.dtype, layout=layout)
             self.mlp = None
         else:
             self.moe = None
-            self.mlp = Mlp(cfg)
+            self.mlp = Mlp(cfg, layout)
 
     def forward(self, x, pos, pos_host, cache: Optional[LayerCache],
                 pages: Optional[PageIndex] = None, mask=None):
@@ -648,9 +819,10 @@ def _remat_context(cfg: TransformerConfig):
 
 
 class Backbone(nn.Module):
-    def __init__(self, cfg: TransformerConfig):
+    def __init__(self, cfg: TransformerConfig, layout=None):
         super().__init__()
-        self.blocks = nn.ModuleList(Block(cfg, use_moe=uses_moe(cfg, i))
+        self.blocks = nn.ModuleList(Block(cfg, use_moe=uses_moe(cfg, i),
+                                          layout=layout)
                                     for i in range(cfg.num_layers))
         self.ln_f = Norm(cfg)
         self.remat = cfg.remat
@@ -699,12 +871,40 @@ def dense_attention(q, k, v, mask=None, causal: bool = True,
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
-def attend(q, k, v, mask, cfg: TransformerConfig) -> torch.Tensor:
+def attend(q, k, v, mask, cfg: TransformerConfig, layout=None
+           ) -> torch.Tensor:
     """The training forward's attention over [B, S, H, D] (equal head
-    counts), per `cfg.attention` (the reference's `_attend`)."""
+    counts), per `cfg.attention` (the reference's `_attend`). "ring" is
+    ring attention over the sp ranks of `layout`'s mesh
+    (parallel/ring_attention.py: K1-K3 a ring block); it raises without
+    sp > 1, as the reference's does without an sp axis, and with a key
+    mask, which the ring does not take. Under sp > 1 every other
+    attention raises: it would attend within the rank's sequence shard
+    only."""
     impl = cfg.attention
     if impl == "auto":
         impl = "flash" if q.device.type == "cuda" else "dense"
+    sp = layout.sp if layout is not None else 1
+    if impl == "ring":
+        if sp <= 1:
+            raise ValueError(
+                'attention="ring" needs a mesh with sp > 1 (train under '
+                "LMTrainer on a MeshConfig(sp=N) mesh; a degenerate "
+                "1-device ring would deliver no context parallelism); for "
+                "direct use call parallel.ring_attention(q, k, v, mesh)")
+        if mask is not None:
+            raise ValueError(
+                'attention="ring" takes no key-padding mask (the ring '
+                "schedule does not implement one); train a masked model "
+                "with sp=1")
+        from ..parallel.ring_attention import ring_attention_inner
+        return ring_attention_inner(q, k, v, layout.mesh, "sp",
+                                    causal=cfg.causal)
+    if sp > 1:
+        raise ValueError(
+            f"attention={cfg.attention!r} under sp={sp} would attend within "
+            f"this rank's sequence shard only; sp shards the sequence, so "
+            f"attention must be 'ring'")
     if impl == "flash":
         return flash_attention(q.contiguous(), k.contiguous(),
                                v.contiguous(), causal=cfg.causal, mask=mask)
@@ -712,7 +912,7 @@ def attend(q, k, v, mask, cfg: TransformerConfig) -> torch.Tensor:
         return dense_attention(q, k, v, mask=mask, causal=cfg.causal,
                                dtype=cfg.dtype)
     raise ValueError(f"attention={cfg.attention!r}; expected 'auto', "
-                     f"'dense' or 'flash'")
+                     f"'dense', 'flash' or 'ring'")
 
 
 class TiedHead(torch.autograd.Function):
@@ -760,6 +960,34 @@ def _host_positions(positions, B: int, S: int) -> torch.Tensor:
     return p.expand(B, S)
 
 
+def _vocab_tp(layout) -> bool:
+    return layout is not None and layout.tp_split("wte.weight")
+
+
+def embed_tokens(tokens: torch.Tensor, table: torch.Tensor, dtype,
+                 layout=None) -> torch.Tensor:
+    """The token embedding in `dtype`. With the table vocab-parallel
+    over tp (a rank's V/tp rows): a masked lookup of the tokens in this
+    rank's rows (zeros elsewhere), all-reduced over tp."""
+    if not _vocab_tp(layout):
+        return F.embedding(tokens, table.to(dtype))
+    rows = table.shape[0]
+    local = tokens - layout.tp_rank * rows
+    inside = (local >= 0) & (local < rows)
+    e = F.embedding(torch.where(inside, local, 0), table.to(dtype))
+    return reduce_from(e * inside[..., None].to(dtype), layout.mesh, "tp")
+
+
+def tied_head(h: torch.Tensor, table: torch.Tensor, dtype,
+              layout=None) -> torch.Tensor:
+    """The tied head's f32 logits (`TiedHead`); with the table
+    vocab-parallel over tp, this rank's [.., V/tp] tile of them (h enters
+    through `copy_to`: its gradient sums the tiles')."""
+    if _vocab_tp(layout):
+        h = copy_to(h, layout.mesh, "tp")
+    return TiedHead.apply(h, table.to(dtype))
+
+
 class CausalLM(nn.Module):
     """GPT-2 / Llama decoder LM with a tied head.
 
@@ -773,7 +1001,7 @@ class CausalLM(nn.Module):
     `forward_device` is decode mode over device operands (the serving
     engine's programs)."""
 
-    def __init__(self, cfg: TransformerConfig):
+    def __init__(self, cfg: TransformerConfig, layout=None):
         super().__init__()
         if not cfg.causal:
             raise ValueError("CausalLM needs causal=True")
@@ -781,10 +1009,12 @@ class CausalLM(nn.Module):
             raise ValueError(f"pos_embedding={cfg.pos_embedding!r}; "
                              f"expected 'learned' or 'rope'")
         self.config = cfg
-        self.wte = nn.Embedding(cfg.vocab_size, cfg.embed_dim)
+        self.layout = layout
+        V = cfg.vocab_size // (layout.tp if _vocab_tp(layout) else 1)
+        self.wte = nn.Embedding(V, cfg.embed_dim)
         self.wpe = (nn.Embedding(cfg.max_len, cfg.embed_dim)
                     if cfg.pos_embedding == "learned" else None)
-        self.backbone = Backbone(cfg)
+        self.backbone = Backbone(cfg, layout)
 
     @property
     def device(self) -> torch.device:
@@ -840,6 +1070,7 @@ class CausalLM(nn.Module):
         return paged
 
     def _decode(self, tokens, pos, pos_host, cache, index, with_head):
+        _no_decode(self.layout)
         cfg = self.config
         dt = cfg.dtype
         h = F.embedding(tokens, self.wte.weight.to(dt))
@@ -862,19 +1093,20 @@ class CausalLM(nn.Module):
         cast to the model dtype separately for the embedding and for the
         head, so its two gradients meet in f32, as the reference's two
         casts do."""
-        cfg = self.config
+        cfg, lay = self.config, self.layout
         dt = cfg.dtype
         S = tokens.shape[1]
-        if self.wpe is not None and S > cfg.max_len:
-            raise ValueError(f"sequence of {S} tokens is longer than "
+        off = _seq_offset(lay, S)
+        if self.wpe is not None and off + S > cfg.max_len:
+            raise ValueError(f"sequence of {off + S} tokens is longer than "
                              f"max_len={cfg.max_len} (the position table)")
-        h = F.embedding(tokens, self.wte.weight.to(dt))
+        h = embed_tokens(tokens, self.wte.weight, dt, lay)
         if self.wpe is not None:
-            h = h + self.wpe.weight[:S].to(dt)
+            h = h + self.wpe.weight[off:off + S].to(dt)
         h, aux = self.backbone(h, None, None, None)
         if not with_head:
             return h, aux
-        return TiedHead.apply(h, self.wte.weight.to(dt)), aux
+        return tied_head(h, self.wte.weight, dt, lay), aux
 
     def moe_drop_rates(self) -> List[torch.Tensor]:
         """Each MoE block's drop rate from the last forward (diagnostics,
@@ -895,20 +1127,22 @@ class MaskedLM(nn.Module):
     `mlm_ln` and the tied head plus an f32 `mlm_bias`. Returns f32
     logits [B, S, V]."""
 
-    def __init__(self, cfg: TransformerConfig):
+    def __init__(self, cfg: TransformerConfig, layout=None):
         super().__init__()
         if cfg.causal:
             raise ValueError("MaskedLM needs causal=False")
         self.config = cfg
+        self.layout = layout
         E = cfg.embed_dim
-        self.wte = nn.Embedding(cfg.vocab_size, E)
+        V = cfg.vocab_size // (layout.tp if _vocab_tp(layout) else 1)
+        self.wte = nn.Embedding(V, E)
         self.wpe = nn.Embedding(cfg.max_len, E)
         self.wtte = nn.Embedding(2, E) if cfg.use_token_types else None
         self.ln_emb = Norm(cfg)
-        self.backbone = Backbone(cfg)
+        self.backbone = Backbone(cfg, layout)
         self.mlm_dense = nn.Linear(E, E)
         self.mlm_ln = Norm(cfg)
-        self.mlm_bias = nn.Parameter(torch.zeros(cfg.vocab_size))
+        self.mlm_bias = nn.Parameter(torch.zeros(V))
 
     @property
     def device(self) -> torch.device:
@@ -921,14 +1155,15 @@ class MaskedLM(nn.Module):
     def forward_train(self, tokens: torch.Tensor, token_types=None,
                       attention_mask=None):
         """(logits, [the MoE blocks' aux losses])."""
-        cfg = self.config
+        cfg, lay = self.config, self.layout
         dt = cfg.dtype
         S = tokens.shape[1]
-        if S > cfg.max_len:
-            raise ValueError(f"sequence of {S} tokens is longer than "
+        off = _seq_offset(lay, S)
+        if off + S > cfg.max_len:
+            raise ValueError(f"sequence of {off + S} tokens is longer than "
                              f"max_len={cfg.max_len} (the position table)")
-        h = F.embedding(tokens, self.wte.weight.to(dt)) \
-            + self.wpe.weight[:S].to(dt)
+        h = embed_tokens(tokens, self.wte.weight, dt, lay) \
+            + self.wpe.weight[off:off + S].to(dt)
         if self.wtte is not None:
             if token_types is None:
                 token_types = torch.zeros_like(tokens)
@@ -936,7 +1171,7 @@ class MaskedLM(nn.Module):
         h, aux = self.backbone(self.ln_emb(h), None, None, None,
                                mask=attention_mask)
         h = F.gelu(_linear(h, self.mlm_dense, dt), approximate="tanh")
-        logits = TiedHead.apply(self.mlm_ln(h), self.wte.weight.to(dt))
+        logits = tied_head(self.mlm_ln(h), self.wte.weight, dt, lay)
         return logits + self.mlm_bias.float(), aux
 
     def moe_drop_rates(self) -> List[torch.Tensor]:
@@ -1115,6 +1350,81 @@ def param_shapes(cfg: TransformerConfig) -> dict:
     return out
 
 
+def param_axes(cfg: TransformerConfig) -> dict:
+    """{state-dict name: (flax path, logical axes, flax shape, fold)} of
+    the config's LM, in `param_shapes` order: the reference's logical
+    axes (its `with_logical_partitioning` annotations) and shape in the
+    reference's layout, and `fold`, one tuple a port dim of the flax
+    dims it is made of, in order (a DenseGeneral kernel [E, H, D] is the
+    port's Linear weight [H * D, E]: ((1, 2), (0,))). The sharding rules
+    (parallel/sharding.py) read it in place of flax's boxes."""
+    E, M, H, KV, D, V = (cfg.embed_dim, cfg.mlp_dim, cfg.num_heads,
+                         cfg.kv_heads, cfg.head_dim, cfg.vocab_size)
+    e = cfg.num_experts
+    one, two, swap = ((0,),), ((0,), (1,)), ((1,), (0,))
+    out = {"wte.weight": (("wte", "embedding"), ("vocab", "embed"), (V, E),
+                          two)}
+    if cfg.pos_embedding == "learned" or not cfg.causal:
+        out["wpe.weight"] = (("wpe", "embedding"), (None, "pos"),
+                             (cfg.max_len, E), two)
+
+    def norm(port, path):
+        out[port + ".weight"] = (path + ("scale",), ("norm",), (E,), one)
+        if cfg.norm != "rmsnorm":
+            out[port + ".bias"] = (path + ("bias",), ("norm",), (E,), one)
+
+    def dense(port, path, axes, shape):
+        out[port + ".weight"] = (path + ("kernel",), axes, shape, swap)
+        out[port + ".bias"] = (path + ("bias",), axes[-1:], shape[-1:], one)
+
+    if not cfg.causal:
+        if cfg.use_token_types:
+            out["wtte.weight"] = (("wtte", "embedding"), (None, "pos"),
+                                  (2, E), two)
+        norm("ln_emb", ("ln_emb",))
+    for i in range(cfg.num_layers):
+        p, f = f"backbone.blocks.{i}.", ("backbone", f"block_{i}")
+        norm(p + "ln_1", f + ("ln_1",))
+        for name, heads in (("query", H), ("key", KV), ("value", KV)):
+            fp = f + ("attn", name)
+            out[p + f"attn.{name}.weight"] = (
+                fp + ("kernel",), ("embed", "heads", "kv"), (E, heads, D),
+                ((1, 2), (0,)))
+            out[p + f"attn.{name}.bias"] = (
+                fp + ("bias",), ("heads", "kv"), (heads, D), ((0, 1),))
+        out[p + "attn.out.weight"] = (
+            f + ("attn", "out", "kernel"), ("heads", "kv", "embed"),
+            (H, D, E), ((2,), (0, 1)))
+        out[p + "attn.out.bias"] = (f + ("attn", "out", "bias"),
+                                    ("embed",), (E,), one)
+        norm(p + "ln_2", f + ("ln_2",))
+        if uses_moe(cfg, i):
+            m = f + ("moe",)
+            out[p + "moe.router.weight"] = (m + ("router", "kernel"),
+                                            ("embed", "expert"), (E, e),
+                                            swap)
+            out[p + "moe.w_in"] = (m + ("w_in",),
+                                   ("expert", "embed", "expert_mlp"),
+                                   (e, E, M), ((0,), (1,), (2,)))
+            out[p + "moe.w_out"] = (m + ("w_out",),
+                                    ("expert", "expert_mlp", "embed"),
+                                    (e, M, E), ((0,), (1,), (2,)))
+            continue
+        if cfg.activation == "swiglu":
+            dense(p + "mlp.fc_gate", f + ("mlp", "fc_gate"),
+                  ("embed", "mlp"), (E, M))
+        dense(p + "mlp.fc_in", f + ("mlp", "fc_in"), ("embed", "mlp"),
+              (E, M))
+        dense(p + "mlp.fc_out", f + ("mlp", "fc_out"), ("mlp", "embed"),
+              (M, E))
+    norm("backbone.ln_f", ("backbone", "ln_f"))
+    if not cfg.causal:
+        dense("mlm_dense", ("mlm_dense",), ("embed", "embed"), (E, E))
+        norm("mlm_ln", ("mlm_ln",))
+        out["mlm_bias"] = (("mlm_bias",), ("vocab",), (V,), one)
+    return out
+
+
 def build_lm(cfg: TransformerConfig, state_dict: dict, device=None):
     """The config's LM (`model_class`) whose parameters ARE the given
     tensors (moved to `device`, no copy when they already live there)."""
@@ -1180,6 +1490,7 @@ __all__ = [
     "Norm", "Block", "Backbone", "CausalLM", "MaskedLM", "TiedHead",
     "attend", "dense_attention", "rope", "head_logits",
     "gpt2_config", "llama_config", "bert_config", "lm_config",
-    "model_class", "param_shapes", "uses_moe", "build_lm", "create_lm",
+    "model_class", "param_axes", "param_shapes", "uses_moe", "build_lm",
+    "create_lm", "embed_tokens", "tied_head",
     "ViT", "vit_config", "create_vit",
 ]

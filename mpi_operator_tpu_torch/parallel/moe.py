@@ -1,7 +1,7 @@
-"""Mixture of experts on one device: the counterpart of
+"""Mixture of experts: the counterpart of
 `mpi_operator_tpu/parallel/moe.py::MoeMlp` (Switch/GShard top-k routing
-with a capacity budget per expert, or dropless), without the `ep` mesh
-axis (expert parallelism is a later slice).
+with a capacity budget per expert, or dropless), with its experts over
+the `ep` mesh axis and each expert's mlp dim over `tp`.
 
 Routing follows the reference step for step:
 
@@ -43,17 +43,22 @@ beside the output, so it flows through the graph the loss is built from
 (under remat the checkpointed forward is recomputed, and module state
 would hold the recompute's tensor).
 
-Routing in a data-parallel gang (H14). The reference's jit routes the
-GLOBAL batch, so with `mesh` set (the LMTrainer sets every MoeMlp's to
-its data-parallel mesh; None routes this rank's tokens alone) each
-layer first gathers every rank's per-expert pair counts and top-1
-fractions (one all_gather of [2, e] a layer, `routing`):
+Routing in a gang (H14). The reference's jit routes the GLOBAL batch,
+so with `mesh` set (the LMTrainer sets every MoeMlp's to its mesh; None
+routes this rank's tokens alone) each layer first gathers, over the
+ranks that hold other tokens (the data axes and sp, `TOKEN_AXES`),
+every rank's per-expert pair counts and top-1 fractions (one all_gather
+a layer, `routing`):
 
 - capacity comes from the global token count N x W (every rank holds N);
 - a pair's queue position is its position among this rank's pairs plus
   the pairs that lower ranks routed to the same expert, an exclusive
   scan of the ranks' counts: one cumsum over the global rows in rank
-  order, as the ranks hold consecutive rows;
+  order, as the ranks hold consecutive rows. Under sp a rank holds a
+  sequence shard of its rows, and the global order is token-major over
+  [B, S]: the ranks gather per-row counts, and a pair's offset is the
+  pairs of every earlier global row plus those of its own row in lower
+  sp shards, its position counted within its row;
 - the drop rate is the global one, from the global counts;
 - the aux loss a rank returns is its SHARE of the global loss,
   e * sum(f * mean(probs) / W) with f the global top-1 fraction and
@@ -61,6 +66,18 @@ fractions (one all_gather of [2, e] a layer, `routing`):
   e * sum(f * global mean(probs)), and so do their gradients (the
   trainer scales each rank's objective by W and averages the
   gradients). Dropless needs only the aux.
+
+Expert parallelism (`layout` over a mesh with ep and/or tp; the batch
+is not sharded over ep, so the ranks of an ep group hold the same rows).
+A rank holds E/ep experts (`w_in`, `w_out` and the router's rows of
+them), each with its mlp_dim / tp columns: the reference's "expert" ->
+ep and "expert_mlp" -> tp rules. Every rank routes all its tokens the
+same way (the router's logits all-gathered over ep), runs its experts
+on the pairs routed to them, and the partial outputs (f32) are summed
+over ep x tp: GSPMD's psum of the reference's combine einsum, whose
+dispatch needs no all-to-all when the tokens are replicated over ep.
+The tokens and gates enter the per-shard work through `copy_to`, so
+the gradients of the replicated router and of x are the whole sums.
 """
 from __future__ import annotations
 
@@ -70,8 +87,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .collectives import allgather
-from .mesh import MESH_DIMS
+from .collectives import allgather, copy_to, gather_from, reduce_from
+from .mesh import TOKEN_AXES
 
 
 def route(probs: torch.Tensor, k: int):
@@ -96,41 +113,58 @@ def capacity(n_tokens: int, k: int, e: int, factor: float) -> int:
 
 
 def slots(idx: torch.Tensor, e: int, cap: int,
-          offset: Optional[torch.Tensor] = None):
+          offset: Optional[torch.Tensor] = None, rows: int = 1):
     """(slot [N, k] int64, keep [N, k] bool): each (token, choice) pair's
     position in its expert's queue, counting every earlier pair routed to
-    that expert in token-major order (plus `offset[expert]`, the pairs
-    lower ranks routed there), and whether it is under `cap`."""
-    # expert-major [e, N*k], so the running count scans the inner dim (a
-    # scan over the outer dim of [N*k, e] is one slow kernel on the card)
-    onehot = F.one_hot(idx.reshape(-1), e).t().contiguous()
-    pos = (torch.cumsum(onehot, 1) * onehot).sum(0) - 1
-    pos = pos.reshape(idx.shape)
+    that expert in token-major order (plus `offset`: [e], the pairs lower
+    ranks routed there; or with `rows` > 1, [rows, e] a row's, the count
+    then running within each of the `rows` rows of the N tokens), and
+    whether it is under `cap`."""
+    # expert-major [.., e, N*k], so the running count scans the inner dim
+    # (a scan over the outer dim of [N*k, e] is one slow kernel on the
+    # card)
+    onehot = F.one_hot(idx.reshape(rows, -1), e).transpose(1, 2).contiguous()
+    pos = (torch.cumsum(onehot, 2) * onehot).sum(1) - 1       # [rows, .]
     if offset is not None:
-        pos = pos + offset[idx]
+        off = offset if rows > 1 else offset[None]
+        pos = pos + off.gather(1, idx.reshape(rows, -1))
+    pos = pos.reshape(idx.shape)
     return pos, pos < cap
 
 
-def routing(idx: torch.Tensor, e: int, mesh=None):
-    """(offset [e] int64, total [e] int64, top-1 fraction [e] f32, W):
-    the pairs lower ranks routed to each expert, the pairs every rank
-    routed there, the fraction of the global tokens whose first choice
-    it is, and the number of ranks W. Without a mesh (or over a mesh
-    with no process group) this rank's tokens alone: W 1, and no
-    offset or total."""
+def routing(idx: torch.Tensor, e: int, mesh=None, rows: int = 1):
+    """(offset, total [e] int64, top-1 fraction [e] f32, W): the pairs
+    lower ranks routed to each expert ([e]; with sp > 1, [rows, e], the
+    pairs before each of this rank's `rows` rows in the global
+    token-major order, `slots`), the pairs every rank routed there, the
+    fraction of the global tokens whose first choice it is, and the
+    number W of ranks holding other tokens (TOKEN_AXES). Without a mesh
+    (or without such ranks) this rank's tokens alone: W 1, and no offset
+    or total."""
     frac = F.one_hot(idx[:, 0], e).float().mean(0)
-    if mesh is None or mesh.group(MESH_DIMS) is None:
+    if mesh is None or mesh.group(TOKEN_AXES) is None:
         return None, None, frac, 1
-    flat = idx.reshape(-1)
-    counts = torch.zeros(e, dtype=torch.int64, device=idx.device)
-    counts.scatter_add_(0, flat, torch.ones_like(flat))
-    W, r = mesh.size, mesh.position()
+    W, r = mesh.dim_size(TOKEN_AXES), mesh.index(TOKEN_AXES)
+    sp = mesh.shape["sp"]
+    per_row = F.one_hot(idx.reshape(rows, -1), e).sum(1)      # [rows, e]
+    mine = per_row if sp > 1 else per_row.sum(0, keepdim=True)
     # f64 holds the integer counts and the f32 fractions exactly
-    every = allgather(torch.cat([counts.double(), frac.double()]), mesh,
-                      MESH_DIMS, tiled=False)                 # [W, 2e]
-    offset = every[:r, :e].sum(0).long()
-    total = every[:, :e].sum(0).long()
-    return offset, total, (every[:, e:].sum(0) / W).float(), W
+    every = allgather(torch.cat([mine.reshape(-1).double(), frac.double()]),
+                      mesh, TOKEN_AXES, tiled=False)          # [W, . + e]
+    counts = every[:, :-e].reshape(W, -1, e).long()
+    total = counts.sum((0, 1))
+    frac = (every[:, -e:].sum(0) / W).float()
+    if sp == 1:
+        return counts[:r, 0].sum(0), total, frac, W
+    # [P, sp, rows, e] -> the global rows [P * rows, sp, e]
+    grid = counts.view(W // sp, sp, rows, e).transpose(1, 2).reshape(
+        -1, sp, e)
+    row_tot = grid.sum(1)
+    before = torch.cumsum(row_tot, 0) - row_tot               # [B, e]
+    within = torch.cumsum(grid, 1) - grid                     # [B, sp, e]
+    p, q = r // sp, r % sp
+    mine = slice(p * rows, (p + 1) * rows)
+    return before[mine] + within[mine, q], total, frac, W
 
 
 def _gelu(x):
@@ -139,63 +173,86 @@ def _gelu(x):
 
 class MoeMlp(nn.Module):
     """Drop-in FFN over [B, S, E]: returns (out [B, S, E] in x's dtype,
-    aux loss f32 scalar)."""
+    aux loss f32 scalar). Over a `layout` with ep or tp the rank holds
+    its experts' blocks (see the module docstring)."""
 
     def __init__(self, num_experts: int, embed_dim: int, mlp_dim: int,
                  top_k: int = 2, capacity_factor: float = 1.25,
                  dropless: bool = False,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, layout=None):
         super().__init__()
         self.num_experts = num_experts
         self.top_k = min(top_k, num_experts)
         self.capacity_factor = capacity_factor
         self.dropless = dropless
         self.dtype = dtype
-        self.router = nn.Linear(embed_dim, num_experts, bias=False)
-        self.w_in = nn.Parameter(torch.empty(num_experts, embed_dim,
-                                             mlp_dim))
-        self.w_out = nn.Parameter(torch.empty(num_experts, mlp_dim,
-                                              embed_dim))
+        self.layout = layout
+        ep = layout is not None and layout.ep_split("moe.w_in")
+        tp = layout is not None and layout.tp_split("moe.w_in")
+        # the axes this layer's expert outputs are partial sums over
+        self.dims = tuple(a for a, on in (("ep", ep), ("tp", tp)) if on)
+        el = num_experts // layout.ep if ep else num_experts
+        ml = mlp_dim // layout.tp if tp else mlp_dim
+        self.first = layout.ep_rank * el if ep else 0   # first local expert
+        self.router = nn.Linear(embed_dim, el, bias=False)
+        self.w_in = nn.Parameter(torch.empty(el, embed_dim, ml))
+        self.w_out = nn.Parameter(torch.empty(el, ml, embed_dim))
         self.drop_rate = None
-        # the data-parallel mesh whose global batch this layer routes
-        # (parallel/mesh.py); None routes this rank's tokens alone
+        # the mesh whose global batch this layer routes (parallel/mesh.py);
+        # None routes this rank's tokens alone
         self.mesh = None
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         B, S, E = x.shape
         N, e, k, dt = B * S, self.num_experts, self.top_k, self.dtype
         tokens = x.reshape(N, E)
-        probs = torch.softmax(
-            torch.matmul(tokens.float(), self.router.weight.float().t()), -1)
+        mesh = self.layout.mesh if self.layout is not None else None
+        ep = "ep" in self.dims
+        logits = torch.matmul(
+            copy_to(tokens.float(), mesh, "ep") if ep else tokens.float(),
+            self.router.weight.float().t())
+        if ep:
+            logits = gather_from(logits, mesh, "ep", -1)
+        probs = torch.softmax(logits, -1)
         gates, idx = route(probs, k)
-        offset, total, frac, W = routing(idx, e, self.mesh)
+        sp = self.mesh.shape["sp"] if self.mesh is not None else 1
+        offset, total, frac, W = routing(idx, e, self.mesh,
+                                         rows=B if sp > 1 else 1)
         aux = e * torch.sum(frac * (probs.mean(0) / W))
+        if self.dims:
+            tokens = copy_to(tokens, mesh, self.dims)
+            gates = copy_to(gates, mesh, self.dims)
         w_in, w_out = self.w_in.to(dt), self.w_out.to(dt)
+        el, e0 = w_in.shape[0], self.first
         if self.dropless:
             full = torch.zeros(N, e, dtype=torch.float32, device=x.device)
-            full = full.scatter(1, idx, gates).to(dt)            # [N, e]
-            h = _gelu(torch.matmul(tokens.to(dt)[None], w_in))  # [e, N, M]
-            y = torch.matmul(h.float(), w_out.float())           # [e, N, E]
+            full = full.scatter(1, idx, gates).to(dt)[:, e0:e0 + el]
+            h = _gelu(torch.matmul(tokens.to(dt)[None], w_in))  # [el, N, M]
+            y = torch.matmul(h.float(), w_out.float())           # [el, N, E]
             out = (y * full.float().t()[:, :, None]).sum(0)
             self.drop_rate = torch.zeros((), device=x.device)
+            out = reduce_from(out, mesh, self.dims) if self.dims else out
             return out.reshape(B, S, E).to(x.dtype), aux
         cap = capacity(N * W, k, e, self.capacity_factor)
-        pos, keep = slots(idx, e, cap, offset)
+        pos, keep = slots(idx, e, cap, offset, rows=B if sp > 1 else 1)
         self.drop_rate = (1.0 - (keep.float().mean() if W == 1 else
                                  torch.clamp(total, max=cap).sum()
                                  / (N * W * k))).detach()
         gates = gates * keep
-        # each pair's row in the flat [e * cap + 1, E] slot buffer; the
-        # dropped pairs all land on the last row, which nothing reads
-        dest = torch.where(keep, idx * cap + pos, e * cap).reshape(-1)
+        # each pair's row in the flat [el * cap + 1, E] slot buffer of
+        # this rank's experts; the dropped pairs and those of other
+        # ranks' experts all land on the last row, which nothing reads
+        mine = keep & (idx >= e0) & (idx < e0 + el)
+        dest = torch.where(mine, (idx - e0) * cap + pos, el * cap).reshape(-1)
         src = tokens.to(dt).repeat_interleave(k, dim=0)           # [N*k, E]
-        buf = torch.zeros(e * cap + 1, E, dtype=dt, device=x.device)
-        expert_in = buf.index_copy(0, dest, src)[:-1].view(e, cap, E)
+        buf = torch.zeros(el * cap + 1, E, dtype=dt, device=x.device)
+        expert_in = buf.index_copy(0, dest, src)[:-1].view(el, cap, E)
         h = _gelu(torch.bmm(expert_in, w_in))
-        y = torch.bmm(h, w_out).reshape(e * cap, E)
+        y = torch.bmm(h, w_out).reshape(el * cap, E)
         y = torch.cat([y, y.new_zeros(1, E)])                     # trash row
         picked = y.index_select(0, dest).float().view(N, k, E)
         out = (picked * gates[..., None]).sum(1)
+        out = reduce_from(out, mesh, self.dims) if self.dims else out
         return out.reshape(B, S, E).to(x.dtype), aux
 
 

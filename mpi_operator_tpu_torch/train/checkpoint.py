@@ -35,11 +35,24 @@ Three things the reference gets from orbax are done here by hand:
   `copy_`s into the existing flat buffer and moments; nothing is
   rebound.
 
-Not here (ROADMAP step 10): `restore_resharded`, `ReadStats` and the
+A state split over fsdp x ep x tp (the LM trainer's over a
+model-parallel mesh: `state.shard` = (its shard, the count, whether it
+writes)) is saved shard by shard: one rank a shard (the one at
+coordinate 0 of dcn, dp and sp) writes `shard_<k>/` (DCP, as above)
+into a temporary sibling whose name every rank agrees on (a token rank
+0 broadcasts at the save), with `layout.json` (the state's
+`layout_key`: the fsdp, ep and tp sizes and the parameters) beside
+them; shard 0's writer commits the directory once every shard's marker
+is there. Every rank restores its own shard, then the state refreshes
+what it derives from it (`after_restore`: fsdp's gathered working
+copy). A checkpoint of another layout raises `ReshardRequired`.
+
+Not here (ROADMAP step 10e): `restore_resharded`, `ReadStats` and the
 `TPU_RESHARD_RESTORE` knob, which raise when asked for.
 """
 from __future__ import annotations
 
+import json
 import os
 import shutil
 import threading
@@ -60,6 +73,14 @@ WRITER_THREADS = 4
 #: the reference's env knob for a resharding restore (not ported yet)
 ENV_RESHARD_RESTORE = "TPU_RESHARD_RESTORE"
 _METADATA = ".metadata"
+_LAYOUT = "layout.json"
+#: seconds shard 0's writer waits for the other shards before it gives up
+SHARD_WAIT = 600.0
+
+
+class ReshardRequired(ValueError):
+    """A checkpoint written over another split of the state: restoring it
+    needs a resharding restore (ROADMAP.md step 10e)."""
 
 # Per-directory last step THIS process saved. Every rank executes the
 # same periodic hooks in the same order, so the value is identical across
@@ -204,6 +225,8 @@ def save_checkpoint(directory: str, state, step: Optional[int] = None,
     step = int(state.step) if step is None else int(step)
     directory = os.path.abspath(directory)
     path = os.path.join(directory, f"step_{step}")
+    if getattr(state, "shard", None) is not None:
+        return _save_shard(state, directory, path, step, block)
     if _rank() != 0:                   # rank 0 writes the replica
         _LAST_SAVED[directory] = step
         return path
@@ -224,6 +247,90 @@ def save_checkpoint(directory: str, state, step: Optional[int] = None,
         _LAST_SAVED[directory] = step
         if block:
             writer.wait()
+    return path
+
+
+def _token(group) -> str:
+    """A name the group's first rank picks for this save's temporary
+    directory, the same on every rank of `group` (None: this process
+    alone)."""
+    obj = [f"{os.getpid()}-{time.time_ns()}"]
+    if group is not None:
+        dist.broadcast_object_list(obj, src=dist.get_global_rank(group, 0),
+                                   group=group)
+    return obj[0]
+
+
+def _write_shard(snapshot, tmp, path, step, event, writer, shard, layout):
+    """The writer thread's job for a shard: its DCP files into
+    `tmp/shard_<k>`, then a marker; shard 0 also writes the layout and,
+    once every shard's marker is there, commits `tmp` as `path`."""
+    k, n = shard
+    t0 = time.perf_counter()
+    if event is not None:
+        stream = torch.cuda.Stream(device=snapshot["params"].device)
+        stream.wait_event(event)
+        host = writer.host_buffers(snapshot)
+        with torch.cuda.stream(stream):
+            for name, t in snapshot.items():
+                host[name].copy_(t, non_blocking=True)
+        stream.synchronize()
+        snapshot = host
+    t_host = time.perf_counter()
+    os.makedirs(tmp, exist_ok=True)
+    dcp.save({"step": torch.tensor(step, dtype=torch.int64), **snapshot},
+             storage_writer=dcp.FileSystemWriter(
+                 os.path.join(tmp, f"shard_{k}"),
+                 thread_count=WRITER_THREADS),
+             no_dist=True)
+    open(os.path.join(tmp, f"shard_{k}.done"), "w").close()
+    if k == 0:
+        with open(os.path.join(tmp, _LAYOUT), "w") as f:
+            json.dump(layout, f)
+        deadline = time.monotonic() + SHARD_WAIT
+        while not all(os.path.exists(os.path.join(tmp, f"shard_{j}.done"))
+                      for j in range(n)):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"checkpoint {path}: the other shards' "
+                                   f"writes did not arrive in "
+                                   f"{SHARD_WAIT:.0f} s")
+            time.sleep(0.05)
+        _commit(tmp, path)
+    _LAST_SAVE_INFO.update(
+        path=path, step=step, bytes=_nbytes(snapshot),
+        threads=WRITER_THREADS, to_host_seconds=t_host - t0,
+        write_seconds=time.perf_counter() - t_host, shard=k, shards=n)
+
+
+def _save_shard(state, directory, path, step, block) -> str:
+    """save_checkpoint for a state split over shards (module
+    docstring). Every rank of the state's mesh calls it (the token is
+    collective over `state.group`); the ranks that write their shard
+    snapshot it and hand it to their writer."""
+    k, n, writes = state.shard
+    token = _token(getattr(state, "group", None))
+    if writes:
+        _quiet_single_process()
+        writer = _writer()
+        with span("checkpoint.save"):
+            writer.wait()
+            os.makedirs(directory, exist_ok=True)
+            with torch.no_grad():
+                snapshot = {key: t.clone() for key, t in
+                            _state_payload(state).items()}
+            event = None
+            if snapshot["params"].device.type == "cuda":
+                event = torch.cuda.Event()
+                event.record()
+            _LAST_SAVE_INFO.clear()
+            tmp = f"{path}.tmp-{token}"
+            layout = dict(state.layout_key, shards=n)
+            writer.submit(lambda: _write_shard(snapshot, tmp, path, step,
+                                               event, writer, (k, n),
+                                               layout))
+            if block:
+                writer.wait()
+    _LAST_SAVED[directory] = step
     return path
 
 
@@ -255,7 +362,16 @@ def verify_checkpoint(path: str) -> bool:
         return False
     if not os.path.isdir(path):
         return False
-    return _METADATA in os.listdir(path)
+    names = os.listdir(path)
+    if _LAYOUT not in names:
+        return _METADATA in names
+    try:
+        with open(os.path.join(path, _LAYOUT)) as f:
+            n = int(json.load(f)["shards"])
+    except (OSError, ValueError, KeyError):
+        return False
+    return all(os.path.exists(os.path.join(path, f"shard_{k}", _METADATA))
+               for k in range(n))
 
 
 def latest_checkpoint(directory: str, verify: bool = True) -> Optional[str]:
@@ -283,17 +399,46 @@ def restore_checkpoint(directory_or_path: str, state):
             raise FileNotFoundError(f"no checkpoints under {path!r}")
         path = latest
     _quiet_single_process()
+    path = os.fspath(path)
+    source = _shard_source(path, state)
     live = _state_payload(state)
     host = _writer().host_buffers(live)
     step = torch.zeros((), dtype=torch.int64)
     dcp.load({"step": step, **host},
-             storage_reader=dcp.FileSystemReader(os.fspath(path)),
-             no_dist=True)
+             storage_reader=dcp.FileSystemReader(source), no_dist=True)
     with torch.no_grad():
         for name, t in live.items():
             t.copy_(host[name])
     state.step = int(step)
+    if hasattr(state, "after_restore"):
+        state.after_restore()
     return state
+
+
+def _shard_source(path: str, state) -> str:
+    """The directory this rank reads: `path` for a replica, its shard's
+    for a sharded state. A checkpoint of another split raises
+    ReshardRequired."""
+    shard = getattr(state, "shard", None)
+    layout_file = os.path.join(path, _LAYOUT)
+    if not os.path.exists(layout_file):
+        if shard is None:
+            return path
+        raise ReshardRequired(
+            f"{path} holds one replica of the whole state; this state is "
+            f"split over {shard[1]} shards ({state.layout_key['mesh']}): "
+            f"restoring it needs restore_resharded, ROADMAP.md step 10e")
+    with open(layout_file) as f:
+        saved = json.load(f)
+    want = dict(getattr(state, "layout_key", None) or {},
+                shards=shard[1] if shard else 1)
+    if shard is None or saved != json.loads(json.dumps(want)):
+        raise ReshardRequired(
+            f"{path} was written over {saved.get('mesh')} in "
+            f"{saved.get('shards')} shards; this state is "
+            f"{want.get('mesh')} in {want['shards']}: restoring it needs "
+            f"restore_resharded, ROADMAP.md step 10e")
+    return os.path.join(path, f"shard_{shard[0]}")
 
 
 def restore_with_fallback(train_dir, state, log=print, restore=None
@@ -327,6 +472,8 @@ def restore_with_fallback(train_dir, state, log=print, restore=None
                 path=path, seconds=round(seconds, 3), leaves=leaves,
                 resharded=False, bytes=_nbytes(payload))
             return restored, path
+        except ReshardRequired:
+            raise
         # DCP reports a failed read as CheckpointException, which derives
         # from BaseException, not Exception
         except (Exception, CheckpointException) as exc:  # noqa: BLE001
@@ -353,7 +500,7 @@ def maybe_resume(train_dir, state, log=print, reshard: Optional[bool] = None):
     if reshard:
         raise ValueError(
             f"reshard restore ({ENV_RESHARD_RESTORE}): not in the port yet "
-            f"(restore_resharded is ROADMAP.md Queue 1, step 10)")
+            f"(restore_resharded is ROADMAP.md Queue 1, step 10e)")
     if not train_dir:
         return state
     state, path = restore_with_fallback(train_dir, state, log)
@@ -447,7 +594,8 @@ def periodic_saver(train_dir, every: int, log=print, keep_last: int = 0,
     return hook
 
 
-__all__ = ["ENV_RESHARD_RESTORE", "WRITER_THREADS", "checkpoint_steps",
+__all__ = ["ENV_RESHARD_RESTORE", "ReshardRequired", "SHARD_WAIT",
+           "WRITER_THREADS", "checkpoint_steps",
            "gc_checkpoints", "last_restore_info", "last_save_info",
            "latest_checkpoint", "maybe_resume", "maybe_save",
            "periodic_saver", "reset_saved_state", "restore_checkpoint",

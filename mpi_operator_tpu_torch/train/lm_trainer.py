@@ -1,7 +1,6 @@
-"""Language-model trainer, data-parallel over the gang's dcn x dp mesh:
-the counterpart of `mpi_operator_tpu/train/lm_trainer.py::LMTrainer`
-with the reference's one parallelism strategy (a batch sharded over the
-data axes; the tp/sp/pp/ep shardings are later slices).
+"""Language-model trainer over the gang's mesh: the counterpart of
+`mpi_operator_tpu/train/lm_trainer.py::LMTrainer` over the axes dcn,
+dp, fsdp, ep, sp and tp (pipelines, pp, are ROADMAP.md step 10d).
 
 What it keeps of the reference, step for step:
 
@@ -66,7 +65,34 @@ The all-reduce runs after the backward, not overlapped with it (the
 parameters are views of one flat buffer, which DDP's bucket hooks and
 its construction-time broadcast would not keep). Over a mesh without a
 process group (one process) it is skipped and the step is the
-single-device one, bit for bit. Not here yet: `tp_overlap_lm_loss`.
+single-device one, bit for bit.
+
+Model parallelism. The reference lays its parameters out by the
+logical sharding rules (parallel/sharding.py) and XLA inserts every
+collective; here they are explicit:
+
+- tp, ep: the model is built over the mesh (`ModelLayout`), each rank
+  holding its blocks of the parameters (Megatron tensor parallelism in
+  models/transformer.py, experts in parallel/moe.py); the flat buffer
+  holds those blocks. The loss is vocab-parallel under tp
+  (`vocab_parallel_xent`; with `fused_xent` chunked, and with the
+  config's `tp_overlap` the ring form, `tp_overlap_lm_loss`). tp and ep
+  ranks hold the same rows and compute the same loss, so their
+  gradients need no reduction.
+- sp: each rank holds a sequence shard of its rows (attention "ring"),
+  so every gradient and the loss are summed over sp before the data
+  axes' mean; the mask count sums over sp too.
+- fsdp: a data axis whose ranks keep 1/fsdp of the flat buffer's
+  masters, mu and nu between steps: the gradients are reduce-scattered
+  over fsdp, the optimizer updates the rank's slice, and the slices are
+  all-gathered into the flat buffer for the next forward (the whole
+  buffer is gathered at once; a gather per Block is a later speed item).
+- The global norm (the clip and the guard) sums each parameter's
+  squares once over fsdp x ep x tp: the flat buffer is laid out by
+  class (split over neither tp nor ep, over tp, over ep, over both)
+  and each class is weighted by 1 over the ranks that hold the same
+  values, so every rank takes the same skip and rollback decision (H15,
+  H25).
 """
 from __future__ import annotations
 
@@ -81,10 +107,16 @@ from torch.utils.checkpoint import checkpoint
 
 from ..models.transformer import (TiedHead, TransformerConfig, model_class,
                                   param_shapes)
-from ..parallel.collectives import (allreduce_mean, allreduce_sum,
-                                    hierarchical_allreduce_mean)
-from ..parallel.mesh import MESH_DIMS, Mesh, data_parallel_mesh
+from ..ops.attention import NEG_INF
+from ..parallel.collectives import (_all_gather, allgather,
+                                    allgather_matmul, allreduce_max,
+                                    allreduce_mean, allreduce_sum, copy_to,
+                                    hierarchical_allreduce_mean, reduce_from,
+                                    reduce_scatter, scatter_to)
+from ..parallel.mesh import (BATCH_AXES, TOKEN_AXES, Mesh,
+                             data_parallel_mesh)
 from ..parallel.moe import MoeMlp
+from ..parallel.sharding import COMPUTE_AXES, ModelLayout, shard_init
 from ..telemetry import TrainTelemetry, span
 from ..utils import flops
 from ..utils.device import DeviceLike, resolve_device
@@ -218,15 +250,53 @@ def adamw_update(p: torch.Tensor, g: torch.Tensor, g_norm: torch.Tensor,
 # objectives
 # ---------------------------------------------------------------------------
 
+def vocab_parallel_xent(logits: torch.Tensor, targets: torch.Tensor,
+                        layout) -> torch.Tensor:
+    """Per-token softmax cross-entropy over f32 logits split over tp by
+    vocab (this rank's [.., V/tp] tile, its rows from tp_rank x V/tp):
+    the max, the sum of exponentials and the target's logit each
+    completed over tp (Megatron's vocab-parallel cross-entropy, as the
+    reference's `tp_overlap_lm_loss` spells it out)."""
+    mesh, V = layout.mesh, logits.shape[-1]
+    lmax = allreduce_max(logits.detach().amax(-1), mesh, "tp")
+    sumexp = reduce_from(torch.exp(logits - lmax[..., None]).sum(-1),
+                         mesh, "tp")
+    local = targets.long() - layout.tp_rank * V
+    inside = (local >= 0) & (local < V)
+    picked = logits.gather(-1, local.clamp(0, V - 1)[..., None])[..., 0]
+    tgt = reduce_from(torch.where(inside, picked, 0.0), mesh, "tp")
+    return torch.log(sumexp) + lmax - tgt
+
+
+def vocab_parallel_argmax(logits: torch.Tensor, layout) -> torch.Tensor:
+    """The global argmax over vocab-parallel logits (the first of equal
+    maxima, as argmax over the whole row)."""
+    V = logits.shape[-1]
+    val, idx = logits.detach().max(-1)
+    vals = allgather(val, layout.mesh, "tp", axis=-1, tiled=False)
+    idxs = allgather(idx + layout.tp_rank * V, layout.mesh, "tp", axis=-1,
+                     tiled=False)
+    return idxs.gather(-1, vals.argmax(-1, keepdim=True))[..., 0]
+
+
+def _vocab_tp(layout) -> bool:
+    return layout is not None and layout.tp_split("wte.weight")
+
+
 def lm_loss(logits: torch.Tensor, targets: torch.Tensor, mask=None,
-            denom=None) -> torch.Tensor:
+            denom=None, layout=None) -> torch.Tensor:
     """Token-level softmax cross-entropy over f32 logits; mask selects
     scored positions; `denom` overrides the normaliser (gradient
-    accumulation passes the FULL batch's mask count)."""
+    accumulation passes the FULL batch's mask count). Over a layout
+    whose head is vocab-parallel the logits are this rank's tile
+    (`vocab_parallel_xent`)."""
     V = logits.shape[-1]
-    losses = F.cross_entropy(logits.float().reshape(-1, V),
-                             targets.reshape(-1).long(),
-                             reduction="none").reshape(targets.shape)
+    if _vocab_tp(layout):
+        losses = vocab_parallel_xent(logits.float(), targets, layout)
+    else:
+        losses = F.cross_entropy(logits.float().reshape(-1, V),
+                                 targets.reshape(-1).long(),
+                                 reduction="none").reshape(targets.shape)
     if mask is None and denom is None:
         return losses.mean()
     if mask is None:
@@ -235,37 +305,113 @@ def lm_loss(logits: torch.Tensor, targets: torch.Tensor, mask=None,
     return (losses * mask).sum() / d
 
 
-def _chunk_loss(h_c, table, t_c, m_c):
+def _chunk_loss(h_c, table, t_c, m_c, layout):
     logits = TiedHead.apply(h_c, table)             # [B, C, V] transient
-    losses = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
-                             t_c.reshape(-1).long(),
-                             reduction="none").reshape(t_c.shape)
+    if _vocab_tp(layout):
+        losses = vocab_parallel_xent(logits, t_c, layout)
+    else:
+        losses = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                                 t_c.reshape(-1).long(),
+                                 reduction="none").reshape(t_c.shape)
     return (losses * m_c).sum()
 
 
 def fused_lm_loss(h: torch.Tensor, table: torch.Tensor,
                   targets: torch.Tensor, mask=None, num_chunks: int = 8,
-                  denom=None) -> torch.Tensor:
+                  denom=None, layout=None) -> torch.Tensor:
     """Tied-head projection + softmax-xent chunked along the SEQUENCE, so
     the full [B*S, vocab] logits never exist: each chunk's [B, C, V]
     tile is made, reduced to its loss and dropped, and the backward
     recomputes it (`torch.utils.checkpoint`). h: [B, S, E] backbone
     output (`CausalLM(tokens, with_head=False)`); table: the [V, E] tied
-    embedding, cast once to h's dtype. num_chunks degrades to
-    gcd(num_chunks, S). Equals lm_loss over the tied logits."""
+    embedding, cast once to h's dtype (with a vocab-parallel head, this
+    rank's rows: each tile is then [B, C, V/tp]). num_chunks degrades
+    to gcd(num_chunks, S). Equals lm_loss over the tied logits."""
     B, S, _ = h.shape
     nc = math.gcd(num_chunks, S)
     C = S // nc
     m = (torch.ones((B, S), dtype=torch.float32, device=h.device)
          if mask is None else mask.float())
+    if _vocab_tp(layout):
+        h = copy_to(h, layout.mesh, "tp")
     table = table.to(h.dtype)
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(nc):
         sl = slice(i * C, (i + 1) * C)
         total = total + checkpoint(_chunk_loss, h[:, sl], table,
-                                   targets[:, sl], m[:, sl],
+                                   targets[:, sl], m[:, sl], layout,
                                    use_reentrant=False)
     d = denom if denom is not None else torch.clamp(m.sum(), min=1)
+    return total / d
+
+
+def _overlap_chunk(h_c, wt, t_g, m_g, layout, ring, V, first):
+    """One chunk of `tp_overlap_lm_loss`: this rank's chunk rows
+    [B, Cl, E] against every rank's through the ring, [B, tp Cl, V/tp]
+    logits, the vocab-parallel xent and its masked sum over the rows of
+    every rank (each rank's vocab columns take part in every row's
+    loss, so each rank's objective holds them all, the same value on
+    every tp rank)."""
+    logits = allgather_matmul(h_c, wt, layout.mesh, "tp", ring).float()
+    cols = first + torch.arange(logits.shape[-1], device=logits.device)
+    logits = torch.where(cols < V, logits, NEG_INF)
+    return (vocab_parallel_xent(logits, t_g, layout) * m_g).sum()
+
+
+def tp_overlap_lm_loss(h: torch.Tensor, table: torch.Tensor,
+                       targets: torch.Tensor, mask, layout,
+                       num_chunks: int = 8, denom=None,
+                       ring: str = "uni") -> torch.Tensor:
+    """`fused_lm_loss` with the logits matmul vocab-parallel and
+    overlapped (the reference's `tp_overlap_lm_loss`): h enters
+    sequence-sharded over tp, and each chunk's logits tile is a ring
+    `allgather_matmul(h_chunk, table_local^T)`, [B, tp Cl, V/tp] on a
+    rank; the max, the normaliser and the target logit are completed
+    over tp. A sequence or vocab that tp does not divide is zero-padded
+    (pad rows masked out, pad vocab columns forced to -1e30 before the
+    normaliser), so the loss is the unpadded one. `table` is this rank's
+    vocab rows where the head is vocab-parallel, else the whole table
+    (then each rank takes its block of it, the gradient summed over tp).
+    Returns this tp group's rows' loss over `denom`, the same on every
+    tp rank (the reference psums each rank's own rows instead, with
+    JAX's transpose of psum; here every tp rank sums every row, which
+    gives each rank the whole gradient of its vocab columns)."""
+    mesh, tp = layout.mesh, layout.tp
+    B, S, E = h.shape
+    m = (torch.ones((B, S), dtype=torch.float32, device=h.device)
+         if mask is None else mask.float())
+    pad_s = (-S) % tp
+    if pad_s:
+        h = F.pad(h, (0, 0, 0, pad_s))
+        targets = F.pad(targets, (0, pad_s))
+        m = F.pad(m, (0, pad_s))
+        S += pad_s
+    if _vocab_tp(layout):
+        V = table.shape[0] * tp
+        first = layout.tp_rank * table.shape[0]
+    else:
+        V = table.shape[0]
+        Vl = -(-V // tp)
+        first = layout.tp_rank * Vl
+        table = F.pad(copy_to(table, mesh, "tp"), (0, 0, 0, Vl * tp - V))
+        table = table[first:first + Vl]
+    Sl = S // tp
+    nc = math.gcd(num_chunks, Sl)
+    Cl = Sl // nc
+    h_l = scatter_to(h, mesh, "tp", 1)
+    wt = table.to(h.dtype).t()
+    # chunk c's rows of every rank, in the ring's row order
+    t_all = targets.long().view(B, tp, nc, Cl)
+    m_all = m.view(B, tp, nc, Cl)
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c in range(nc):
+        sl = slice(c * Cl, (c + 1) * Cl)
+        total = total + checkpoint(
+            _overlap_chunk, h_l[:, sl], wt, t_all[:, :, c].reshape(B, -1),
+            m_all[:, :, c].reshape(B, -1), layout, ring, V, first,
+            use_reentrant=False)
+    d = denom if denom is not None else torch.clamp(
+        allreduce_sum(m.sum(), mesh, BATCH_AXES), min=1)
     return total / d
 
 
@@ -284,26 +430,63 @@ class LMTrainState:
     model: torch.nn.Module         # CausalLM or MaskedLM
     step: int = 0
     nonfinite_streak: Optional[torch.Tensor] = None
+    # under fsdp: this rank's 1/fsdp slice of the masters (`params` is
+    # then their all-gathered working copy); None without fsdp
+    master: Optional[torch.Tensor] = None
+    # (this rank's shard, the shard count, whether it writes the shard)
+    # of a state split over fsdp x ep x tp; None for a replica
+    shard: Optional[Tuple[int, int, bool]] = None
+    # what a sharded checkpoint must match to restore (train/checkpoint.py)
+    layout_key: Optional[dict] = None
+    fsdp_group: object = None
+    # the mesh's whole group, over which a sharded save agrees on its name
+    group: object = None
+
+    @property
+    def masters(self) -> torch.Tensor:
+        """The f32 masters this rank keeps between steps: the fsdp slice,
+        or the whole flat buffer."""
+        return self.params if self.master is None else self.master
 
     def checkpoint_payload(self) -> Dict[str, torch.Tensor]:
         """The tensors a checkpoint holds (train/checkpoint.py), by DCP
-        key: the flat params and the AdamW state."""
+        key: this rank's masters and the AdamW state."""
         opt = self.opt
-        return {"params": self.params, "opt.mu": opt.mu, "opt.nu": opt.nu,
+        return {"params": self.masters, "opt.mu": opt.mu, "opt.nu": opt.nu,
                 "opt.count": opt.count}
+
+    def sync_params(self) -> None:
+        """Refresh the working parameters from the masters: the fsdp
+        slices all-gathered into the flat buffer, in place (no-op
+        without fsdp)."""
+        if self.master is not None:
+            _all_gather(self.params, self.master, group=self.fsdp_group)
+
+    def after_restore(self) -> None:
+        self.sync_params()
 
     def named_params(self) -> Dict[str, torch.Tensor]:
         """{state-dict name: the f32 view of the flat buffer}."""
         return {n: p.detach() for n, p in self.model.named_parameters()}
 
 
+#: the axes whose ranks hold other parts of the state
+_SHARD_AXES = ("fsdp", "ep", "tp")
+#: the flat buffer's classes of parameters, in order: replicated over
+#: tp and ep, split over tp, over ep, over both (`_global_norm`)
+_CLASSES = ((), ("tp",), ("ep",), ("tp", "ep"))
+
+
 class LMTrainer:
-    """Data-parallel trainer for the port's LMs (CausalLM, or MaskedLM
-    for a BERT config) over `mesh` (default: every rank of the process
-    group on dp, one process without one). It builds its own model
-    (trainable, f32 master parameters laid flat) from a
+    """Trainer for the port's LMs (CausalLM, or MaskedLM for a BERT
+    config) over `mesh` (default: every rank of the process group on dp,
+    one process without one): data parallelism over dcn x dp x fsdp,
+    fsdp over the optimizer state, tensor (tp), sequence (sp) and expert
+    (ep) parallelism in the model. It builds its own model (trainable,
+    this rank's blocks of the f32 master parameters laid flat) from a
     TransformerConfig; runs on the CUDA card unless `device="cpu"`. A
-    step takes this rank's rows of the global batch."""
+    step takes this rank's rows of the global batch (and under sp its
+    sequence shard of them)."""
 
     def __init__(self, model_config: TransformerConfig,
                  config: Optional[LMTrainerConfig] = None,
@@ -313,7 +496,8 @@ class LMTrainer:
         self.device = resolve_device(device)
         self.mesh = mesh if mesh is not None else data_parallel_mesh()
         self.schedule = make_lr_schedule(self.config)
-        A, W = self.config.accum_steps, self.mesh.size
+        A, W = self.config.accum_steps, self.mesh.dim_size(BATCH_AXES)
+        sp = self.mesh.shape["sp"]
         if A < 1:
             raise ValueError(f"accum_steps={A} must be >= 1")
         if self.config.global_batch_size % (A * W):
@@ -321,41 +505,127 @@ class LMTrainer:
                 f"global_batch_size={self.config.global_batch_size} must "
                 f"split into accum_steps={A} microbatches of whole "
                 f"per-rank shards (data-parallel degree {W})")
+        if self.config.seq_len % sp:
+            raise ValueError(
+                f"seq_len={self.config.seq_len} not divisible by the mesh's "
+                f"sp={sp}; context parallelism shards the sequence axis")
         if self.config.fused_xent and (self.config.masked_lm
                                        or not model_config.causal):
             raise ValueError("fused_xent supports the causal LM only "
                              "(BERT's MLM head has extra layers before "
                              "the tied decoder)")
+        self.layout = ModelLayout.of(self.mesh, model_config)
+
+    # -- the state --------------------------------------------------------
+
+    def _flat_order(self):
+        """[(name, local shape)] in the flat buffer's order, and the
+        [start, end) of each class of `_CLASSES` in it: parameters split
+        over neither tp nor ep first, in `param_shapes` order (the whole
+        buffer without a layout), then each split class."""
+        cfg = self.model_config
+        if self.layout is None:
+            order = list(param_shapes(cfg).items())
+            n = sum(math.prod(s) for _, s in order)
+            return order, [((), 0, n)]
+        placed = self.layout.placements
+        order, segments, off = [], [], 0
+        for cls in _CLASSES:
+            start = off
+            for name, p in placed.items():
+                if tuple(a for a in p.sharded_over()
+                         if self.mesh.shape[a] > 1) == cls:
+                    order.append((name, p.local_shape))
+                    off += math.prod(p.local_shape)
+            segments.append((cls, start, off))
+        return order, segments
 
     def init_state(self, seed: int = 0,
                    state_dict: Optional[Dict[str, torch.Tensor]] = None
                    ) -> LMTrainState:
         """A fresh state: parameters from `state_dict` (e.g. converted
-        from the reference with params_from_flax) or drawn from `seed`
-        (models/convert.py init_params), zeroed moments, step 0."""
+        from the reference with params_from_flax; the whole model's) or
+        drawn from `seed` (models/convert.py init_params: the same values
+        on every mesh), this rank's blocks of them laid flat; zeroed
+        moments, step 0. Under fsdp the masters and moments are this
+        rank's 1/fsdp slice of the flat buffer (zero-padded to split)."""
         from ..models.convert import init_params
         cfg, dev = self.model_config, self.device
-        if state_dict is None:
+        if self.layout is not None:
+            state_dict = shard_init(cfg, self.mesh, seed, state_dict, dev)
+        elif state_dict is None:
             gen = torch.Generator(device=dev).manual_seed(seed)
             state_dict = init_params(cfg, gen, device=dev)
-        shapes = param_shapes(cfg)
-        sizes = [math.prod(s) for s in shapes.values()]
-        flat = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
+        order, self._segments = self._flat_order()
+        fsdp = self.mesh.shape["fsdp"]
+        n = sum(math.prod(s) for _, s in order)
+        flat = torch.zeros(n + (-n) % fsdp, dtype=torch.float32, device=dev)
         views, off = {}, 0
-        for (name, shape), n in zip(shapes.items(), sizes):
-            view = flat[off:off + n]
+        for name, shape in order:
+            size = math.prod(shape)
+            view = flat[off:off + size]
             view.copy_(torch.as_tensor(state_dict[name]).reshape(-1))
             views[name] = view.view(shape)
-            off += n
+            off += size
         with torch.device("meta"):
-            model = model_class(cfg)(cfg)
+            model = model_class(cfg)(cfg, self.layout)
         model.load_state_dict(views, strict=True, assign=True)
         for m in model.modules():
             if isinstance(m, MoeMlp):
                 m.mesh = self.mesh          # global routing (H14)
+        master = None
+        if fsdp > 1:
+            per = flat.numel() // fsdp
+            i = self.mesh.index(("fsdp",))
+            master = flat[i * per:(i + 1) * per].clone()
+        shards, shard = self.mesh.dim_size(_SHARD_AXES), None
+        if shards > 1:
+            c = self.mesh.coords()
+            shard = (self.mesh.index(_SHARD_AXES), shards,
+                     all(c[a] == 0 for a in TOKEN_AXES
+                         if a not in _SHARD_AXES))
         return LMTrainState(
-            params=flat, opt=AdamWState.zeros_like(flat), model=model,
-            nonfinite_streak=torch.zeros((), dtype=torch.int32, device=dev))
+            params=flat, opt=AdamWState.zeros_like(
+                flat if master is None else master), model=model,
+            nonfinite_streak=torch.zeros((), dtype=torch.int32, device=dev),
+            master=master, shard=shard, layout_key=self.layout_key(),
+            fsdp_group=self.mesh.group(("fsdp",)),
+            group=self.mesh.group(self.mesh.shape))
+
+    def layout_key(self) -> dict:
+        """What a sharded checkpoint of this trainer's state depends on:
+        the sizes of the axes that split the state (fsdp, ep, tp) and
+        the model's parameters."""
+        return {"mesh": {a: self.mesh.shape[a] for a in _SHARD_AXES},
+                "params": [[n, list(s)] for n, s in
+                           param_shapes(self.model_config).items()]}
+
+    def global_flat(self, state: LMTrainState,
+                    which: str = "params") -> torch.Tensor:
+        """The whole model's flat f32 buffer of `which` ("params", "mu"
+        or "nu") in `param_shapes` order: what one process's state holds.
+        Collective: every rank of the mesh calls it."""
+        t = {"params": state.masters, "mu": state.opt.mu,
+             "nu": state.opt.nu}[which]
+        if state.master is not None:
+            t = allgather(t, self.mesh, "fsdp")
+        if self.layout is None:
+            return t[:sum(math.prod(s) for s in
+                          param_shapes(self.model_config).values())].clone()
+        order, _ = self._flat_order()
+        local, off = {}, 0
+        for name, shape in order:
+            local[name] = t[off:off + math.prod(shape)].view(shape)
+            off += math.prod(shape)
+        out = []
+        for name, p in self.layout.placements.items():
+            x = local[name]
+            for axis in COMPUTE_AXES:
+                d = p.split(axis)
+                if d is not None and self.mesh.shape[axis] > 1:
+                    x = allgather(x.contiguous(), self.mesh, axis, axis=d)
+            out.append(x.reshape(-1))
+        return torch.cat(out)
 
     # -- the objective and its gradients ---------------------------------
 
@@ -364,15 +634,21 @@ class LMTrainer:
         """(loss, logits or None). `denom` and `aux_scale` make the sum of
         microbatch gradients the full batch's: the FULL batch's mask
         count, and 1 / accum_steps on the aux term."""
-        model = state.model
+        model, lay = state.model, self.layout
         if self.config.fused_xent:
             h, aux = model.forward_train(tokens, with_head=False)
-            loss = fused_lm_loss(h, model.wte.weight, targets, mask,
-                                 denom=denom)
+            if self.model_config.tp_overlap and lay is not None \
+                    and lay.tp > 1:
+                loss = tp_overlap_lm_loss(h, model.wte.weight, targets,
+                                          mask, lay, denom=denom,
+                                          ring=self.model_config.tp_ring)
+            else:
+                loss = fused_lm_loss(h, model.wte.weight, targets, mask,
+                                     denom=denom, layout=lay)
             logits = None
         else:
             logits, aux = model.forward_train(tokens)
-            loss = lm_loss(logits, targets, mask, denom=denom)
+            loss = lm_loss(logits, targets, mask, denom=denom, layout=lay)
         if aux and include_aux:
             loss = loss + aux_scale * self.config.moe_aux_weight * sum(
                 a.mean() for a in aux)
@@ -388,28 +664,39 @@ class LMTrainer:
 
     def _mask_total(self, mask: torch.Tensor) -> torch.Tensor:
         """The GLOBAL batch's mask count (at least 1), the reference's
-        normaliser (H13): this rank's count summed over the mesh."""
-        return torch.clamp(allreduce_sum(mask.sum(), self.mesh), min=1.0)
+        normaliser (H13): this rank's count summed over the ranks that
+        hold other tokens (the data axes and sp)."""
+        return torch.clamp(allreduce_sum(mask.sum(), self.mesh, TOKEN_AXES),
+                           min=1.0)
 
     def _reduce(self, flat: torch.Tensor) -> torch.Tensor:
-        """The mean of `flat` over the mesh (in place where it can be):
+        """The mean of `flat` over dcn x dp (in place where it can be):
         one all-reduce, or across slices the hierarchical one."""
         if self.mesh.shape["dcn"] > 1:
             return hierarchical_allreduce_mean(flat, self.mesh)
-        return allreduce_mean(flat, self.mesh, MESH_DIMS, inplace=True)
+        return allreduce_mean(flat, self.mesh, ("dcn", "dp"), inplace=True)
+
+    def _reduce_scalars(self, x: torch.Tensor) -> torch.Tensor:
+        """Per-rank shares of a global sum (the loss, the hit count)
+        made whole: summed over sp, averaged over the data axes."""
+        x = allreduce_sum(x, self.mesh, "sp")
+        return allreduce_mean(x, self.mesh, BATCH_AXES)
 
     def loss_and_grads(self, state: LMTrainState, tokens, targets,
                        mask=None):
-        """(loss, flat f32 gradients, accuracy) of one global batch at the
-        current parameters, this rank holding its rows; with
-        accum_steps > 1 the microbatches' losses and gradients summed
-        (accuracy NaN, as in the reference). All three are the global
-        batch's, the same on every rank."""
+        """(loss, f32 gradients of this rank's masters, accuracy) of one
+        global batch at the current parameters, this rank holding its
+        rows (its sequence shard under sp); with accum_steps > 1 the
+        microbatches' losses and gradients summed (accuracy NaN, as in
+        the reference). The loss and accuracy are the global batch's,
+        the same on every rank; under fsdp the gradients are this rank's
+        slice, reduce-scattered."""
         tokens, targets, mask = self._batch(tokens, targets, mask)
-        A, W = self.config.accum_steps, self.mesh.size
+        A, W = self.config.accum_steps, self.mesh.dim_size(BATCH_AXES)
         total = self._mask_total(mask)
-        # W x this rank's share of the global objective: the mean over
-        # the ranks of these gradients is the global batch's
+        # W x this rank's share of the global objective: the sum over sp
+        # and the mean over the data axes of these gradients is the
+        # global batch's
         denom = total / W
         hits = torch.full((), float("nan"), device=self.device)
         if A > 1:
@@ -424,34 +711,80 @@ class LMTrainer:
             loss, logits = self._loss(state, tokens, targets, mask,
                                       denom=denom, aux_scale=W)
             if logits is not None:
-                hit = (logits.detach().argmax(-1) == targets).float()
-                hits = (hit * mask).sum() * W
+                pick = (vocab_parallel_argmax(logits, self.layout)
+                        if _vocab_tp(self.layout)
+                        else logits.detach().argmax(-1))
+                hits = ((pick == targets).float() * mask).sum() * W
             loss.backward()
             loss = loss.detach()
         params = [state.model.get_parameter(n)
-                  for n in param_shapes(self.model_config)]   # flat order
-        flat = torch.cat([torch.zeros_like(p).reshape(-1) if p.grad is None
-                          else p.grad.reshape(-1) for p in params]
-                         + [loss.reshape(1), hits.reshape(1)])
+                  for n, _ in self._flat_order()[0]]           # flat order
+        pad = state.params.numel() - sum(p.numel() for p in params)
+        grads = [torch.zeros_like(p).reshape(-1) if p.grad is None
+                 else p.grad.reshape(-1) for p in params]
         for p in params:
             p.grad = None
-        flat = self._reduce(flat)
-        # the loss is cloned out: a view would keep the whole buffer alive
-        return flat[-2].clone(), flat[:-2], flat[-1] / total
+        if pad:
+            grads.append(state.params.new_zeros(pad))
+        fsdp, sp = self.mesh.shape["fsdp"], self.mesh.shape["sp"]
+        if fsdp == 1:
+            flat = torch.cat(grads + [loss.reshape(1), hits.reshape(1)])
+            if sp > 1:
+                flat = allreduce_sum(flat, self.mesh, "sp", inplace=True)
+            flat = self._reduce(flat)
+            # the loss is cloned out: a view would keep the whole buffer
+            return flat[-2].clone(), flat[:-2], flat[-1] / total
+        flat = torch.cat(grads)
+        if sp > 1:
+            flat = allreduce_sum(flat, self.mesh, "sp", inplace=True)
+        shard = self._reduce(reduce_scatter(flat, self.mesh, "fsdp"))
+        shard.div_(fsdp)
+        scalars = self._reduce_scalars(torch.stack([loss, hits]))
+        return scalars[0], shard, scalars[1] / total
+
+    def _norm_weight(self, cls) -> float:
+        """A class's weight in the norm's sum over the fsdp x ep x tp
+        group: 1 over the ranks that hold the same values, so each
+        parameter counts once (H25)."""
+        return 1.0 / math.prod(self.mesh.shape[a] for a in COMPUTE_AXES
+                               if a not in cls)
+
+    def _global_norm(self, grads: torch.Tensor) -> torch.Tensor:
+        """The L2 norm (f32) of the whole model's gradient from this
+        rank's slice of its blocks: each class's sum of squares weighted
+        by `_norm_weight` and summed over fsdp x ep x tp. The squares
+        sum in f64 (optax's per-leaf sums are exact to f32; an f32
+        reduction over a gpt2-size buffer drifts by ~1e-5)."""
+        if self.layout is None and self.mesh.shape["fsdp"] == 1:
+            return torch.linalg.vector_norm(grads, dtype=torch.float64
+                                            ).float()
+        n = grads.numel()
+        lo = self.mesh.index(("fsdp",)) * n
+        sq = grads.new_zeros((), dtype=torch.float64)
+        for cls, start, end in self._segments:
+            a, b = max(start, lo), min(end, lo + n)
+            if a < b:
+                sq = sq + torch.linalg.vector_norm(
+                    grads[a - lo:b - lo], dtype=torch.float64).square() \
+                    * self._norm_weight(cls)
+        return allreduce_sum(sq, self.mesh, ("fsdp",) + COMPUTE_AXES
+                             ).sqrt().float()
 
     def _apply(self, state: LMTrainState, grads: torch.Tensor,
                loss: torch.Tensor) -> None:
         """One optimizer update of `state`, in place, guarded: a step
-        with a non-finite loss or gradient norm applies no update."""
-        g_norm = torch.linalg.vector_norm(grads)
+        with a non-finite loss or gradient norm applies no update. Under
+        fsdp the updated slices are then gathered for the next forward."""
+        g_norm = self._global_norm(grads)
         opt = state.opt
         lr = self.schedule(opt.count)
-        p, mu, nu = adamw_update(state.params, grads, g_norm, opt, lr,
+        p, mu, nu = adamw_update(state.masters, grads, g_norm, opt, lr,
                                  self.config)
-        updates = [(state.params, p), (opt.mu, mu), (opt.nu, nu),
+        updates = [(state.masters, p), (opt.mu, mu), (opt.nu, nu),
                    (opt.count, opt.count + 1)]
         state.nonfinite_streak = guard_nonfinite_update(
             updates, loss, g_norm, state.nonfinite_streak)
+        state.sync_params()
 
     def train_step(self, state: LMTrainState, tokens, targets, mask=None
                    ) -> Tuple[LMTrainState, Dict[str, torch.Tensor]]:
@@ -470,10 +803,11 @@ class LMTrainer:
         update). The MoE aux term is left out: it only shapes gradients,
         and would inflate exp(val_loss) past the perplexity."""
         tokens, targets, mask = self._batch(tokens, targets, mask)
+        W = self.mesh.dim_size(BATCH_AXES)
         loss = self._loss(state, tokens, targets, mask,
-                          denom=self._mask_total(mask) / self.mesh.size,
+                          denom=self._mask_total(mask) / W,
                           include_aux=False)[0]
-        return allreduce_mean(loss, self.mesh)
+        return self._reduce_scalars(loss)
 
     def evaluate(self, state: LMTrainState, dataset: Iterable,
                  num_batches: int = 10) -> Dict[str, float]:
@@ -497,8 +831,9 @@ class LMTrainer:
         models only."""
         cfg, mcfg = self.config, self.model_config
         per_token = flops.transformer_train_flops_per_token(
-            state.params.numel(), mcfg.num_layers, mcfg.embed_dim,
-            cfg.seq_len, causal=mcfg.causal)
+            sum(math.prod(s) for s in param_shapes(mcfg).values()),
+            mcfg.num_layers, mcfg.embed_dim, cfg.seq_len,
+            causal=mcfg.causal)
         return per_token * cfg.global_batch_size * cfg.seq_len
 
     def benchmark(self, state: LMTrainState, dataset: Iterable,
@@ -626,4 +961,5 @@ class LMTrainer:
 
 __all__ = ["ADAM_EPS", "AdamWState", "LMTrainState", "LMTrainer",
            "LMTrainerConfig", "adamw_update", "fused_lm_loss", "lm_loss",
-           "make_lr_schedule"]
+           "make_lr_schedule", "tp_overlap_lm_loss", "vocab_parallel_argmax",
+           "vocab_parallel_xent"]

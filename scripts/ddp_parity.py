@@ -25,6 +25,17 @@ CPU it picks gloo. For each gang size N:
   slice, each slice its own two cards): gpt2 in bf16 through K1-K3 and
   ResNet-50 over the dcn x dp mesh.
 
+`--mp` runs the model-parallel mode instead (tests/torch_mp_worker.py
+as one gang over the largest N, one card a rank over NCCL): gpt2-medium
+at full width, 16 x 512 a card, bf16, K1-K3, through LMTrainer.benchmark
+at tp = 1, 2, 4 (dp filling the rest) and fsdp = 2, 4: tokens/s a card,
+step p50, each card's bytes of masters + mu + nu and peak memory; and
+each tp leg again with its tp all-reduces turned into the identity
+(timing only), whose throughput gives the exposed all-reduce's share of
+a step, 1 - tokens/s(on) / tokens/s(off) (the windows' wall time; the
+step p50 comes from the telemetry histogram's buckets). `--mp --cpu 4` rehearses it with gloo
+ranks at the test size.
+
 On the CPU the tests' small models run instead. `--scaling` (cards
 only) adds examples/allreduce_bench.py over all N cards at 1, 16 and
 64 MB (the curve), then at 1354 MB (gpt2-medium's flat f32 gradient
@@ -50,6 +61,7 @@ import torch  # noqa: E402
 
 import torch_ddp_worker as worker  # noqa: E402
 import torch_lm_gang_worker as lm_worker  # noqa: E402
+import torch_mp_worker as mp_worker  # noqa: E402
 
 
 def free_port() -> int:
@@ -182,6 +194,45 @@ def scaling(worlds, label):
               f"{head['final_loss']}", flush=True)
 
 
+def model_parallel(world, cpu, label):
+    """The --mp mode over `world` ranks (see the module docstring)."""
+    prefix = "cards-test/" if cpu else "cards/"
+    names = [n.replace("cards/", prefix)
+             for n in mp_worker.card_legs(world)]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        try:
+            got = mp_worker.gang(world, os.path.join(tmp, "r"), names,
+                                 device="cpu" if cpu else "cuda",
+                                 timeout=1800)
+        except RuntimeError as exc:
+            print(f"model-parallel gang of {world}: {exc}")
+            return False
+    print(f"model-parallel gang of {world} over {got[0]['backend']}: "
+          f"{time.perf_counter() - t0:.1f} s ({label})", flush=True)
+    for name in names:
+        ranks = [r[name] for r in got if name in r]
+        r = ranks[0]
+        peak = max(q["peak_bytes"] or 0 for q in ranks)
+        mesh = {k: v for k, v in r["mesh"].items() if v > 1}
+        line = (f"{name} mesh {mesh}: tokens/s {r['tokens_per_sec']:.1f}, "
+                f"a card {r['tokens_per_sec'] / world:.1f}, step p50 "
+                f"{r['step_time_p50_ms']:.1f} ms, masters + mu + nu a card "
+                f"{max(q['masters_bytes'] for q in ranks) / 1e9:.3f} GB, "
+                f"peak {peak / 1e9:.2f} GB, K1 launches a rank "
+                f"{r['launches']['flash_fwd']}")
+        off = name + "-off"
+        if off in names:
+            o = [q[off] for q in got if off in q][0]
+            line += (f"; without its tp all-reduces {o['tokens_per_sec']:.1f}"
+                     f" tokens/s, step p50 {o['step_time_p50_ms']:.1f} ms: "
+                     f"exposed share of the step "
+                     f"{1 - r['tokens_per_sec'] / o['tokens_per_sec']:.3f}")
+        if not name.endswith("-off"):
+            print(line + f" ({label})", flush=True)
+    return True
+
+
 def main() -> int:
     cpu = "--cpu" in sys.argv
     worlds = [int(a) for a in sys.argv[1:] if a.isdigit()] or [2, 4]
@@ -195,6 +246,10 @@ def main() -> int:
         _build.build(["flash_attention"])
         label = card()
         print(label, flush=True)
+    if "--mp" in sys.argv:
+        if not cpu:
+            torch.cuda.empty_cache()
+        return 0 if model_parallel(max(worlds), cpu, label) else 1
     want = worker.train(0, 1, dev, steps, px, size)
     lm_steps = 3
     lm_size = "test" if cpu else "chip"

@@ -94,6 +94,7 @@ res = {"mean": c.allreduce_mean(x, m8, "dp"),
        "sharded": c.sharded_allreduce_fn(m8, ("dp",))(x.clone()),
        "grad_w": grads["w"], "grad_b": grads["b"],
        "hier": c.hierarchical_allreduce_mean(y, m24, ("dp",), "dcn"),
+       "hier1": c.hierarchical_allreduce_mean(y, m8, ("dp",), "dcn"),
        "flat": c.allreduce_mean(y, m24, ("dcn", "dp")),
        "slice_mean": c.allreduce_mean(y, m24, "dp"),
        "dcn_mean": c.allreduce_mean(y, m24, "dcn"),
@@ -171,7 +172,9 @@ def test_allreduce_gradients_pytree(gang8):
 def test_hierarchical_allreduce_matches_flat(gang8):
     """Over 2 slices x 4 ranks, an odd inner dim (33): the two-phase
     mean equals the flat mean, and both equal the JAX functions'; a
-    mean over dp alone is each slice's, over dcn alone each column's."""
+    mean over dp alone is each slice's, over dcn alone each column's.
+    Over one slice of 8 (dcn of size 1) the two-phase mean is the mean
+    over dp, as the reference's."""
     mesh = jmake_mesh(JMeshConfig(dp=4, dcn=2))
     y = _inputs()["y"]
     spec = P(("dcn", "dp"))
@@ -188,6 +191,11 @@ def test_hierarchical_allreduce_matches_flat(gang8):
         np.testing.assert_allclose(_stacked(gang8, key), want, rtol=RTOL,
                                    atol=ATOL)
     assert [int(r["position"]) for r in gang8] == list(range(8))
+    m8 = jmake_mesh(JMeshConfig.data_parallel(8))
+    want = _per_device(lambda v: jcol.hierarchical_allreduce_mean(
+        v, ici_axes=("dp",), dcn_axis="dcn"), m8, P("dp"), y)
+    np.testing.assert_allclose(_stacked(gang8, "hier1"), want, rtol=1e-5,
+                               atol=1e-6)
 
 
 @pytest.mark.parametrize("dp,slices", [(8, 1), (8, 2), (4, 1), (6, 3)])
@@ -234,8 +242,16 @@ def test_gang_of_one_mesh_and_its_collectives_are_the_identity():
                                        ("sp", "10c"), ("ep", "10c"),
                                        ("pp", "10d")])
 def test_mesh_refuses_the_axes_of_later_steps(axis, step):
-    with pytest.raises(ValueError, match=f"step {step}"):
-        tmesh.make_mesh(tmesh.MeshConfig(**{axis: 2}))
+    """pp, still ROADMAP.md step 10d, raises naming it; the axes of the
+    steps done (10b: fsdp; 10c: tp, sp, ep) lay a mesh over two ranks,
+    whose coordinates run along that axis."""
+    if axis == "pp":
+        with pytest.raises(ValueError, match=f"step {step}"):
+            tmesh.make_mesh(tmesh.MeshConfig(**{axis: 2}), ranks=[0, 1])
+        return
+    mesh = tmesh.make_mesh(tmesh.MeshConfig(**{axis: 2}), ranks=[0, 1])
+    assert mesh.shape[axis] == 2 and mesh.size == 2
+    assert [mesh.coords(r)[axis] for r in (0, 1)] == [0, 1]
 
 
 def _bench(world, tmp_path):

@@ -178,11 +178,31 @@ def test_crd_lists_every_spec_field_the_serializer_writes():
     back = from_manifest(to_manifest(TPUJob(
         metadata=ObjectMeta(name="x", namespace="d"), spec=spec)))
     assert back.spec.progress_deadline_seconds == 120
-    # the serving and pack specs are not serialized yet (ROADMAP.md
-    # Queue 3): the in-memory server keeps them, a real one does not
-    written = to_manifest_spec(TPUJobSpec(
-        tpus=8, pack_group="g", serving=ServingSpec()))
-    assert "serving" not in written and "packGroup" not in written
+    # the serving and pack specs (ROADMAP.md Queue 3, O4) are written,
+    # listed by the CRD with their types, and round-trip
+    from mpi_operator_tpu_torch.api.types import ServingSLO
+    for extra in (dict(pack_group="g"),
+                  dict(serving=ServingSpec(prefill_replicas=2,
+                                           decode_replicas=3)),
+                  dict(serving=ServingSpec(decode_replicas=2, slo=ServingSLO(
+                      ttft_p99_seconds=0.5, queue_depth=4.0,
+                      min_decode_replicas=1, max_decode_replicas=4,
+                      breach_seconds=30.0)))):
+        spec = TPUJobSpec(tpus=8, **extra)
+        written = to_manifest_spec(spec)
+        assert set(written) <= set(props), set(written) - set(props)
+        for key in written.get("serving", {}):
+            assert key in props["serving"]["properties"], key
+        for key in written.get("serving", {}).get("slo", {}):
+            assert key in props["serving"]["properties"]["slo"][
+                "properties"], key
+        back = from_manifest(to_manifest(TPUJob(
+            metadata=ObjectMeta(name="x", namespace="d"), spec=spec)))
+        assert back.spec.pack_group == spec.pack_group
+        assert back.spec.serving == spec.serving
+    assert props["packGroup"] == {"type": "string"}
+    assert props["serving"]["properties"]["decodeReplicas"] == {
+        "type": "integer", "minimum": 1}
 
 
 # ---------------------------------------------------------------------------

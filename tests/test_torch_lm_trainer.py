@@ -378,9 +378,10 @@ def test_run_lm_benchmark_on_the_cpu(monkeypatch):
     """The entry point at test size: the reference's metric keys, every
     step's loss finite, warmup + timed steps taken, eval continuing the
     stream; remat, MoE and BERT run at test size; the parts not ported
-    (tp/pp/sp/ep meshes and a resharding restore: ROADMAP step 10; ViT:
-    step 7) raise instead of being ignored, and so do 2 slices in one
-    process."""
+    (pp and a resharding restore: ROADMAP step 10; ViT: step 7) raise
+    instead of being ignored, and so do 2 slices, tp or sp meshes in one
+    process (the reference's divisibility check) and ep without
+    experts."""
     logs = []
     state, m = bench.run_lm_benchmark(
         "gpt2", "test", batch_per_device=2, seq_len=16, num_steps=4,
@@ -396,8 +397,11 @@ def test_run_lm_benchmark_on_the_cpu(monkeypatch):
     assert any("tokens/sec" in line for line in logs)
     kw = dict(workload="gpt2", size="test", batch_per_device=2,
               seq_len=16, num_steps=1, device="cpu", log=logs.append)
-    for bad in (dict(tp=2), dict(pp=2), dict(sp=2), dict(ep=2)):
-        with pytest.raises(ValueError, match="step 10"):
+    for bad, why in ((dict(tp=2), "not divisible by tp=2"),
+                     (dict(pp=2), "step 10d"),
+                     (dict(sp=2), "not divisible by tp=1 × ep=1 × sp=2"),
+                     (dict(ep=2), "--ep needs --moe-experts")):
+        with pytest.raises(ValueError, match=why):
             bench.run_lm_benchmark(**{**kw, **bad})
     with pytest.raises(ValueError, match="2 slices"):
         bench.run_lm_benchmark(**{**kw, "num_slices": 2})
