@@ -153,18 +153,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
 14. (Run after 11.) BERT: run_lm_benchmark(workload="bert", size=
    "large", batch_per_device=16, seq_len=512), the JAX bench's bert leg
    (MLM rate 0.15, the MaskedLM's attention non-causal through K1-K3),
-   3 warmup steps and 30 timed: K1-K3 launches 24 x steps each, losses
+   3 warmup steps and 10 timed: K1-K3 launches 24 x steps each, losses
    finite, no skipped update; tokens/s, step p50/p99, MFU (attention
    FLOPs not halved) and peak memory. Then one step's gradients through
    flash and dense from the same weights and an MLM batch under a key
    mask padding two rows (cosine >= 0.999 a tensor), and two profiled
    steps.
 15. MoE: gpt2-small with 8 experts (top-2, capacity factor 1.25, MoE on
-   every second block), 16 x 512, the bench's moe leg, 33 steps: K2/K3
+   every second block), 16 x 512, the bench's moe leg, 13 steps: K2/K3
    launches 12 x steps, K1 12 x (steps + 1) (the drop-rate probe's
    forward), finite losses, no skip, the drop rate in [0, 0.5]; two
    profiled steps; then 4 layers dropless for 5 steps, drop rate 0.
-16. Remat: gpt2-medium, 16 x 512, 12 steps each with remat off, "none"
+16. Remat: gpt2-medium, 16 x 512, 2 + 2 steps each with remat off, "none"
    and "dots", one seed and one stream: the params of both remat arms
    equal remat off's bit for bit; K1 launches 2 x 24 x steps under
    remat, K2/K3 24 x steps; peak memory and step p50 of each arm.
@@ -179,7 +179,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
 18. Image training, ResNet ([train-resnet]): run_benchmark at the JAX
    bench's headline leg (bench.py:181-200): ResNet-101 with the conv7
    stem, bf16 over f32 params, 256 x 224^2, SGD with momentum, 3 warmup
-   and 30 timed steps; then ResNet-50 with the s2d stem for 2 + 10, so
+   and 10 timed steps; then ResNet-50 with the s2d stem for 2 + 10, so
    both stems run through cuDNN. No flash or decode kernel launches;
    every loss finite and no step skipped by the guard (each step's
    streak read). Prints images/s, step p50/p99, MFU (the analytic FLOP
@@ -192,7 +192,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    run_benchmark(data_dir=).
 19. ViT ([train-vit]): run_vit_benchmark(size="b16",
    batch_per_device=256, image_size=224), the bench's vit leg
-   (bench.py:1046-1064), 3 + 30 steps: K1-K3 launches 12 x the steps
+   (bench.py:1046-1064), 3 + 10 steps: K1-K3 launches 12 x the steps
    run, the same checks and prints as 18, K1-K3's share of device time;
    then a 2-layer cut's gradients through flash and dense from the same
    weights and batch (64 images), as the BERT check: flash with delta
@@ -338,8 +338,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    bootstrap), every leg laying its own mesh over the same processes.
    (a) gpt2-medium at full width and depth, bf16 over f32 masters,
    attention flash, (dp, fsdp, tp) = (1, 2, 2), global batch 16 x 512,
-   2 + 5 steps through LMTrainer.benchmark: finite losses, no skip, each
-   rank's K1-K3 launches 24 x 7 with 8 heads a launch; its tokens/s and
+   2 + 3 steps through LMTrainer.benchmark: finite losses, no skip, each
+   rank's K1-K3 launches 24 x 5 with 8 heads a launch; its tokens/s and
    step p50 beside [train]'s one process (4 ranks sharing one card over
    gloo: not a scale-out figure), each rank's masters + mu + nu against
    one process's / (fsdp x tp), peak memory a rank. (b) f32 parity at
@@ -359,12 +359,37 @@ Phases, each of which fails the run (non-zero exit, no result line):
    over tp, a tp-replicated parameter counted tp times in the norm,
    the ring's diagonal block non-causal) must each exceed the limit.
 
+26. (Run after 25.) [train-lm-pp]: tests/torch_mp_worker.py's pipeline
+   legs, run in the same gang of 4 gloo ranks as 25's ([train-lm-gang]:
+   one start of the ranks for both). (a) gpt2-medium at full
+   width and depth, bf16 over f32 masters, attention flash, pp = 4 (6
+   layers a rank), global batch 16 x 512 in M = 16 microbatches, 2 + 5
+   steps through PipelineLMTrainer.benchmark, once under GPipe and once
+   under 1F1B with interleave 2: finite losses; each rank's K1-K3
+   launches (L / P) x M a step (each in-flight microbatch keeps its
+   graph: K1 once a layer a microbatch, K2 and K3 once in its backward);
+   each rank's masters + mu + nu 12 B x (its blocks + the replicated
+   leaves), 0.3611 x one process's within 1%; the replicated leaves'
+   digests equal on every rank; 1F1B's peak memory below GPipe's on
+   every rank; tokens/s, step p50, the bubble and the last step's idle
+   share (CUDA events around each tick's compute). (b) f32 parity at 4
+   layers, 8 x 256, 3 AdamW steps, against this process's run of the
+   same model and batches within LM_DDP_REL: gpt2-medium's width at
+   (pp, dp) = (2, 2) GPipe and (pp, tp) = (2, 2) 1F1B x 2, bert-large's
+   at (pp, dp) = (2, 2) 1F1B (against the LMTrainer), gpt2-small's with
+   8 experts at (pp, ep) = (2, 2) GPipe (against the LMTrainer with
+   accum_steps = M: the routing is per microbatch, as the reference's). (c) The
+   planted faults (the tied embedding's gradient not summed over pp,
+   one backward hop dropped, the replicated leaves counted pp times in
+   the norm) must each exceed the limit.
+
 The line before the last is {"kernels": [...]}: K4, K5 and K1-K3 (at
 the gpt2 training shape, with a `vit_b16` entry each: launches in
 [train-vit] and the timing row at ViT-B/16's shape; and an
 `lm_gang_of_one` entry: launches in [train-lm-ddp]'s gang of one; an
 `lm_mp` entry: rank 0's launches in [train-lm-mp] (a) and each rank's
-in its causal rings; and an `operator` entry: launches in the
+in its causal rings; an `lm_pp` entry: each rank's launches in
+[train-lm-pp] (a) under each schedule; and an `operator` entry: launches in the
 [operator] job's worker); K5's
 entry adds `disagg`, `router` and `livescale`: its launches in each
 fleet phase. The last line is {"ok": true, "device": {...}}.
@@ -1512,8 +1537,7 @@ def spec_phase(ops):
                 "launches", "profile")
         log(f"  [{leg}] {json.dumps({k: m[k] for k in keys if k in m})}")
         out[leg] = m
-    m = run_serving_benchmark(**dict(SPEC_COMMON, num_requests=16,
-                                     dtype_name="float32",
+    m = run_serving_benchmark(**dict(SPEC_COMMON, dtype_name="float32",
                                      decode_kernel=False),
                               log=lambda line: log(f"  {line}"))
     check(m["serving_spec_greedy_identical"],
@@ -2447,18 +2471,22 @@ def train_resume_phase(ops):
 # ---------------------------------------------------------------------------
 
 # the JAX bench's headline leg (bench.py:181-200): ResNet-101, the conv7
-# stem, 224 px, bf16, 256 a device; then ResNet-50 with the s2d stem
+# stem, 224 px, bf16, 256 a device (one window of 10 timed steps, 30
+# before [train-lm-pp] needed the run's time: PERF.md section 6); then
+# ResNet-50 with the s2d stem
 RESNET_LEGS = [
     ("resnet101-conv7", dict(model_name="resnet101", stem="conv7",
                              batch_per_device=256, image_size=224,
-                             num_steps=30, warmup_steps=3)),
+                             num_steps=10, warmup_steps=3)),
     ("resnet50-s2d", dict(model_name="resnet50", stem="s2d",
                           batch_per_device=256, image_size=224,
                           num_steps=10, warmup_steps=2)),
 ]
-# the bench's vit leg (bench.py:1046-1064): ViT-B/16, 256 x 224^2
+# the bench's vit leg (bench.py:1046-1064): ViT-B/16, 256 x 224^2; one
+# window of 10 timed steps (30 before [train-lm-pp] needed the run's
+# time)
 VIT_LEG = dict(size="b16", batch_per_device=256, image_size=224,
-               num_steps=30, warmup_steps=3)
+               num_steps=10, warmup_steps=3)
 # the flash-against-dense gradient check on a 2-layer cut of ViT-B/16
 VIT_GRAD_BATCH, VIT_GRAD_LAYERS = 64, 2
 # [train-ddp]: 2 gloo ranks on the one card against one process at the
@@ -3072,27 +3100,44 @@ def lm_mp_check(label, err, limit, fault=False):
         check(worst <= limit, f"lm-mp {label}: {err} > {limit}")
 
 
-def train_lm_mp_phase(ops, dev, single):
-    """fsdp, tp, sp and ep on one card: (a) gpt2-medium whole at (dp,
-    fsdp, tp) = (1, 2, 2), bf16, K1-K3, 16 x 512, 2 + 5 steps; (b) f32
-    parity legs against one process; (c) the ring through K1-K3 alone
-    against whole-sequence K1-K3, then a trainer step at (dp, sp, tp) =
-    (1, 2, 2); (d) the planted faults. Returns {kernel: rank 0's
-    launches in (a)} and the ring's."""
+def mp_worker():
     sys.path.insert(0, os.path.join(os.path.dirname(
         os.path.abspath(__file__)), "tests"))
     import torch_mp_worker as worker
+    return worker
+
+
+def lm_gang_phase():
+    """[train-lm-mp]'s and [train-lm-pp]'s legs as ONE gang of 4 gloo
+    ranks on the card (one start of the ranks for both phases), each leg
+    laying its own mesh over the same processes. Returns every rank's
+    results."""
+    worker = mp_worker()
     torch.cuda.empty_cache()
     legs = ((LM_MP_FULL,) + LM_MP_PARITY + LM_MP_RINGS
             + (LM_MP_RING_ALONE_FAULT, LM_MP_RING_TRAIN) + LM_MP_FAULTS
-            + (LM_MP_RING_FAULT,))
+            + (LM_MP_RING_FAULT,) + LM_PP_FULL + LM_PP_PARITY
+            + LM_PP_FAULTS)
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         got = worker.gang(LM_MP_RANKS, os.path.join(tmp, "r"), legs,
                           device="cuda", timeout=900)
     log(f"  one gang of {LM_MP_RANKS} ranks over {got[0]['backend']} on the "
-        f"card, {len(legs)} legs: {time.perf_counter() - t0:.1f} s")
+        f"card, {len(legs)} legs: {time.perf_counter() - t0:.1f} s (by leg: "
+        + ", ".join(f"{n} {got[0][n]['seconds']:.1f}" for n in legs) + ")")
     check(got[0]["backend"] == "gloo", "ranks sharing one card not gloo")
+    return got
+
+
+def train_lm_mp_phase(ops, dev, single, got):
+    """fsdp, tp, sp and ep on one card, from the gang's results (`got`,
+    lm_gang_phase): (a) gpt2-medium whole at (dp, fsdp, tp) = (1, 2, 2),
+    bf16, K1-K3, 16 x 512, 2 + 3 steps; (b) f32 parity legs against one
+    process; (c) the ring through K1-K3 alone against whole-sequence
+    K1-K3, then a trainer step at (dp, sp, tp) = (1, 2, 2); (d) the
+    planted faults. Returns {kernel: rank 0's launches in (a)} and the
+    ring's."""
+    worker = mp_worker()
 
     # (a) gpt2-medium at full width and depth
     cfg = worker.config_of(worker.LEGS[LM_MP_FULL])
@@ -3197,6 +3242,118 @@ def train_lm_mp_phase(ops, dev, single):
 
 
 # ---------------------------------------------------------------------------
+# [train-lm-pp]: pipelines over pp
+# ---------------------------------------------------------------------------
+
+# tests/torch_mp_worker.py's pipeline legs, one gang of 4 gloo ranks on
+# the card
+LM_PP_FULL = ("chip-pp/full-pp4-gpipe", "chip-pp/full-pp4-1f1b2")
+LM_PP_PARITY = ("chip-pp/pp2-dp2-gpipe", "chip-pp/pp2-tp2-1f1b2",
+                "chip-pp/bert-pp2-dp2-1f1b", "chip-pp/moe-pp2-ep2-gpipe")
+LM_PP_FAULTS = ("chip-pp/pp2-dp2-gpipe/tied-not-summed",
+                "chip-pp/pp2-dp2-gpipe/hop-dropped",
+                "chip-pp/pp2-dp2-gpipe/norm-pp-times")
+# a pp rank's masters + mu + nu against its share of one process's
+LM_PP_BYTES_REL = 0.01
+
+
+def pp_reference(worker, name, dev):
+    """A pipeline leg's model at one process on the card, from the same
+    weights and numpy batches: the LMTrainer, for MoE accumulating over
+    the leg's M microbatches (each routed over its own rows, as the
+    pipeline routes it)."""
+    spec = dict(worker.LEGS[name], fault=None, mesh={}, kind="train")
+    spec["cfg"] = {k: v for k, v in spec["cfg"].items() if k != "attention"}
+    if spec["model"] == "moe":
+        spec["accum"] = spec["micro"]
+    try:
+        return worker.train_leg(spec, dev)
+    finally:
+        torch.cuda.empty_cache()
+
+
+def train_lm_pp_phase(ops, dev, got):
+    """Pipelines on one card, from the gang's results (`got`,
+    lm_gang_phase): (a) gpt2-medium whole at pp = 4 under GPipe and 1F1B
+    x 2, bf16, K1-K3; (b) f32 parity legs against one process; (c) the
+    planted faults. Returns {schedule: [each rank's K1-K3 launches in
+    (a)]}."""
+    worker = mp_worker()
+    log(f"  the pipeline legs in the gang: " + ", ".join(
+        f"{n} {got[0][n]['seconds']:.1f} s"
+        for n in LM_PP_FULL + LM_PP_PARITY + LM_PP_FAULTS))
+
+    # (a) gpt2-medium whole at pp = 4
+    counts, peaks = {}, {}
+    for name in LM_PP_FULL:
+        spec = worker.LEGS[name]
+        cfg = worker.config_of(spec)
+        shapes = worker.tt.param_shapes(cfg)
+        total = sum(math.prod(s) for s in shapes.values())
+        blocks = sum(math.prod(s) for n, s in shapes.items()
+                     if n.startswith("backbone.blocks."))
+        share = (blocks / spec["mesh"]["pp"] + total - blocks) / total
+        plan = cfg.num_layers // spec["mesh"]["pp"] * spec["micro"]
+        ranks = [r[name] for r in got]
+        sched = f"{spec['schedule']}x{spec['interleave']}"
+        for i, r in enumerate(ranks):
+            check(all(math.isfinite(x) for x in r["losses"]),
+                  f"(a) {sched} rank {i}: non-finite loss {r['losses']}")
+            check(r["launches"] == {k: plan * r["steps"]
+                                    for k in worker.FLASH},
+                  f"(a) {sched} rank {i}: K1-K3 launches {r['launches']} "
+                  f"!= (L / P) x M = {plan} x {r['steps']} steps")
+            ratio = r["masters_bytes"] / (12 * total)
+            log(f"  (a) {sched} rank {i} layers {r['layers']} "
+                f"({device_line()}): masters + mu + nu "
+                f"{r['masters_bytes'] / 1e9:.4f} GB = {ratio:.4f} x one "
+                f"process's {12 * total / 1e9:.4f} GB (expected "
+                f"{share:.4f}); peak {r['peak_bytes'] / 1e9:.2f} GB; idle "
+                f"share of the last step {r['idle_share']:.4f} (busy "
+                f"{r['busy_ms']:.1f} of {r['wall_ms']:.1f} ms) against the "
+                f"bubble {r['bubble']:.4f}; losses "
+                f"{[round(x, 4) for x in r['losses']]}")
+            check(abs(ratio - share) <= LM_PP_BYTES_REL * share,
+                  f"(a) {sched} rank {i}: state bytes ratio {ratio} vs "
+                  f"{share}")
+            check(r["replicated_digest"] == ranks[0]["replicated_digest"],
+                  f"(a) {sched} rank {i}: the replicated leaves differ")
+        log(f"  (a) gpt2-medium, pp = 4, M = {spec['micro']}, {sched}, 4 "
+            f"ranks sharing one card over gloo (not a scale-out figure; "
+            f"{device_line()}): tokens/s {ranks[0]['tokens_per_sec']:.1f}, "
+            f"mean step {ranks[0]['step_mean_ms']:.1f} ms (the timed "
+            f"window over its steps), step p50 "
+            f"{ranks[0]['step_time_p50_ms']:.1f} ms (a histogram bucket's "
+            f"bound), bubble "
+            f"{ranks[0]['bubble']:.4f}, MFU {ranks[0]['mfu']}; K1-K3 "
+            f"{plan} x {ranks[0]['steps']} a rank")
+        counts[sched] = [r["launches"] for r in ranks]
+        peaks[sched] = [r["peak_bytes"] for r in ranks]
+    gp, f2 = peaks.values()
+    for i, (a, b) in enumerate(zip(gp, f2)):
+        check(b < a, f"(a) rank {i}: 1F1B x 2's peak {b} not below "
+              f"GPipe's {a}")
+
+    # (b) f32 parity against one process
+    refs = {}
+    for name in LM_PP_PARITY:
+        want = refs[name] = pp_reference(worker, name, dev)
+        mine = [r[name] for r in got if name in r]
+        lm_mp_check(name, worker.compare(mine[0], want), LM_DDP_REL)
+        check(all(r["digest"] == mine[0]["digest"]
+                  and r["replicated_digest"] == mine[0]["replicated_digest"]
+                  for r in mine),
+              f"(b) {name}: the ranks' gathered state or replicas differ")
+
+    # (c) the planted faults
+    base = refs["chip-pp/pp2-dp2-gpipe"]
+    for name in LM_PP_FAULTS:
+        lm_mp_check(name, worker.compare(got[0][name], base), LM_DDP_REL,
+                    fault=True)
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # BERT, MoE and remat training; the generate leg
 # ---------------------------------------------------------------------------
 
@@ -3210,9 +3367,10 @@ MOE_COMMON = dict(workload="gpt2", size="small", batch_per_device=16,
 # a capacity factor of 1.25 admits 1.25x the balanced load an expert;
 # past half the routes dropped the router has collapsed onto few experts
 MOE_DROP_MAX = 0.5
-# 3 timed steps an arm (10 before [train-lm-mp] needed the run's time)
+# 2 timed steps an arm (10 before [train-lm-mp], 3 before [train-lm-pp]
+# needed the run's time)
 REMAT_COMMON = dict(workload="gpt2", size="medium", batch_per_device=16,
-                    seq_len=512, attention="flash", num_steps=3,
+                    seq_len=512, attention="flash", num_steps=2,
                     warmup_steps=2)
 REMAT_ARMS = [("off", {}), ("none", dict(remat=True, remat_policy="none")),
               ("dots", dict(remat=True, remat_policy="dots"))]
@@ -3231,7 +3389,9 @@ def train_bert_phase(ops, dev):
     gradients through flash and dense at a padded batch, and two
     profiled steps. Returns the run's launch counts."""
     from mpi_operator_tpu_torch.train import LMTrainerConfig
-    state, m, counts = train_phase("bert-large-train", ops, num_steps=30,
+    # one window of 10 timed steps (30 before [train-lm-pp] needed the
+    # run's time)
+    state, m, counts = train_phase("bert-large-train", ops, num_steps=10,
                                    warmup_steps=3, **BERT_COMMON)
     mcfg = state.model.config
     del state
@@ -3254,7 +3414,7 @@ def train_moe_phase(ops, dev):
     from mpi_operator_tpu_torch.data import TokenStream
     from mpi_operator_tpu_torch.train import LMTrainer, LMTrainerConfig
     state, m, counts = train_phase("gpt2-small-moe8-train", ops,
-                                   num_steps=30, warmup_steps=3,
+                                   num_steps=10, warmup_steps=3,
                                    **MOE_COMMON)
     rate = m["moe_drop_rate"]
     check(0.0 <= rate <= MOE_DROP_MAX,
@@ -4421,13 +4581,29 @@ def main() -> int:
     log(f"[train-lm-ddp] {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    log("[train-lm-mp] one gang of 4 gloo ranks on the card: gpt2-medium "
-        "at (dp, fsdp, tp) = (1, 2, 2) in bf16 through K1-K3; f32 parity "
-        "at (1, 2, 2), (2, 2, 1), tp_overlap uni and bidir, MoE at (dp, "
-        "ep) = (2, 2); ring attention through K1-K3 at sp 2 and 4 and a "
-        "trainer at (dp, sp, tp) = (1, 2, 2); the planted faults")
-    mp_counts, ring_counts = train_lm_mp_phase(ops, dev, train_metrics)
+    log("[train-lm-gang] one gang of 4 gloo ranks on the card runs the "
+        "legs of [train-lm-mp] and [train-lm-pp]")
+    lm_gang = lm_gang_phase()
+    log(f"[train-lm-gang] {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    log("[train-lm-mp] the gang's legs: gpt2-medium at (dp, fsdp, tp) = "
+        "(1, 2, 2) in bf16 through K1-K3; f32 parity at (1, 2, 2), (2, 2, "
+        "1), tp_overlap uni and bidir, MoE at (dp, ep) = (2, 2); ring "
+        "attention through K1-K3 at sp 2 and 4 and a trainer at (dp, sp, "
+        "tp) = (1, 2, 2); the planted faults")
+    mp_counts, ring_counts = train_lm_mp_phase(ops, dev, train_metrics,
+                                               lm_gang)
     log(f"[train-lm-mp] {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    log("[train-lm-pp] the gang's legs: gpt2-medium at pp = 4, M = 16, "
+        "bf16 through K1-K3 under GPipe and 1F1B x 2; f32 parity at (pp, "
+        "dp) = (2, 2), (pp, tp) = (2, 2) 1F1B x 2, bert-large's width, 8 "
+        "experts at (pp, ep) = (2, 2); the planted faults")
+    pp_counts = train_lm_pp_phase(ops, dev, lm_gang)
+    del lm_gang
+    log(f"[train-lm-pp] {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     log(f"[train-resume] gpt2-medium, bf16, attention=flash, 16 x 512: "
@@ -4474,6 +4650,8 @@ def main() -> int:
                         ring_causal_launches={
                             leg: [c[name] for c in counts]
                             for leg, counts in ring_counts.items()}),
+             lm_pp={sched: [c[name] for c in ranks]
+                    for sched, ranks in pp_counts.items()},
              operator=dict(launches=operator["launches"][name]))
         for name, line in flash_lines.items()]}))
     print(json.dumps({"ok": True, "device": {

@@ -45,9 +45,20 @@ the reference's ViT leg: the image Trainer (train/trainer.py) over
 `create_vit`, with the same resilient wiring. The CLI runs every
 benchmark here, alone or as a gang of processes through the bootstrap.
 
+`pp` > 1 trains over pipeline stages instead (the reference's pp
+branch): a PipelineLMTrainer (train/pp_trainer.py) over the mesh (pp,
+tp, ep, sp as asked, `num_slices` on dcn, dp filling the rest) under
+`pp_schedule` "gpipe" or "1f1b" with `pp_interleave` virtual stages a
+rank, M = 4 x pp microbatches, on the same step-keyed stream (each rank
+its share of every microbatch), resuming from and checkpointing into
+`train_dir` by canonical parameter names (any schedule resumes any
+other's checkpoint at the same pp, tp and ep). It refuses what the
+reference refuses: `accum_steps` > 1, MoE under 1F1B, `tp_overlap`, and
+device counts that pp x tp x ep x sp x slices does not divide.
+
 The arguments of the parts not ported yet raise, naming the ROADMAP.md
-step that ports them; none is ignored: pp (10d), HFTA and a resharding
-restore (10e).
+step that ports them; none is ignored: HFTA and a resharding restore
+(10e).
 """
 from __future__ import annotations
 
@@ -70,11 +81,19 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 def lm_mesh(tp: int = 1, ep: int = 1, sp: int = 1, num_slices: int = 1,
-            moe_experts: int = 0):
+            moe_experts: int = 0, pp: int = 1):
     """The benchmark's mesh over every rank of the process group (one
-    process without one): tp, ep and sp as asked, `num_slices` on dcn,
-    dp filling what they leave, with the reference's checks."""
+    process without one): pp, tp, ep and sp as asked, `num_slices` on
+    dcn, dp filling what they leave, with the reference's checks."""
     n = rank_and_world()[1]
+    if pp > 1:
+        if n % (pp * tp * ep * sp * num_slices):
+            raise ValueError(f"{n} devices not divisible by pp={pp} × "
+                             f"tp={tp} × ep={ep} × sp={sp} × "
+                             f"slices={num_slices}")
+        return make_mesh(MeshConfig(
+            pp=pp, tp=tp, ep=ep, sp=sp,
+            dp=n // (pp * tp * ep * sp * num_slices), dcn=num_slices))
     if ep > 1 and not moe_experts:
         raise ValueError("--ep needs --moe-experts (nothing to shard)")
     if moe_experts and moe_experts % ep:
@@ -126,6 +145,8 @@ def run_lm_benchmark(
     dtype_name: str = "bfloat16",
     tp: int = 1,
     pp: int = 1,
+    pp_schedule: str = "gpipe",
+    pp_interleave: int = 1,
     sp: int = 1,
     ep: int = 1,
     num_slices: int = 1,
@@ -181,9 +202,6 @@ def run_lm_benchmark(
     if moe_dropless and not moe_experts:
         raise ValueError("--moe-dropless needs --moe-experts (no MoE is "
                          "built without it)")
-    if pp > 1:
-        raise ValueError(f"pp={pp}: pipelines are not in the port yet "
-                         f"(ROADMAP.md step 10d)")
     if sp > 1:
         # context parallelism: seq sharded over sp, attention rings the
         # K/V shards (parallel/ring_attention.py)
@@ -200,6 +218,10 @@ def run_lm_benchmark(
         if tp <= 1:
             raise ValueError("--tp-overlap needs --tp > 1 (nothing to "
                              "ring over)")
+        if pp > 1:
+            raise ValueError("--tp-overlap composes with the flat trainer "
+                             "only (the pipeline's stage bodies run tp "
+                             "through the all-reduce layout)")
     elif tp_ring != "uni":
         raise ValueError("--tp-ring=bidir only changes the overlap ring "
                          "collectives; it needs --tp-overlap")
@@ -222,7 +244,16 @@ def run_lm_benchmark(
     if tp_overlap:
         overrides.update(tp_overlap=True, tp_ring=tp_ring)
     cfg = lm_config(f"{workload}-{size}" if size else workload, **overrides)
-    mesh = lm_mesh(tp, ep, sp, num_slices, moe_experts)
+    if pp > 1:
+        if moe_experts and pp_schedule != "gpipe":
+            raise ValueError("--pp with --moe-experts composes with "
+                             "--pp-schedule gpipe only (1F1B stage bodies "
+                             "are dense)")
+        if accum_steps > 1:
+            raise ValueError("--accum-steps is redundant with --pp: the "
+                             "pipeline trainer already streams "
+                             "microbatches; drop the flag")
+    mesh = lm_mesh(tp, ep, sp, num_slices, moe_experts, pp)
     global_batch = batch_per_device * mesh.size
     opt_overrides = {}
     if lr is not None:
@@ -234,7 +265,14 @@ def run_lm_benchmark(
                            fused_xent=fused_xent,
                            accum_steps=accum_steps, lr_schedule=lr_schedule,
                            decay_steps=decay_steps, **opt_overrides)
-    trainer = LMTrainer(cfg, tcfg, device=dev, mesh=mesh)
+    if pp > 1:
+        from ..train.pp_trainer import PipelineLMTrainer
+        trainer = PipelineLMTrainer(cfg, mesh, tcfg, schedule=pp_schedule,
+                                    interleave=pp_interleave, device=dev)
+        micro = trainer.num_microbatches
+    else:
+        trainer = LMTrainer(cfg, tcfg, device=dev, mesh=mesh)
+        micro = accum_steps
     state = trainer.init_state(0)
 
     wtel, owns_events = _worker_telemetry(metrics_port, event_log,
@@ -272,21 +310,22 @@ def run_lm_benchmark(
                 vocab_size=cfg.vocab_size,
                 host_transform=(mlm_host_transform(cfg.vocab_size)
                                 if masked else None),
-                accum_steps=accum_steps, mesh=mesh)
+                accum_steps=micro, mesh=mesh)
         else:
+            # under pp each rank keeps its share of every microbatch (H32)
             stream = TokenStream(global_batch, seq_len, cfg.vocab_size,
                                  seed=1, start=resumed_step, device=dev,
-                                 masked_lm=masked, accum_steps=accum_steps,
+                                 masked_lm=masked, accum_steps=micro,
                                  mesh=mesh)
         try:
+            extra = {} if pp > 1 else dict(profile_dir=profile_dir)
             state, metrics = trainer.benchmark(
                 state, stream, num_steps=num_steps,
                 warmup_steps=warmup_steps, log=log,
-                profile_dir=profile_dir,
                 step_hook=periodic_saver(train_dir, ckpt_every, log,
                                          keep_last=ckpt_keep,
                                          resilience=resilience),
-                resilience=resilience, telemetry=wtel.train)
+                resilience=resilience, telemetry=wtel.train, **extra)
             if eval_steps:
                 # evaluation continues the stream past the trained batches
                 ev = trainer.evaluate(state, stream, num_batches=eval_steps)
@@ -306,7 +345,7 @@ def run_lm_benchmark(
     finally:
         resilience.__exit__(None, None, None)
         wtel.close(close_events=owns_events)
-    if moe_experts:
+    if moe_experts and pp == 1:
         rate = _moe_drop_rate(state.model, global_batch, seq_len, dev, mesh)
         metrics["moe_drop_rate"] = rate
         log(f"moe drop rate: {rate:.3f}")
@@ -508,11 +547,12 @@ def run_vit_benchmark(
 
 
 def main(argv=None) -> int:
-    """The CLI, with the reference's flags; those of the parts not
-    ported (--pp above 1, --hfta) raise, naming the ROADMAP.md step that
-    ports them. --tp, --sp and --ep lay the gang's mesh (dp fills what
-    they leave; --sp defaults --attention to ring), --tp-overlap and
-    --tp-ring pick the ring collective-matmuls. `--workload vit` runs
+    """The CLI, with the reference's flags; --hfta, not ported, raises,
+    naming the ROADMAP.md step that ports it. --pp, --tp, --sp and --ep
+    lay the gang's mesh (dp fills what they leave; --sp defaults
+    --attention to ring), --pp-schedule and --pp-interleave pick the
+    pipeline's schedule, --tp-overlap and --tp-ring the ring
+    collective-matmuls. `--workload vit` runs
     run_vit_benchmark, the others run_lm_benchmark. A gang
     (TPU_NUM_PROCESSES > 1, or the launcher role) goes through the
     bootstrap (bootstrap/bootstrap.py), its slices (TPU_NUM_SLICES) on
@@ -552,8 +592,16 @@ def main(argv=None) -> int:
                         help="expert-parallel degree (shards MoE experts; "
                              "needs --moe-experts)")
     parser.add_argument("--pp", type=int, default=1,
-                        help="pipeline stages (> 1 raises: ROADMAP.md "
-                             "step 10d)")
+                        help="pipeline stages (train/pp_trainer.py; "
+                             "learned-position models)")
+    parser.add_argument("--pp-schedule", default="gpipe",
+                        choices=["gpipe", "1f1b"],
+                        help="gpipe = every forward, then every backward; "
+                             "1f1b = interleaved one-forward-one-backward "
+                             "(O(pp) microbatches in flight)")
+    parser.add_argument("--pp-interleave", type=int, default=1,
+                        help="virtual stages a rank for --pp-schedule 1f1b "
+                             "(divides the pipeline bubble)")
     parser.add_argument("--tp-overlap", action="store_true",
                         help="ring collective-matmul tp projections and "
                              "overlapped vocab-parallel loss (needs "
@@ -688,7 +736,8 @@ def main(argv=None) -> int:
                 seq_len=args.seq_len, num_steps=args.num_steps,
                 warmup_steps=args.warmup_steps, eval_steps=args.eval_steps,
                 dtype_name=args.dtype, num_layers=args.num_layers or None,
-                tp=args.tp, pp=args.pp, sp=args.sp, ep=args.ep,
+                tp=args.tp, pp=args.pp, pp_schedule=args.pp_schedule,
+                pp_interleave=args.pp_interleave, sp=args.sp, ep=args.ep,
                 num_slices=num_slices, tp_overlap=args.tp_overlap,
                 tp_ring=args.tp_ring,
                 accum_steps=args.accum_steps, fused_xent=args.fused_xent,

@@ -16,6 +16,16 @@ state dict. The layouts it translates:
   RMSNorm                       scale -> weight
   MoE w_in / w_out, mlm_bias    as they are
 
+`params_from_stacked(cfg, stacked, pp, interleave)` takes the
+reference's pipeline layout instead (`stack_lm_params` /
+`stack_mlm_params` of its pp trainer: the dense blocks stacked on a
+leading layer dim under "blocks", the MoE blocks under "moe", each leaf
+[L', ...]; under 1F1B with interleave > 1 the dense stack in its
+device-major order, `interleave_blocks`) and returns the same whole-model
+state dict: the stacks unstacked into `block_{i}` by the MoE alternation
+and the interleave's inverse permutation, then `params_from_flax`. An
+optax moment tree of the same layout (mu, nu) converts the same way.
+
 `init_params(cfg, generator)` draws the same shapes the way the
 reference initializes them: every kernel and embedding normal(0, 0.02)
 (`kernel_init`, the MoE experts and router too), biases zero
@@ -76,6 +86,47 @@ def params_from_flax(cfg: TransformerConfig,
             raise ValueError(f"{k}: converted shape {tuple(out[k].shape)} "
                              f"!= {shape}")
     return out
+
+
+def _take(node, i):
+    """Row i of every leaf of a stacked (nested dict) tree."""
+    if isinstance(node, Mapping):
+        return {k: _take(v, i) for k, v in node.items()}
+    return np.asarray(node)[i]
+
+
+def params_from_stacked(cfg: TransformerConfig, stacked: Mapping,
+                        pp: int = 1, interleave: int = 1
+                        ) -> Dict[str, torch.Tensor]:
+    """The reference pp trainer's stacked tree (see the module docstring;
+    nested dicts of numpy arrays) as the port's whole-model f32 state
+    dict. `pp` and `interleave` name the 1F1B device-major order the
+    dense stack was written in (interleave 1: canonical order)."""
+    from ..parallel.pipeline import _moe_layer_split
+    from ..parallel.pipeline_1f1b import interleave_order
+    dense_idx, moe_idx = _moe_layer_split(cfg.num_layers, cfg.num_experts,
+                                          cfg.moe_every)
+    rows = list(range(len(dense_idx)))
+    if interleave > 1:
+        if moe_idx:
+            raise ValueError("an interleaved stack is dense (1F1B does not "
+                             "compose with MoE)")
+        # position j of the stored stack holds canonical layer order[j]
+        order = interleave_order(cfg.num_layers, pp, interleave)
+        rows = [order.index(i) for i in range(cfg.num_layers)]
+    backbone = {"ln_f": stacked["ln_f"]}
+    for j, i in enumerate(dense_idx):
+        backbone[f"block_{i}"] = _take(stacked["blocks"], rows[j])
+    for j, i in enumerate(moe_idx):
+        backbone[f"block_{i}"] = _take(stacked["moe"], j)
+    tree = {"wte": {"embedding": stacked["wte"]},
+            "wpe": {"embedding": stacked["wpe"]}, "backbone": backbone}
+    if "wtte" in stacked:
+        tree["wtte"] = {"embedding": stacked["wtte"]}
+    for name in ("ln_emb", "mlm_dense", "mlm_ln", "mlm_bias"):
+        if name in stacked:
+            tree[name] = stacked[name]
+    return params_from_flax(cfg, tree)
 
 
 def _t(x, shape=None) -> torch.Tensor:
@@ -225,4 +276,5 @@ def resnet_params_from_flax(model, params: Mapping,
 
 
 __all__ = ["draw_params", "init_params", "init_vit", "params_from_flax",
-           "resnet_params_from_flax", "vit_params_from_flax"]
+           "params_from_stacked", "resnet_params_from_flax",
+           "vit_params_from_flax"]

@@ -1,8 +1,12 @@
 """The gang's device mesh: the counterpart of
 `mpi_operator_tpu/parallel/mesh.py` over every axis of the reference's
-`AXIS_ORDER`: slices (`dcn`), data parallelism (`dp`), fully sharded data
-parallelism (`fsdp`), expert (`ep`), sequence (`sp`) and tensor (`tp`)
-parallelism. Pipelines (`pp`) are ROADMAP.md step 10d and raise.
+`AXIS_ORDER`: slices (`dcn`), pipeline stages (`pp`), data parallelism
+(`dp`), fully sharded data parallelism (`fsdp`), expert (`ep`),
+sequence (`sp`) and tensor (`tp`) parallelism.
+
+`pp` is not a batch axis: every pp rank with the same data coordinates
+holds the same rows, and `Mesh.group(("pp",))` is the stage group a
+pipeline's hops run over (parallel/pipeline.py, train/pp_trainer.py).
 
 The reference lays a `jax.sharding.Mesh` over its devices with the axes
 of `AXIS_ORDER`, and XLA inserts the collectives. Here every rank is a
@@ -48,8 +52,6 @@ BATCH_AXES = ("dcn", "dp", "fsdp")
 #: the axes whose ranks hold other tokens of the global batch: the data
 #: axes and the sequence shards (a gradient sums over them)
 TOKEN_AXES = BATCH_AXES + ("sp",)
-# the ROADMAP.md step that ports each axis still refused
-_STEP = {"pp": "10d"}
 
 
 @dataclass
@@ -176,12 +178,7 @@ def make_mesh(config: MeshConfig, ranks: Optional[Sequence[int]] = None,
     of the group calls it, member or not: the DeviceMesh and the groups
     of several axes are made collectively. `device_type` is the
     DeviceMesh's ("cuda" when the current process drives a card over
-    NCCL, else "cpu"). pp > 1 raises, naming its ROADMAP.md step."""
-    for axis, size in config.axis_sizes().items():
-        if axis in _STEP and size > 1:
-            raise ValueError(
-                f"{axis}={size}: the port's mesh has no {axis} axis yet; "
-                f"{axis} is ROADMAP.md step {_STEP[axis]}")
+    NCCL, else "cpu")."""
     grouped = dist.is_available() and dist.is_initialized()
     world = dist.get_world_size() if grouped else 1
     ranks = list(range(world) if ranks is None else ranks)

@@ -38,6 +38,8 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 
+from .collectives import allgather
+
 # logical name -> mesh axis (or None = replicate). A name absent from the
 # table replicates. Tuple values shard one dim over several mesh axes.
 DEFAULT_RULES: Tuple[Tuple[str, Any], ...] = (
@@ -199,6 +201,17 @@ def local_block(t: torch.Tensor, placement: Placement,
     return t
 
 
+def gather_block(x: torch.Tensor, placement: Placement, mesh
+                 ) -> torch.Tensor:
+    """The inverse of `local_block`, collective over the compute axes
+    that split the parameter: the whole tensor from every rank's block."""
+    for axis in COMPUTE_AXES:
+        d = placement.split(axis)
+        if d is not None and mesh.shape[axis] > 1:
+            x = allgather(x.contiguous(), mesh, axis, axis=d)
+    return x
+
+
 def shard_init(cfg, mesh, seed: int = 0,
                state_dict: Optional[Dict[str, Any]] = None,
                device=None) -> Dict[str, torch.Tensor]:
@@ -303,6 +316,6 @@ def sharding_for_path(mesh, path: Sequence[str], rules, shape,
 
 __all__ = ["ACTIVATION_RULES", "COMPUTE_AXES", "DEFAULT_RULES",
            "ModelLayout", "Placement",
-           "local_block", "logical_to_spec", "param_shardings", "path_match",
+           "gather_block", "local_block", "logical_to_spec", "param_shardings", "path_match",
            "shard_init", "sharding_for_path", "spec_for_path",
            "tp_manual_spec", "tp_overlap_activation_spec"]

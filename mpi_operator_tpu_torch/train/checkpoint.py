@@ -47,6 +47,14 @@ is there. Every rank restores its own shard, then the state refreshes
 what it derives from it (`after_restore`: fsdp's gathered working
 copy). A checkpoint of another layout raises `ReshardRequired`.
 
+A pipeline state (train/pp_trainer.py) is saved the same way, one shard
+a rank of pp x ep x tp, but its payload is keyed by the canonical
+parameter names (a block's with the rank's tp and ep coordinates; the
+replicated leaves written once, by the first stage), and `layout.json`
+records pp, tp, ep and the parameters, not the schedule. A restore reads
+each key it holds from whichever shard wrote it (`restore_payload()`),
+so a GPipe checkpoint resumes under 1F1B with any interleave, and back.
+
 Not here (ROADMAP step 10e): `restore_resharded`, `ReadStats` and the
 `TPU_RESHARD_RESTORE` knob, which raise when asked for.
 """
@@ -192,7 +200,7 @@ def _write(snapshot, path: str, step: int, event, writer: _Writer) -> None:
     tensors into a tmp sibling; commit."""
     t0 = time.perf_counter()
     if event is not None:
-        stream = torch.cuda.Stream(device=snapshot["params"].device)
+        stream = torch.cuda.Stream(device=_device_of(snapshot))
         stream.wait_event(event)
         host = writer.host_buffers(snapshot)
         with torch.cuda.stream(stream):
@@ -250,6 +258,10 @@ def save_checkpoint(directory: str, state, step: Optional[int] = None,
     return path
 
 
+def _device_of(payload) -> torch.device:
+    return next(iter(payload.values())).device
+
+
 def _token(group) -> str:
     """A name the group's first rank picks for this save's temporary
     directory, the same on every rank of `group` (None: this process
@@ -268,7 +280,7 @@ def _write_shard(snapshot, tmp, path, step, event, writer, shard, layout):
     k, n = shard
     t0 = time.perf_counter()
     if event is not None:
-        stream = torch.cuda.Stream(device=snapshot["params"].device)
+        stream = torch.cuda.Stream(device=_device_of(snapshot))
         stream.wait_event(event)
         host = writer.host_buffers(snapshot)
         with torch.cuda.stream(stream):
@@ -319,7 +331,7 @@ def _save_shard(state, directory, path, step, block) -> str:
                 snapshot = {key: t.clone() for key, t in
                             _state_payload(state).items()}
             event = None
-            if snapshot["params"].device.type == "cuda":
+            if _device_of(snapshot).type == "cuda":
                 event = torch.cuda.Event()
                 event.record()
             _LAST_SAVE_INFO.clear()
@@ -400,6 +412,8 @@ def restore_checkpoint(directory_or_path: str, state):
         path = latest
     _quiet_single_process()
     path = os.fspath(path)
+    if hasattr(state, "restore_payload"):
+        return _restore_named(path, state)
     source = _shard_source(path, state)
     live = _state_payload(state)
     host = _writer().host_buffers(live)
@@ -415,15 +429,15 @@ def restore_checkpoint(directory_or_path: str, state):
     return state
 
 
-def _shard_source(path: str, state) -> str:
-    """The directory this rank reads: `path` for a replica, its shard's
-    for a sharded state. A checkpoint of another split raises
-    ReshardRequired."""
+def _saved_layout(path: str, state) -> Optional[dict]:
+    """The layout a checkpoint was written over (`layout.json`), checked
+    against this state's: None for a replica's checkpoint restored into
+    a replica. A checkpoint of another split raises ReshardRequired."""
     shard = getattr(state, "shard", None)
     layout_file = os.path.join(path, _LAYOUT)
     if not os.path.exists(layout_file):
         if shard is None:
-            return path
+            return None
         raise ReshardRequired(
             f"{path} holds one replica of the whole state; this state is "
             f"split over {shard[1]} shards ({state.layout_key['mesh']}): "
@@ -438,7 +452,43 @@ def _shard_source(path: str, state) -> str:
             f"{saved.get('shards')} shards; this state is "
             f"{want.get('mesh')} in {want['shards']}: restoring it needs "
             f"restore_resharded, ROADMAP.md step 10e")
-    return os.path.join(path, f"shard_{shard[0]}")
+    return saved
+
+
+def _shard_source(path: str, state) -> str:
+    """The directory this rank reads: `path` for a replica, its shard's
+    for a sharded state."""
+    if _saved_layout(path, state) is None:
+        return path
+    return os.path.join(path, f"shard_{state.shard[0]}")
+
+
+def _restore_named(path: str, state):
+    """restore_checkpoint for a state keyed by canonical names (a pp
+    state: `restore_payload()`): each key this rank holds is read from
+    whichever shard wrote it, so a checkpoint taken under one pipeline
+    schedule restores under another. A checkpoint of another layout (pp,
+    tp, ep or the model) raises ReshardRequired."""
+    saved = _saved_layout(path, state)
+    live = state.restore_payload()
+    host = _writer().host_buffers(live)
+    step = torch.zeros((), dtype=torch.int64)
+    left = set(live)
+    for k in range(saved["shards"]):
+        source = os.path.join(path, f"shard_{k}")
+        reader = dcp.FileSystemReader(source)
+        keys = left & set(reader.read_metadata().state_dict_metadata)
+        if keys:
+            dcp.load({"step": step, **{key: host[key] for key in keys}},
+                     storage_reader=reader, no_dist=True)
+            left -= keys
+    if left:
+        raise ValueError(f"{path} lacks {sorted(left)[:4]}...")
+    with torch.no_grad():
+        for name, t in live.items():
+            t.copy_(host[name])
+    state.step = int(step)
+    return state
 
 
 def restore_with_fallback(train_dir, state, log=print, restore=None

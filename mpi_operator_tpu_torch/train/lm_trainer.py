@@ -1,6 +1,7 @@
 """Language-model trainer over the gang's mesh: the counterpart of
 `mpi_operator_tpu/train/lm_trainer.py::LMTrainer` over the axes dcn,
-dp, fsdp, ep, sp and tp (pipelines, pp, are ROADMAP.md step 10d).
+dp, fsdp, ep, sp and tp (pipelines over pp train through
+train/pp_trainer.py).
 
 What it keeps of the reference, step for step:
 
@@ -116,7 +117,8 @@ from ..parallel.collectives import (_all_gather, allgather,
 from ..parallel.mesh import (BATCH_AXES, TOKEN_AXES, Mesh,
                              data_parallel_mesh)
 from ..parallel.moe import MoeMlp
-from ..parallel.sharding import COMPUTE_AXES, ModelLayout, shard_init
+from ..parallel.sharding import (COMPUTE_AXES, ModelLayout, gather_block,
+                                 shard_init)
 from ..telemetry import TrainTelemetry, span
 from ..utils import flops
 from ..utils.device import DeviceLike, resolve_device
@@ -477,6 +479,113 @@ _SHARD_AXES = ("fsdp", "ep", "tp")
 _CLASSES = ((), ("tp",), ("ep",), ("tp", "ep"))
 
 
+# -- the flat state, shared with train/pp_trainer.py ------------------------
+
+def split_class(placement, mesh: Mesh) -> tuple:
+    """A parameter's class in a flat buffer: the compute axes of size > 1
+    its placement splits it over."""
+    return tuple(a for a in placement.sharded_over() if mesh.shape[a] > 1)
+
+
+def flat_layout(entries, classes=_CLASSES):
+    """A flat buffer's layout from `entries`, (name, class, shape):
+    [(name, shape)] grouped by class in the order of `classes` (each
+    group in the entries' order), and the (class, start, end) segment of
+    each class."""
+    entries = list(entries)
+    order, segments, off = [], [], 0
+    for cls in classes:
+        start = off
+        for name, c, shape in entries:
+            if c == cls:
+                order.append((name, shape))
+                off += math.prod(shape)
+        segments.append((cls, start, off))
+    return order, segments
+
+
+def flat_slots(order) -> Dict[str, Tuple[int, tuple]]:
+    """{name: (offset, shape)} of a flat buffer laid out in `order`."""
+    slots, off = {}, 0
+    for name, shape in order:
+        slots[name] = (off, shape)
+        off += math.prod(shape)
+    return slots
+
+
+def flat_views(buf: torch.Tensor, slots) -> Dict[str, torch.Tensor]:
+    """{name: the view of `buf` at its slot}."""
+    return {n: buf[o:o + math.prod(s)].view(s) for n, (o, s) in slots.items()}
+
+
+def model_on_views(build: Callable[[], torch.nn.Module], views,
+                   moe_mesh) -> torch.nn.Module:
+    """`build()`'s module made on the meta device with the views as its
+    parameters (the trainer's state IS the flat buffer), each MoE block
+    routing over `moe_mesh` (None: its own rows alone)."""
+    with torch.device("meta"):
+        model = build()
+    model.load_state_dict(views, strict=True, assign=True)
+    for m in model.modules():
+        if isinstance(m, MoeMlp):
+            m.mesh = moe_mesh
+    return model
+
+
+def class_weight(mesh: Mesh, cls) -> float:
+    """A class's weight in a global norm's sum over the compute axes: 1
+    over the ranks that hold the same values, so each parameter counts
+    once (H25)."""
+    return 1.0 / math.prod(mesh.shape[a] for a in COMPUTE_AXES
+                           if a not in cls)
+
+
+def weighted_sq_norm(grads: torch.Tensor, segments,
+                     weight: Callable[[tuple], float], lo: int = 0
+                     ) -> torch.Tensor:
+    """The f64 sum over the segments of weight(class) x the squares of
+    `grads`, a slice of the flat buffer starting at `lo`. The squares
+    sum in f64 (optax's per-leaf sums are exact to f32; an f32 reduction
+    over a gpt2-size buffer drifts by ~1e-5)."""
+    n = grads.numel()
+    sq = grads.new_zeros((), dtype=torch.float64)
+    for cls, start, end in segments:
+        a, b = max(start, lo), min(end, lo + n)
+        if a < b:
+            sq = sq + torch.linalg.vector_norm(
+                grads[a - lo:b - lo], dtype=torch.float64).square() \
+                * weight(cls)
+    return sq
+
+
+def step_flops(config: LMTrainerConfig, model_config: TransformerConfig
+               ) -> float:
+    """GLOBAL model FLOPs of one train step: 6N + attention per token
+    (utils/flops.py), times the tokens of a step. N counts every
+    parameter of the whole model, each expert of a MoE block included
+    though a token runs only top_k of them (the reference's count, kept
+    for parity: ROADMAP.md Queue 3, G2); attention is halved for causal
+    models only."""
+    per_token = flops.transformer_train_flops_per_token(
+        sum(math.prod(s) for s in param_shapes(model_config).values()),
+        model_config.num_layers, model_config.embed_dim, config.seq_len,
+        causal=model_config.causal)
+    return per_token * config.global_batch_size * config.seq_len
+
+
+def bench_report(tel: TrainTelemetry, tps: float, n: int, stats: dict,
+                 losses) -> Dict[str, object]:
+    """The keys both trainers' benchmarks return: tokens/s (and a
+    device's share of the gang's `n`), the step time and host gap
+    percentiles of `tel`, every timed step's loss and the FLOP stats."""
+    p50_ms, p99_ms = tel.step_percentiles_ms()
+    gap50_ms, gap99_ms = tel.host_gap_percentiles_ms()
+    return {"tokens_per_sec": tps, "tokens_per_sec_per_device": tps / n,
+            "step_time_p50_ms": p50_ms, "step_time_p99_ms": p99_ms,
+            "host_gap_p50_ms": gap50_ms, "host_gap_p99_ms": gap99_ms,
+            "step_losses": torch.stack(losses).tolist(), **stats}
+
+
 class LMTrainer:
     """Trainer for the port's LMs (CausalLM, or MaskedLM for a BERT
     config) over `mesh` (default: every rank of the process group on dp,
@@ -523,22 +632,11 @@ class LMTrainer:
         [start, end) of each class of `_CLASSES` in it: parameters split
         over neither tp nor ep first, in `param_shapes` order (the whole
         buffer without a layout), then each split class."""
-        cfg = self.model_config
         if self.layout is None:
-            order = list(param_shapes(cfg).items())
-            n = sum(math.prod(s) for _, s in order)
-            return order, [((), 0, n)]
-        placed = self.layout.placements
-        order, segments, off = [], [], 0
-        for cls in _CLASSES:
-            start = off
-            for name, p in placed.items():
-                if tuple(a for a in p.sharded_over()
-                         if self.mesh.shape[a] > 1) == cls:
-                    order.append((name, p.local_shape))
-                    off += math.prod(p.local_shape)
-            segments.append((cls, start, off))
-        return order, segments
+            return flat_layout((n, (), s) for n, s in
+                               param_shapes(self.model_config).items())
+        return flat_layout((n, split_class(p, self.mesh), p.local_shape)
+                           for n, p in self.layout.placements.items())
 
     def init_state(self, seed: int = 0,
                    state_dict: Optional[Dict[str, torch.Tensor]] = None
@@ -560,19 +658,11 @@ class LMTrainer:
         fsdp = self.mesh.shape["fsdp"]
         n = sum(math.prod(s) for _, s in order)
         flat = torch.zeros(n + (-n) % fsdp, dtype=torch.float32, device=dev)
-        views, off = {}, 0
-        for name, shape in order:
-            size = math.prod(shape)
-            view = flat[off:off + size]
-            view.copy_(torch.as_tensor(state_dict[name]).reshape(-1))
-            views[name] = view.view(shape)
-            off += size
-        with torch.device("meta"):
-            model = model_class(cfg)(cfg, self.layout)
-        model.load_state_dict(views, strict=True, assign=True)
-        for m in model.modules():
-            if isinstance(m, MoeMlp):
-                m.mesh = self.mesh          # global routing (H14)
+        views = flat_views(flat, flat_slots(order))
+        for name, view in views.items():
+            view.copy_(torch.as_tensor(state_dict[name]).reshape(view.shape))
+        model = model_on_views(lambda: model_class(cfg)(cfg, self.layout),
+                               views, self.mesh)   # global routing (H14)
         master = None
         if fsdp > 1:
             per = flat.numel() // fsdp
@@ -612,20 +702,9 @@ class LMTrainer:
         if self.layout is None:
             return t[:sum(math.prod(s) for s in
                           param_shapes(self.model_config).values())].clone()
-        order, _ = self._flat_order()
-        local, off = {}, 0
-        for name, shape in order:
-            local[name] = t[off:off + math.prod(shape)].view(shape)
-            off += math.prod(shape)
-        out = []
-        for name, p in self.layout.placements.items():
-            x = local[name]
-            for axis in COMPUTE_AXES:
-                d = p.split(axis)
-                if d is not None and self.mesh.shape[axis] > 1:
-                    x = allgather(x.contiguous(), self.mesh, axis, axis=d)
-            out.append(x.reshape(-1))
-        return torch.cat(out)
+        local = flat_views(t, flat_slots(self._flat_order()[0]))
+        return torch.cat([gather_block(local[name], p, self.mesh).reshape(-1)
+                          for name, p in self.layout.placements.items()])
 
     # -- the objective and its gradients ---------------------------------
 
@@ -744,29 +823,19 @@ class LMTrainer:
 
     def _norm_weight(self, cls) -> float:
         """A class's weight in the norm's sum over the fsdp x ep x tp
-        group: 1 over the ranks that hold the same values, so each
-        parameter counts once (H25)."""
-        return 1.0 / math.prod(self.mesh.shape[a] for a in COMPUTE_AXES
-                               if a not in cls)
+        group (`class_weight`)."""
+        return class_weight(self.mesh, cls)
 
     def _global_norm(self, grads: torch.Tensor) -> torch.Tensor:
         """The L2 norm (f32) of the whole model's gradient from this
         rank's slice of its blocks: each class's sum of squares weighted
-        by `_norm_weight` and summed over fsdp x ep x tp. The squares
-        sum in f64 (optax's per-leaf sums are exact to f32; an f32
-        reduction over a gpt2-size buffer drifts by ~1e-5)."""
+        by `_norm_weight` and summed over fsdp x ep x tp, in f64
+        (`weighted_sq_norm`)."""
         if self.layout is None and self.mesh.shape["fsdp"] == 1:
             return torch.linalg.vector_norm(grads, dtype=torch.float64
                                             ).float()
-        n = grads.numel()
-        lo = self.mesh.index(("fsdp",)) * n
-        sq = grads.new_zeros((), dtype=torch.float64)
-        for cls, start, end in self._segments:
-            a, b = max(start, lo), min(end, lo + n)
-            if a < b:
-                sq = sq + torch.linalg.vector_norm(
-                    grads[a - lo:b - lo], dtype=torch.float64).square() \
-                    * self._norm_weight(cls)
+        sq = weighted_sq_norm(grads, self._segments, self._norm_weight,
+                              lo=self.mesh.index(("fsdp",)) * grads.numel())
         return allreduce_sum(sq, self.mesh, ("fsdp",) + COMPUTE_AXES
                              ).sqrt().float()
 
@@ -823,18 +892,8 @@ class LMTrainer:
     # -- the benchmark ----------------------------------------------------
 
     def _step_flops(self, state: LMTrainState) -> float:
-        """GLOBAL model FLOPs of one train step: 6N + attention per token
-        (utils/flops.py), times the tokens of a step. N counts every
-        parameter, each expert of a MoE block included though a token
-        runs only top_k of them (the reference's count, kept for
-        parity: ROADMAP.md Queue 3, G2); attention is halved for causal
-        models only."""
-        cfg, mcfg = self.config, self.model_config
-        per_token = flops.transformer_train_flops_per_token(
-            sum(math.prod(s) for s in param_shapes(mcfg).values()),
-            mcfg.num_layers, mcfg.embed_dim, cfg.seq_len,
-            causal=mcfg.causal)
-        return per_token * cfg.global_batch_size * cfg.seq_len
+        """GLOBAL model FLOPs of one train step (`step_flops`)."""
+        return step_flops(self.config, self.model_config)
 
     def benchmark(self, state: LMTrainState, dataset: Iterable,
                   num_steps: int = 50, warmup_steps: int = 5,
@@ -933,30 +992,20 @@ class LMTrainer:
         tps = sum(steady) / len(steady)
         stats = flops.throughput_stats(flops_per_step, tps / tokens_per_step,
                                        n, self.device)
-        p50_ms, p99_ms = tel.step_percentiles_ms()
-        gap50_ms, gap99_ms = tel.host_gap_percentiles_ms()
+        out = bench_report(tel, tps, n, stats, losses)
         log("-" * 40)
         log(f"total tokens/sec: {tps:.0f}")
-        if p50_ms is not None:
-            log(f"step time: p50 {p50_ms:.1f} ms, p99 {p99_ms:.1f} ms, "
-                f"goodput {tel.goodput.value:.1%}")
+        if out["step_time_p50_ms"] is not None:
+            log(f"step time: p50 {out['step_time_p50_ms']:.1f} ms, p99 "
+                f"{out['step_time_p99_ms']:.1f} ms, goodput "
+                f"{tel.goodput.value:.1%}")
         if stats["mfu"] is not None:
             log(f"per-device: {stats['tflops_per_sec_per_device']:.1f} "
                 f"TFLOP/s, MFU {stats['mfu']:.1%}")
         log("-" * 40)
-        return state, {
-            "tokens_per_sec": tps,
-            "tokens_per_sec_per_device": tps / n,
-            "wall_seconds": time.perf_counter() - wall0,
-            "final_loss": float(metrics["loss"]),
-            "step_losses": torch.stack(losses).tolist(),
-            "step_time_p50_ms": p50_ms,
-            "step_time_p99_ms": p99_ms,
-            "host_gap_p50_ms": gap50_ms,
-            "host_gap_p99_ms": gap99_ms,
-            "goodput": tel.goodput.value,
-            **stats,
-        }
+        return state, dict(out, wall_seconds=time.perf_counter() - wall0,
+                           final_loss=float(metrics["loss"]),
+                           goodput=tel.goodput.value)
 
 
 __all__ = ["ADAM_EPS", "AdamWState", "LMTrainState", "LMTrainer",

@@ -323,9 +323,9 @@ class FaultInjector:
                                 graceful preemption drill)
       corrupt-latest-checkpoint scribble the newest step_N before resume
       delay-coordinator:K       first K distributed-init attempts fail
-                                (parsed for the bootstrap, ROADMAP step 7)
+                                (the bootstrap's, bootstrap/bootstrap.py)
       nan-replica:K@N           poison fused-trainer replica K at step N
-                                (parsed for HFTA, ROADMAP step 10)
+                                (parsed for HFTA, ROADMAP step 10e)
 
     Unknown directives raise at parse time — a typo'd fault spec that
     silently injects nothing would green a test that proved nothing."""

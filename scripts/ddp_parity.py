@@ -36,6 +36,18 @@ a step, 1 - tokens/s(on) / tokens/s(off) (the windows' wall time; the
 step p50 comes from the telemetry histogram's buckets). `--mp --cpu 4` rehearses it with gloo
 ranks at the test size.
 
+`--pp` runs the pipeline mode (tests/torch_mp_worker.py's pipeline legs
+as one gang over the largest N, one card a rank over NCCL): gpt2-medium
+whole, 16 x 512 a card, bf16, K1-K3, through PipelineLMTrainer.benchmark
+at (pp, dp) = (2, N / 2) and pp = N, each under GPipe and under 1F1B x 2,
+M = 4 x pp, 2 + 5 steps: tokens/s a card, the mean step (the timed
+window over its steps) and step p50 (the histogram's bucket bound),
+each card's bytes of
+masters + mu + nu and peak memory, and each rank's idle share of the
+last step (CUDA events around each tick's compute against the step's
+wall time) beside the schedule's bubble. `--pp --cpu 4` rehearses it
+with gloo ranks at the test size.
+
 On the CPU the tests' small models run instead. `--scaling` (cards
 only) adds examples/allreduce_bench.py over all N cards at 1, 16 and
 64 MB (the curve), then at 1354 MB (gpt2-medium's flat f32 gradient
@@ -233,6 +245,47 @@ def model_parallel(world, cpu, label):
     return True
 
 
+def pipelines(world, cpu, label):
+    """The --pp mode over `world` ranks (see the module docstring)."""
+    prefix = "cards-pp-test/" if cpu else "cards-pp/"
+    names = [n.replace("cards-pp/", prefix)
+             for n in mp_worker.card_pp_legs(world)]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        try:
+            got = mp_worker.gang(world, os.path.join(tmp, "r"), names,
+                                 device="cpu" if cpu else "cuda",
+                                 timeout=1800)
+        except RuntimeError as exc:
+            print(f"pipeline gang of {world}: {exc}")
+            return False
+    print(f"pipeline gang of {world} over {got[0]['backend']}: "
+          f"{time.perf_counter() - t0:.1f} s ({label})", flush=True)
+    ok = True
+    for name in names:
+        ranks = [r[name] for r in got if name in r]
+        r = ranks[0]
+        mesh = {k: v for k, v in r["mesh"].items() if v > 1}
+        peak = max(q["peak_bytes"] or 0 for q in ranks)
+        idle = [None if q["idle_share"] is None else round(q["idle_share"], 4)
+                for q in ranks]
+        finite = all(x == x and abs(x) != float("inf")
+                     for q in ranks for x in q["losses"])
+        ok &= finite
+        print(f"{name} mesh {mesh}: tokens/s {r['tokens_per_sec']:.1f}, a "
+              f"card {r['tokens_per_sec'] / world:.1f}, mean step "
+              f"{r['step_mean_ms']:.1f} ms (the timed window over its "
+              f"steps), step p50 "
+              f"{r['step_time_p50_ms']:.1f} ms (a histogram bucket's bound), "
+              f"masters + mu + nu a card "
+              f"{max(q['masters_bytes'] for q in ranks) / 1e9:.3f} GB, peak "
+              f"{peak / 1e9:.2f} GB, bubble {r['bubble']:.4f}, idle share "
+              f"of the last step by rank {idle}, K1 launches a rank "
+              f"{r['launches']['flash_fwd']}, losses finite {finite} "
+              f"({label})", flush=True)
+    return ok
+
+
 def main() -> int:
     cpu = "--cpu" in sys.argv
     worlds = [int(a) for a in sys.argv[1:] if a.isdigit()] or [2, 4]
@@ -246,6 +299,10 @@ def main() -> int:
         _build.build(["flash_attention"])
         label = card()
         print(label, flush=True)
+    if "--pp" in sys.argv:
+        if not cpu:
+            torch.cuda.empty_cache()
+        return 0 if pipelines(max(worlds), cpu, label) else 1
     if "--mp" in sys.argv:
         if not cpu:
             torch.cuda.empty_cache()

@@ -242,13 +242,9 @@ def test_gang_of_one_mesh_and_its_collectives_are_the_identity():
                                        ("sp", "10c"), ("ep", "10c"),
                                        ("pp", "10d")])
 def test_mesh_refuses_the_axes_of_later_steps(axis, step):
-    """pp, still ROADMAP.md step 10d, raises naming it; the axes of the
-    steps done (10b: fsdp; 10c: tp, sp, ep) lay a mesh over two ranks,
-    whose coordinates run along that axis."""
-    if axis == "pp":
-        with pytest.raises(ValueError, match=f"step {step}"):
-            tmesh.make_mesh(tmesh.MeshConfig(**{axis: 2}), ranks=[0, 1])
-        return
+    """No axis is refused any more: the axes of every step done (10b:
+    fsdp; 10c: tp, sp, ep; 10d: pp) lay a mesh over two ranks, whose
+    coordinates run along that axis."""
     mesh = tmesh.make_mesh(tmesh.MeshConfig(**{axis: 2}), ranks=[0, 1])
     assert mesh.shape[axis] == 2 and mesh.size == 2
     assert [mesh.coords(r)[axis] for r in (0, 1)] == [0, 1]

@@ -111,16 +111,18 @@ def test_cli_runs_bert_moe_and_remat(capsys):
 
 @pytest.mark.parametrize("flags,step", [
     (["--tp", "2"], "1 devices not divisible by tp=2"),
-    (["--pp", "2"], "step 10d"),
+    # the id this case had while --pp was refused as step 10d
+    pytest.param(["--pp", "2"], "1 devices not divisible by pp=2",
+                 id="flags1-step 10d"),
     (["--sp", "2"], "not divisible by tp=1 × ep=1 × sp=2"),
     (["--ep", "2"], "--ep needs --moe-experts"),
     (["--hfta", "2"], "step 10e")])
 def test_cli_refuses_what_is_not_ported(flags, step):
-    """--pp and --hfta name the ROADMAP.md steps that port them; --tp,
-    --sp and --ep (steps 10b and 10c, done) are refused in one process
+    """--hfta names the ROADMAP.md step that ports it; --tp, --pp, --sp
+    and --ep (steps 10b, 10c and 10d, done) are refused in one process
     by the reference's checks: the mesh they ask for needs more ranks,
-    and --ep needs experts (tests/test_torch_ep.py runs them as a
-    gang)."""
+    and --ep needs experts (tests/test_torch_ep.py and test_torch_pp.py
+    run them as gangs)."""
     with pytest.raises(ValueError, match=step):
         bench.main(["--size", "test", "--device", "cpu"] + flags)
 

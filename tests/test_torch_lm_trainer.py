@@ -378,10 +378,10 @@ def test_run_lm_benchmark_on_the_cpu(monkeypatch):
     """The entry point at test size: the reference's metric keys, every
     step's loss finite, warmup + timed steps taken, eval continuing the
     stream; remat, MoE and BERT run at test size; the parts not ported
-    (pp and a resharding restore: ROADMAP step 10; ViT: step 7) raise
-    instead of being ignored, and so do 2 slices, tp or sp meshes in one
-    process (the reference's divisibility check) and ep without
-    experts."""
+    (a resharding restore: ROADMAP step 10e) and ViT (the image trainer:
+    step 7) raise instead of being ignored, and so do 2 slices, tp, pp or
+    sp meshes in one process (the reference's divisibility check) and ep
+    without experts."""
     logs = []
     state, m = bench.run_lm_benchmark(
         "gpt2", "test", batch_per_device=2, seq_len=16, num_steps=4,
@@ -398,7 +398,7 @@ def test_run_lm_benchmark_on_the_cpu(monkeypatch):
     kw = dict(workload="gpt2", size="test", batch_per_device=2,
               seq_len=16, num_steps=1, device="cpu", log=logs.append)
     for bad, why in ((dict(tp=2), "not divisible by tp=2"),
-                     (dict(pp=2), "step 10d"),
+                     (dict(pp=2), "1 devices not divisible by pp=2"),
                      (dict(sp=2), "not divisible by tp=1 × ep=1 × sp=2"),
                      (dict(ep=2), "--ep needs --moe-experts")):
         with pytest.raises(ValueError, match=why):

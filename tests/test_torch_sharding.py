@@ -149,8 +149,11 @@ def test_rank_r_holds_device_rs_coordinates(sizes):
 
 
 def test_mesh_refuses_pp_and_bad_sizes():
-    with pytest.raises(ValueError, match="step 10d"):
-        tmesh.make_mesh(tmesh.MeshConfig(pp=2), ranks=[0, 1])
+    """pp lays a mesh since ROADMAP.md step 10d; sizes that do not match
+    the ranks are refused."""
+    pp = tmesh.make_mesh(tmesh.MeshConfig(pp=2), ranks=[0, 1])
+    assert pp.size == 2 and pp.group(("pp",)) is None
+    assert [pp.index(("pp",), r) for r in (0, 1)] == [0, 1]
     with pytest.raises(ValueError, match="devices"):
         tmesh.make_mesh(tmesh.MeshConfig(tp=3), ranks=[0, 1])
     mesh = tmesh.make_mesh(tmesh.MeshConfig(fsdp=2, tp=2),

@@ -30,16 +30,24 @@ it), so the processes start once for every leg. A leg is one of:
 - "bench": `LMTrainer.benchmark` on the mesh's TokenStream (the card's
   full-size leg: tokens/s, step p50, the state's bytes a rank, peak
   memory).
+- "pp": a PipelineLMTrainer leg (GPipe or 1F1B, `pp_leg`): as a trainer
+  leg, with the replicated leaves' digest on every rank; "pp-bench" its
+  benchmark on the card (tokens/s, step p50, bytes, peak memory, the
+  idle share of a step beside the bubble); "pp-ckpt" a GPipe checkpoint
+  resumed under 1F1B x 2 and back, another pp or tp refused; "pp-apply"
+  `pipeline_apply` against the stages applied in sequence.
 
 Rank r saves `<out>-<r>.pt`: {leg: result} for the legs it was part of.
 """
 import argparse
 import dataclasses
+import gc
 import hashlib
 import os
 import socket
 import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
@@ -60,14 +68,16 @@ FLASH = ("flash_fwd", "flash_dq", "flash_dkv")
 #: the planted faults: each must miss the parity limit
 FAULTS = ("allreduce-skipped", "fsdp-wrong-group", "norm-tp-times",
           "ring-diagonal-noncausal")
+#: the pipeline's planted faults (H30, H31, H34)
+PP_FAULTS = ("tied-not-summed", "hop-dropped", "norm-pp-times")
 
 
 def model_configs(size="test"):
     """{name: TransformerConfig}. "test": the 2-layer test widths in f32
     with dense attention (vocab 96, the CPU tests). "chip": gpt2-medium's
-    width at 2 layers and gpt2-small's with 8 experts, f32, dense (TF32
-    off). "chip-bf16": gpt2-medium's width at 2 layers in bf16 through
-    K1-K3. "full": gpt2-medium whole, bf16, K1-K3."""
+    width at 2 layers, bert-large's and gpt2-small's with 8 experts, f32,
+    dense (TF32 off). "chip-bf16": gpt2-medium's width at 2 layers in
+    bf16 through K1-K3. "full": gpt2-medium whole, bf16, K1-K3."""
     if size == "test":
         common = dict(attention="dense", dtype=torch.float32,
                       vocab_size=VOCAB, max_len=32)
@@ -83,6 +93,7 @@ def model_configs(size="test"):
                   dtype=torch.bfloat16 if bf16 else torch.float32,
                   attention="flash" if bf16 else "dense")
     return {"gpt2": tt.gpt2_config("medium", **common),
+            "bert": tt.bert_config("large", **common),
             "moe": tt.gpt2_config("small", num_experts=8, **common)}
 
 
@@ -98,6 +109,16 @@ def leg(model, size="test", kind="train", steps=3, seq=16, accum=1,
     return dict(model=model, size=size, kind=kind, steps=steps, seq=seq,
                 accum=accum, fault=fault, batch=batch, mesh=mesh, cfg=cfg,
                 gather=gather)
+
+
+def pp_leg(model, schedule="gpipe", interleave=1, micro=4, fused=False,
+           kind="pp", batch=16, num_layers=4, **kw):
+    """A pipeline leg's spec: `leg`'s, with the schedule, the interleave,
+    the microbatch count M and whether the loss is the fused one; the
+    model at `num_layers` layers, its weights named by both."""
+    return dict(leg(model, kind=kind, batch=batch, num_layers=num_layers,
+                    **kw), schedule=schedule, interleave=interleave,
+                micro=micro, fused=fused, weights=f"{model}-{num_layers}l")
 
 
 #: the legs of the CPU tests, by name
@@ -141,6 +162,32 @@ LEGS = {
     "moe/dp2-ep4-dropless": leg("moe", dp=2, ep=4, moe_dropless=True),
     "moe-layer/dp2-ep4": leg("moe", kind="moe", dp=2, ep=4),
     "moe-layer/dp2-ep2-tp2": leg("moe", kind="moe", dp=2, ep=2, tp=2),
+    # pipelines (test_torch_pp.py, test_torch_pp_compose.py,
+    # test_torch_pp_moe.py): 4 layers, global batch 16, M = 4
+    "pp/gpt2/pp2-dp4-gpipe": pp_leg("gpt2", pp=2, dp=4),
+    "pp/gpt2/pp2-tp2-dp2-gpipe": pp_leg("gpt2", pp=2, tp=2, dp=2),
+    "pp/gpt2/pp2-dp4-1f1b2": pp_leg("gpt2", "1f1b", 2, pp=2, dp=4),
+    "pp/gpt2/pp2-dp4-fused": pp_leg("gpt2", pp=2, dp=4, fused=True),
+    "pp/gpt2/pp2-dp4-gpipe/tied-not-summed": pp_leg(
+        "gpt2", pp=2, dp=4, fault="tied-not-summed"),
+    "pp/gpt2/pp2-dp4-gpipe/hop-dropped": pp_leg(
+        "gpt2", pp=2, dp=4, fault="hop-dropped"),
+    "pp/gpt2/pp2-dp4-gpipe/norm-pp-times": pp_leg(
+        "gpt2", pp=2, dp=4, fault="norm-pp-times"),
+    "pp-ckpt/gpt2/pp2-dp4": pp_leg("gpt2", kind="pp-ckpt", pp=2, dp=4),
+    "pp-apply/pp4-dp2": pp_leg("gpt2", kind="pp-apply", pp=4, dp=2),
+    "pp-bench/gpt2/pp2-dp4-1f1b2": pp_leg("gpt2", "1f1b", 2,
+                                          kind="pp-bench", pp=2, dp=4),
+    "pp/bert/pp2-dp4-gpipe": pp_leg("bert", pp=2, dp=4),
+    "pp/bert/pp2-dp4-1f1b2": pp_leg("bert", "1f1b", 2, pp=2, dp=4),
+    "pp/gpt2/pp2-sp2-dp2-gpipe": pp_leg("gpt2", pp=2, sp=2, dp=2,
+                                        attention="ring"),
+    "pp/gpt2/pp2-sp2-dp2-1f1b": pp_leg("gpt2", "1f1b", pp=2, sp=2, dp=2,
+                                       attention="ring"),
+    "pp/moe/pp2-dp4-gpipe": pp_leg("moe", pp=2, dp=4),
+    "pp/moe/pp2-dp4-gpipe-dropless": pp_leg("moe", pp=2, dp=4,
+                                            moe_dropless=True),
+    "pp/moe/pp2-ep2-gpipe": pp_leg("moe", pp=2, ep=2),
 }
 
 #: the card's legs (chip_smoke.py [train-lm-mp]), 4 ranks sharing it
@@ -206,6 +253,53 @@ def card_legs(world, size="full", batch=16, seq=512):
     return out
 
 
+#: the card's pipeline legs (chip_smoke.py [train-lm-pp]), 4 ranks
+#: sharing it: (a) gpt2-medium whole, bf16, K1-K3, 16 x 512, pp = 4,
+#: M = 16, under GPipe and under 1F1B x 2; (b) f32 parity at gpt2-medium's
+#: width (bert-large's, gpt2-small's with 8 experts), 4 layers, 8 x 256;
+#: (c) the planted faults
+PP_CHIP = dict(size="chip", batch=8, seq=256, micro=4)
+LEGS.update({
+    "chip-pp/full-pp4-gpipe": pp_leg("gpt2", kind="pp-bench", size="full",
+                                     batch=16, seq=512, micro=16, pp=4,
+                                     num_layers=24),
+    "chip-pp/full-pp4-1f1b2": pp_leg("gpt2", "1f1b", 2, kind="pp-bench",
+                                     size="full", batch=16, seq=512,
+                                     micro=16, pp=4, num_layers=24),
+    "chip-pp/pp2-dp2-gpipe": pp_leg("gpt2", pp=2, dp=2, **PP_CHIP),
+    "chip-pp/pp2-tp2-1f1b2": pp_leg("gpt2", "1f1b", 2, pp=2, tp=2,
+                                    **PP_CHIP),
+    "chip-pp/bert-pp2-dp2-1f1b": pp_leg("bert", "1f1b", pp=2, dp=2,
+                                        **PP_CHIP),
+    "chip-pp/moe-pp2-ep2-gpipe": pp_leg("moe", pp=2, ep=2, **PP_CHIP),
+    "chip-pp/pp2-dp2-gpipe/tied-not-summed": pp_leg(
+        "gpt2", pp=2, dp=2, fault="tied-not-summed", gather=("params",),
+        **PP_CHIP),
+    "chip-pp/pp2-dp2-gpipe/hop-dropped": pp_leg(
+        "gpt2", pp=2, dp=2, fault="hop-dropped", gather=("params",),
+        **PP_CHIP),
+    "chip-pp/pp2-dp2-gpipe/norm-pp-times": pp_leg(
+        "gpt2", pp=2, dp=2, fault="norm-pp-times", **PP_CHIP),
+})
+
+
+def card_pp_legs(world, size="full", batch=16, seq=512):
+    """scripts/ddp_parity.py --pp's legs over `world` ranks, one card a
+    rank (NCCL): gpt2-medium whole at `batch` x `seq` a card through
+    PipelineLMTrainer.benchmark at (pp, dp) = (2, world / 2) and pp =
+    world, under GPipe and under 1F1B x 2, M = 4 x pp."""
+    out = {}
+    for pp in sorted({2, world}):
+        if world % pp or pp > world:
+            continue
+        for sched, v in (("gpipe", 1), ("1f1b", 2)):
+            out[f"cards-pp/pp{pp}-{sched}{v if v > 1 else ''}"] = pp_leg(
+                "gpt2", sched, v, kind="pp-bench", size=size,
+                batch=batch * world, seq=seq, micro=4 * pp, pp=pp,
+                dp=world // pp, num_layers=24 if size == "full" else 8)
+    return out
+
+
 def config_of(spec):
     cfg = model_configs(spec["size"])[spec["model"]]
     return dataclasses.replace(cfg, **spec["cfg"]) if spec["cfg"] else cfg
@@ -215,7 +309,8 @@ def trainer_config(spec, cfg):
     return tlm.LMTrainerConfig(
         global_batch_size=spec["batch"], seq_len=spec["seq"],
         warmup_steps=2, masked_lm=not cfg.causal, accum_steps=spec["accum"],
-        fused_xent=bool(cfg.tp_overlap) and cfg.causal)
+        fused_xent=(bool(cfg.tp_overlap) or spec.get("fused", False))
+        and cfg.causal)
 
 
 def batches(cfg, steps, seq, batch=GLOBAL_BATCH, seed=1):
@@ -548,7 +643,7 @@ def ckpt_leg(spec, device, mesh, train_dir):
     return out
 
 
-def bench_leg(spec, device, mesh, steps=5, warmup=2):
+def bench_leg(spec, device, mesh, steps=3, warmup=2):
     """trainer.benchmark at the leg's mesh on the synthetic stream (its
     share a rank): tokens/s, step p50, losses, the state's bytes a rank
     and the peak memory, K1-K3 launches."""
@@ -602,7 +697,229 @@ def run_leg(name, spec, device, mesh, weights=None, train_dir=None):
             train_dir, name.replace("/", "_")))
     if kind == "bench":
         return bench_leg(spec, device, mesh)
+    w = (weights or {}).get(spec.get("weights", spec["model"]))
+    if kind == "pp":
+        return pp_train_leg(spec, device, mesh, w)
+    if kind == "pp-bench":
+        return pp_bench_leg(spec, device, mesh)
+    if kind == "pp-ckpt":
+        return pp_ckpt_leg(spec, device, mesh, os.path.join(
+            train_dir, name.replace("/", "_")), w)
+    if kind == "pp-apply":
+        return pp_apply_leg(device, mesh)
     raise ValueError(f"unknown leg kind {kind!r}")
+
+
+def pp_trainer(spec, device, mesh, schedule=None, interleave=None):
+    from mpi_operator_tpu_torch.train.pp_trainer import PipelineLMTrainer
+    cfg = config_of(spec)
+    return PipelineLMTrainer(
+        cfg, mesh, trainer_config(spec, cfg), num_microbatches=spec["micro"],
+        schedule=schedule or spec["schedule"],
+        interleave=interleave or spec["interleave"], device=device)
+
+
+def _plant_pp(fault, trainer):
+    """Plant a pipeline fault in `trainer`: H30 the replicated leaves'
+    gradients not summed over pp; H31 one backward hop's cotangent
+    dropped each step (the first nonzero one a rank receives: it joins
+    the hop, then discards what arrived); H34 the replicated leaves
+    counted pp times in the global norm."""
+    if fault == "tied-not-summed":
+        trainer._sum_replicated = lambda grads: None
+    elif fault == "hop-dropped":
+        hop, step = trainer._hop, trainer.train_step
+        dropped = [False]
+
+        def dropping(xs, shift):
+            got = hop(xs, shift)
+            if shift < 0 and not dropped[0] and bool(got[0].abs().sum()):
+                dropped[0] = True
+                got = [torch.zeros_like(got[0])]
+            return got
+
+        def train_step(*a, **kw):
+            dropped[0] = False
+            return step(*a, **kw)
+        trainer._hop, trainer.train_step = dropping, train_step
+    elif fault == "norm-pp-times":
+        weight = trainer._norm_weight
+        trainer._norm_weight = lambda cls: weight(cls) * (
+            trainer.pp if cls == "shared" else 1)
+    elif fault is not None:
+        raise ValueError(f"unknown pipeline fault {fault!r}")
+
+
+def _pp_batches(trainer, spec, device):
+    cfg = trainer.model_config
+    for b in batches(cfg, spec["steps"], spec["seq"], spec["batch"]):
+        yield [None if a is None else torch.from_numpy(np.ascontiguousarray(
+            trainer.share(a))).to(device) for a in b]
+
+
+def pp_train_leg(spec, device, mesh, weights=None):
+    """A PipelineLMTrainer leg on this rank: as train_leg, with every
+    rank's digest of its replicated leaves (H30) and the state's bytes."""
+    trainer = pp_trainer(spec, device, mesh)
+    state = trainer.init_state(0, state_dict=weights)
+    _plant_pp(spec["fault"], trainer)
+    # one process (a mesh without a group) also keeps its start
+    start = trainer.global_flat(state) if mesh.device_mesh is None else None
+    losses, before = [], _counts()
+    with _CountPlain() as plain:
+        for b in _pp_batches(trainer, spec, device):
+            state, m = trainer.train_step(state, *b)
+            losses.append(float(m["loss"]))
+    after = _counts()
+    flats = {k: trainer.global_flat(state, k).cpu() for k in spec["gather"]}
+    if start is not None:
+        flats["start"] = start.cpu()
+    keep = mesh.index(tmesh.AXIS_ORDER) == 0
+    return {**(flats if keep else {}),
+            "digest": {k: hashlib.sha1(v.numpy().tobytes()).hexdigest()
+                       for k, v in flats.items()},
+            "replicated_digest": trainer.replicated_digest(state),
+            "count": int(state.opt.count), "losses": losses,
+            "layers": trainer.layers,
+            "launches": {k: after[k] - before[k] for k in FLASH},
+            "plain_calls": dict(plain.calls),
+            "masters_bytes": 12 * state.params.numel()}
+
+
+def pp_bench_leg(spec, device, mesh, steps=5, warmup=2):
+    """PipelineLMTrainer.benchmark on the mesh's TokenStream (each rank
+    its share of every microbatch): tokens/s, the mean step, step p50
+    (a histogram bucket's bound), the losses,
+    bytes of masters + mu + nu and peak memory a rank, K1-K3 launches,
+    the replicated leaves' digest and, on the card, the idle share of the
+    last step (CUDA events around each tick's compute against the
+    step's wall time) beside the bubble."""
+    from mpi_operator_tpu_torch.data import TokenStream
+    trainer = pp_trainer(spec, device, mesh)
+    cfg = trainer.model_config
+    state = trainer.init_state(0)
+    stream = TokenStream(spec["batch"], spec["seq"], cfg.vocab_size, seed=1,
+                         device=device, masked_lm=not cfg.causal,
+                         accum_steps=spec["micro"], mesh=mesh)
+    cuda = device.type == "cuda"
+    if cuda:
+        gc.collect()                  # the previous leg's graphs
+        torch.cuda.reset_peak_memory_stats(device)
+        trainer.time_ticks = True
+    before = _counts()
+    state, m = trainer.benchmark(state, stream, num_steps=steps,
+                                 warmup_steps=warmup, log=lambda s: None)
+    after = _counts()
+    idle = busy = wall = None
+    if cuda:
+        torch.cuda.synchronize(device)
+        start, ticks, end = trainer.last_ticks
+        wall = start.elapsed_time(end)
+        busy = sum(s.elapsed_time(e) for s, e in ticks)
+        idle = 1.0 - busy / wall
+    return {"tokens_per_sec": m["tokens_per_sec"],
+            "step_time_p50_ms": m["step_time_p50_ms"],
+            # the timed window over its steps, what tokens/s is read from
+            "step_mean_ms": 1e3 * spec["batch"] * spec["seq"]
+            / m["tokens_per_sec"],
+            "losses": m["step_losses"], "steps": steps + warmup,
+            "keys": sorted(m), "flops_per_step": m["flops_per_step"],
+            "bubble": trainer.bubble, "idle_share": idle,
+            "busy_ms": busy, "wall_ms": wall, "mfu": m["mfu"],
+            "layers": trainer.layers,
+            "replicated_digest": trainer.replicated_digest(state),
+            "masters_bytes": 12 * state.params.numel(),
+            "peak_bytes": (torch.cuda.max_memory_allocated(device)
+                           if cuda else None),
+            "launches": {k: after[k] - before[k] for k in FLASH}}
+
+
+def pp_ckpt_leg(spec, device, mesh, train_dir, weights=None):
+    """Two GPipe steps and a checkpoint; a 1F1B x 2 trainer restores it
+    (its global params, mu, nu and step bit-equal to the GPipe state's,
+    its evaluate equal to GPipe's on the same weights), takes a step and
+    saves; GPipe restores that (bit-equal again). Then states over
+    another pp and another tp of the same ranks must refuse the
+    checkpoint, naming ROADMAP.md step 10e."""
+    import torch.distributed as dist
+
+    from mpi_operator_tpu_torch.train import checkpoint as ck
+    g = pp_trainer(spec, device, mesh, "gpipe", 1)
+    f = pp_trainer(spec, device, mesh, "1f1b", 2)
+    data = list(_pp_batches(g, dict(spec, steps=4), device))
+    gs = g.init_state(0, state_dict=weights)
+    for b in data[:2]:
+        gs, _ = g.train_step(gs, *b)
+    ck.reset_saved_state()
+    path = ck.save_checkpoint(train_dir, gs)
+    # shard 0's writer commits once every shard is written: the ranks
+    # restore after it has
+    dist.barrier(group=gs.group)
+
+    def flats(tr, st):
+        return {k: tr.global_flat(st, k) for k in ("params", "mu", "nu")}
+    fs = ck.restore_checkpoint(path, f.init_state(5))
+    want, got = flats(g, gs), flats(f, fs)
+    out = {"to_1f1b": {k: bool(torch.equal(got[k], want[k])) for k in want},
+           "step_1f1b": fs.step, "count_1f1b": int(fs.opt.count),
+           "layers_1f1b": f.layers, "layers_gpipe": g.layers,
+           "eval_gpipe": float(g.eval_step(gs, *data[2])),
+           "eval_1f1b": float(f.eval_step(fs, *data[2]))}
+    # H35: the canonical round trip is exact
+    back = f.from_canonical_state(f.init_state(7), f.canonical_state(fs))
+    out["canonical_round_trip"] = all(
+        torch.equal(a, b) for a, b in ((back.params, fs.params),
+                                       (back.opt.mu, fs.opt.mu),
+                                       (back.opt.nu, fs.opt.nu)))
+    fs, _ = f.train_step(fs, *data[2])
+    path = ck.save_checkpoint(train_dir, fs)
+    dist.barrier(group=fs.group)
+    back = ck.restore_checkpoint(path, g.init_state(5))
+    want, got = flats(f, fs), flats(g, back)
+    out["to_gpipe"] = {k: bool(torch.equal(got[k], want[k])) for k in want}
+    out["step_gpipe"] = back.step
+    out["other_split"] = []
+    for sizes in (dict(pp=4, dp=mesh.size // 4),
+                  dict(pp=2, tp=2, dp=mesh.size // 4)):
+        other = tmesh.Mesh(tmesh.MeshConfig(**sizes), mesh.ranks)
+        try:
+            ck.restore_checkpoint(path, pp_trainer(spec, device,
+                                                   other).init_state(0))
+            out["other_split"].append(None)
+        except ck.ReshardRequired as e:
+            out["other_split"].append(str(e))
+    return out
+
+
+def pp_apply_leg(device, mesh, E=16, M=8):
+    """pipeline_apply over the leg's pp stages (the reference's
+    TestPipeline: tanh(x W_i + b_i) a stage, x [M, 4, E]) against the
+    stages applied in sequence in this process, forward and the
+    gradients of sum(out^2): the largest differences."""
+    from mpi_operator_tpu_torch.parallel.pipeline import pipeline_apply
+    P, d = mesh.shape["pp"], mesh.index(("pp",))
+    g = torch.Generator().manual_seed(0)
+    ws = [torch.randn(E, E, generator=g) / E ** 0.5 for _ in range(P)]
+    bs = [0.1 * torch.randn(E, generator=g) for _ in range(P)]
+    x = torch.randn(M, 4, E, generator=g)
+    mine = {"w": ws[d].clone().requires_grad_(),
+            "b": bs[d].clone().requires_grad_()}
+    xs = x.clone().requires_grad_()
+    out = pipeline_apply(lambda p, h: torch.tanh(h @ p["w"] + p["b"]),
+                         mine, xs, mesh, M)
+    (out ** 2).sum().backward()
+    seq = [(w.clone().requires_grad_(), b.clone().requires_grad_())
+           for w, b in zip(ws, bs)]
+    xr = x.clone().requires_grad_()
+    h = xr
+    for w, b in seq:
+        h = torch.tanh(h @ w + b)
+    (h ** 2).sum().backward()
+    return {"out": float((out - h).abs().max()),
+            "dw": float((mine["w"].grad - seq[d][0].grad).abs().max()),
+            "db": float((mine["b"].grad - seq[d][1].grad).abs().max()),
+            "dx": float((xs.grad - xr.grad).abs().max()),
+            "ref_scale": float(seq[d][0].grad.abs().max())}
 
 
 def legs_for(names):
@@ -612,6 +929,10 @@ def legs_for(names):
     world = dist.get_world_size()
     table = dict(LEGS)
     table.update(card_legs(world))
+    table.update(card_pp_legs(world))
+    table.update({n.replace("cards-pp/", "cards-pp-test/"): dict(
+        spec, size="test", seq=16) for n, spec in card_pp_legs(
+            world, size="test", batch=4, seq=16).items()})
     table.update({n.replace("cards/", "cards-test/"): dict(
         spec, size="test", seq=16) for n, spec in card_legs(
             world, size="test", batch=2, seq=16).items()})
@@ -629,9 +950,11 @@ def run(names, legs, device, weights=None, train_dir=None):
         cfg = tmesh.MeshConfig(**spec["mesh"])
         mesh = tmesh.make_mesh(cfg, ranks=range(cfg.num_devices))
         if me in mesh:
+            t0 = time.perf_counter()
             out[name] = run_leg(name, spec, device, mesh, weights,
                                 train_dir)
             out[name]["mesh"] = dict(mesh.shape)
+            out[name]["seconds"] = time.perf_counter() - t0
     return out
 
 
