@@ -240,13 +240,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
 22. (Run last.) Training that survives preemption, gpt2-medium at
    full width, bf16, attention="flash", 16 x 512, through
    run_lm_benchmark's resilient path in a temporary directory (at least
-   20 GB free, or the phase fails): periodic async checkpoints every 12
+   20 GB free, or the phase fails): periodic async checkpoints every 6
    steps keeping 2 (torch.distributed.checkpoint). A and A': two
-   uninterrupted runs to step 25, compared bit for bit (params, mu,
-   nu, losses). B1: TPU_FAULT_INJECT=sigterm-at-step:18 must end in
-   Preempted (exit code 215) with step_18 committed and preemption_drain
-   then emergency_checkpoint in events.jsonl. B2: stop_at_step=25
-   resumes from step_18 (checkpoint_restore and first_resume_step
+   uninterrupted runs to step 15, A with the periodic saves and A'
+   without (a save changes no state), compared bit for bit (params, mu,
+   nu, losses). B1: TPU_FAULT_INJECT=sigterm-at-step:10 must end in
+   Preempted (exit code 215) with step_10 committed and preemption_drain
+   then emergency_checkpoint in events.jsonl. B2: stop_at_step=15
+   resumes from step_10 (checkpoint_restore and first_resume_step
    logged) and must end equal to A — params, mu, nu and opt.count bit
    for bit and the losses of the steps it ran — or, if A and A' differ,
    within twice their difference. Each run's K1-K3 launches equal 24 x
@@ -256,7 +257,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    device clone against a pinned host copy of the state, restore and
    first-resumed-step seconds, the writer's thread count. Then the CLI
    at 2 layers: sigterm-at-step:5 exits 215 with step_5, and the resume
-   with --stop-at-step 8 exits 0 with step_8.
+   with --stop-at-step 8 and TPU_RESHARD_RESTORE=1 exits 0 with step_8,
+   its checkpoint_restore record resharded; step_5 through
+   restore_resharded is bit-equal to the plain restore.
 
 23. (Run after 13.) The serving fleet, each leg of
    examples/serve_benchmark.py at gpt2-medium's full width and depth,
@@ -383,14 +386,44 @@ Phases, each of which fails the run (non-zero exit, no result line):
    one backward hop dropped, the replicated leaves counted pp times in
    the norm) must each exceed the limit.
 
+27. (In 25's gang.) restore_resharded: gpt2-medium at full width and
+   depth, bf16, (dp, fsdp, tp) = (1, 2, 2), its seed-0 masters with no
+   step trained (mu = p / 2 and nu = p * p set from the masters, count
+   and step 7), saved (one shard a rank); restored at (1, 4, 1) on the 4
+   ranks, at fsdp 2 on ranks 0 and 1 (their groups made on every rank)
+   and as one replica on rank 0. Each rank's restored masters, mu, nu
+   and the step are bit-equal to that rank's share of the saved state,
+   as the target's own init_state builds it on the CPU from the global
+   buffers (no checkpoint code, no collective); each rank's ReadStats
+   (bytes read against its share, the peak in flight, seconds). The
+   planted fault (rank 1's fsdp slice cut at the wrong offset) must
+   break the bit-equality.
+
+28. [hfta]: the HFTA fused trainer (train/hfta.py). vmap(flash_attention)
+   at K = 4 over [2, 512, 12, 64] bf16 with a key mask bit-equal to four
+   calls (out, dq, dk, dv), K1-K3 launched once each; at gpt2-small's
+   width and 2 layers the fused K = 1 step bit-equal to LMTrainer after
+   3 steps (params, mu, nu) and K = 4 with nan-replica:1@2 freezing
+   replica 1 while the others stay bit-equal to an unpoisoned fused
+   run, and the planted fault (the guard's per-row select made one
+   select of the whole state) failing that. Then the reference bench's
+   leg: gpt2-small, K = 8 replicas of 8 x 512, bf16 over f32 masters,
+   flash, 3 + 10 steps through HFTATrainer.benchmark with the counts
+   zeroed just before and read just after: K1-K3 each 12 launches a
+   step (the layers, all 8 replicas in each launch), not 96; against
+   the solo LMTrainer at one replica's size: aggregate and solo tokens/s,
+   fused_speedup, per-replica MFU, peak memory, with the card's name and
+   power limit.
+
 The line before the last is {"kernels": [...]}: K4, K5 and K1-K3 (at
 the gpt2 training shape, with a `vit_b16` entry each: launches in
 [train-vit] and the timing row at ViT-B/16's shape; and an
 `lm_gang_of_one` entry: launches in [train-lm-ddp]'s gang of one; an
 `lm_mp` entry: rank 0's launches in [train-lm-mp] (a) and each rank's
 in its causal rings; an `lm_pp` entry: each rank's launches in
-[train-lm-pp] (a) under each schedule; and an `operator` entry: launches in the
-[operator] job's worker); K5's
+[train-lm-pp] (a) under each schedule; an `operator` entry: launches in the
+[operator] job's worker; and an `hfta` entry: K and the launches of
+[hfta]'s leg); K5's
 entry adds `disagg`, `router` and `livescale`: its launches in each
 fleet phase. The last line is {"ok": true, "device": {...}}.
 """
@@ -2063,7 +2096,7 @@ def f32_delta():
     from mpi_operator_tpu_torch.ops import attention as ops
     backward = ops.FlashAttention.backward
 
-    def exact_delta(ctx, do):
+    def exact_delta(ctx, do, _dlse):
         q, k, v, out, lse, mask = ctx.saved_tensors
         do = do.contiguous()
         o32, _ = ops.flash_fwd_ref(q.float(), k.float(), v.float(),
@@ -2212,10 +2245,12 @@ def profile_train(trainer, state, batch, step_ms, steps=2):
 
 # gpt2-medium at the bench's gpt2 leg, through run_lm_benchmark's
 # resilient path: uninterrupted to RESUME_T twice (A, A'), then SIGTERM
-# at RESUME_KILL (between the periodic saves at 12 and 24) and a resume
-# to RESUME_T. Windows of 10 timed steps after 3 warmup steps cover
-# global steps 4-13 (the save at 12) and 14-23 (none).
-RESUME_T, RESUME_KILL, RESUME_EVERY, RESUME_KEEP = 25, 18, 12, 2
+# at RESUME_KILL (between the periodic saves at 6 and 12) and a resume
+# to RESUME_T. A window of 10 timed steps after 3 warmup steps covers
+# global steps 4-13: A's holds the saves at 6 and 12, A' runs without
+# periodic saves, so its window is the one without. (25, 18, 12 before
+# the [hfta] phase needed the run's time: PERF.md section 6.)
+RESUME_T, RESUME_KILL, RESUME_EVERY, RESUME_KEEP = 15, 10, 6, 2
 RESUME_COMMON = dict(workload="gpt2", size="medium", batch_per_device=16,
                      seq_len=512, warmup_steps=3, attention="flash",
                      ckpt_every=RESUME_EVERY, ckpt_keep=RESUME_KEEP)
@@ -2240,7 +2275,7 @@ def resumed_run(name, ops, train_dir, resumed_from=0, **kw):
     state = None
     try:
         state, out = run_lm_benchmark(train_dir=train_dir, log=lines.append,
-                                      **RESUME_COMMON, **kw)
+                                      **{**RESUME_COMMON, **kw})
         end = state.step
         check(int(state.opt.count) == end,
               f"{name}: opt.count {int(state.opt.count)} != step {end}")
@@ -2272,8 +2307,8 @@ def window_step_ms(lines, base, every, tokens_per_step):
         if m:
             i, tps = int(m.group(1)), float(m.group(2))
             lo, hi = base + prev + 1, base + i
-            out.append((hi, tokens_per_step / tps * 1e3,
-                        any(s % every == 0 for s in range(lo, hi + 1))))
+            out.append((hi, tokens_per_step / tps * 1e3, every > 0
+                        and any(s % every == 0 for s in range(lo, hi + 1))))
             prev = i
     return out
 
@@ -2312,13 +2347,18 @@ def snapshot_costs(state):
     return costs
 
 
-def cli_leg(train_dir, fault=None, *extra):
+def cli_leg(train_dir, fault=None, *extra, reshard=False):
     """python -m mpi_operator_tpu_torch.examples.lm_benchmark as the
-    controller starts a worker: gpt2-medium width, 2 layers, 16 x 512."""
+    controller starts a worker: gpt2-medium width, 2 layers, 16 x 512;
+    `reshard` resumes through the resharding restore
+    (TPU_RESHARD_RESTORE=1)."""
     env = dict(os.environ)
     env.pop("TPU_FAULT_INJECT", None)
+    env.pop("TPU_RESHARD_RESTORE", None)
     if fault:
         env["TPU_FAULT_INJECT"] = fault
+    if reshard:
+        env["TPU_RESHARD_RESTORE"] = "1"
     cmd = [sys.executable, "-m", "mpi_operator_tpu_torch.examples."
            "lm_benchmark", "--size", "medium", "--num-layers", "2",
            "--batch-per-device", "16", "--seq-len", "512", "--attention",
@@ -2328,6 +2368,28 @@ def cli_leg(train_dir, fault=None, *extra):
     out = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
                          env=env)
     return out, time.perf_counter() - t0
+
+
+def cli_reshard_equal(path):
+    """The CLI's checkpoint at `path` (gpt2-medium width, 2 layers)
+    restored through restore_resharded and through the plain restore
+    into two fresh states: params, mu, nu, count and step bit-equal."""
+    from mpi_operator_tpu_torch.models.transformer import lm_config
+    from mpi_operator_tpu_torch.train import LMTrainer, LMTrainerConfig
+    from mpi_operator_tpu_torch.train import checkpoint as ck
+    tr = LMTrainer(lm_config("gpt2-medium", num_layers=2, max_len=512),
+                   LMTrainerConfig(global_batch_size=16, seq_len=512))
+    a = ck.restore_resharded(path, tr.init_state(3))
+    b = ck.restore_checkpoint(path, tr.init_state(4))
+    same = (a.step == b.step and int(a.opt.count) == int(b.opt.count)
+            and all(torch.equal(x, y) for x, y in (
+                (a.params, b.params), (a.opt.mu, b.opt.mu),
+                (a.opt.nu, b.opt.nu))))
+    check(same, f"CLI checkpoint {path}: the resharded restore differs from "
+          f"the plain one")
+    del a, b, tr
+    torch.cuda.empty_cache()
+    return same
 
 
 def train_resume_phase(ops):
@@ -2358,13 +2420,12 @@ def train_resume_phase(ops):
         tokens_per_step = (RESUME_COMMON["batch_per_device"]
                            * RESUME_COMMON["seq_len"])
         runs, windows = {}, []
-        for name in ("A", "A'"):
+        for name, every in (("A", RESUME_EVERY), ("A'", 0)):
             d = os.path.join(root, name.replace("'", "2"))
             state, m, lines = resumed_run(
-                name, ops, d, num_steps=RESUME_T - 3)
+                name, ops, d, num_steps=RESUME_T - 3, ckpt_every=every)
             check(state.step == RESUME_T, f"{name}: ended at {state.step}")
-            windows += window_step_ms(lines, 3, RESUME_EVERY,
-                                      tokens_per_step)
+            windows += window_step_ms(lines, 3, every, tokens_per_step)
             info = ck.last_save_info()
             log(f"  {name}: final save {info['bytes']} bytes, to host "
                 f"{info['to_host_seconds']:.3f} s, write "
@@ -2453,14 +2514,23 @@ def train_resume_phase(ops):
               and os.path.isdir(os.path.join(d, "step_5")),
               f"CLI preempted leg: rc {out.returncode}\n{out.stdout[-1500:]}"
               f"\n{out.stderr[-1500:]}")
-        out2, secs2 = cli_leg(d, None, "--stop-at-step", "8")
+        out2, secs2 = cli_leg(d, None, "--stop-at-step", "8", reshard=True)
         check(out2.returncode == 0 and os.path.isdir(os.path.join(d, "step_8"))
               and "step_5" in out2.stdout,
               f"CLI resume leg: rc {out2.returncode}\n{out2.stdout[-1500:]}"
               f"\n{out2.stderr[-1500:]}")
+        restores = [e for e in read_events(os.path.join(d, "events.jsonl"))
+                    if e["event"] == "checkpoint_restore"]
+        check([e.get("resharded") for e in restores] == [True],
+              f"CLI resume leg: checkpoint_restore records {restores}")
+        same = cli_reshard_equal(os.path.join(d, "step_5"))
         log(f"  CLI (2 layers): sigterm-at-step:5 exit {out.returncode} with "
-            f"step_5 in {secs:.1f} s; --stop-at-step 8 exit 0 with step_8 in "
-            f"{secs2:.1f} s; {out2.stdout.strip().splitlines()[-1]}")
+            f"step_5 in {secs:.1f} s; TPU_RESHARD_RESTORE=1 --stop-at-step 8 "
+            f"exit 0 with step_8 in {secs2:.1f} s, its checkpoint_restore "
+            f"resharded {restores[0]['resharded']} in "
+            f"{restores[0]['seconds']:.3f} s; step_5 through "
+            f"restore_resharded bit-equal to the plain restore {same}; "
+            f"{out2.stdout.strip().splitlines()[-1]}")
     finally:
         ck.wait_for_checkpoints()
         shutil.rmtree(root, ignore_errors=True)
@@ -3107,17 +3177,51 @@ def mp_worker():
     return worker
 
 
+# the resharding leg (restore_resharded): gpt2-medium at (1, 2, 2) saved,
+# restored at (1, 4, 1), at fsdp 2 on ranks 0 and 1 and as one replica on
+# rank 0, then the wrong-offset fault
+LM_RESHARD = "chip/reshard-fsdp2-tp2"
+
+
+def reshard_checks(got):
+    """The resharding leg's results: every target bit-equal (each rank's
+    masters, mu, nu and the step against its share of the saved state)
+    on every rank of its mesh, the planted fault caught on rank 1; each
+    rank's ReadStats printed."""
+    worker = mp_worker()
+    chain = dict(worker.LEGS[LM_RESHARD]["chain"])
+    for label, sizes in chain.items():
+        n = max(1, math.prod(sizes.values()))
+        rows = [r[LM_RESHARD] for r in got[:n]]
+        check(all(r["checks"][label] for r in rows),
+              f"[train-lm-gang] reshard to {label}: "
+              f"{[r['checks'][label] for r in rows]}")
+        for rank, r in enumerate(rows):
+            st = r["stats"][label]
+            log(f"  reshard (1, 2, 2) -> {label} rank {rank}: read "
+                f"{st['bytes_read']} bytes in {st['reads']} tensors against "
+                f"a share of {st['share_bytes']} (checkpoint "
+                f"{st['total_bytes']}), peak in flight "
+                f"{st['peak_in_flight_bytes']}, {st['seconds']:.2f} s")
+    faults = [r[LM_RESHARD]["checks"]["fault"] for r in got[:2]]
+    check(faults == [True, False], f"[train-lm-gang] the wrong-offset "
+          f"fault on rank 1 of the fsdp 2 target: checks {faults}")
+    log(f"  reshard: every target bit-equal; the wrong-offset fault caught "
+        f"on rank 1 (checks {faults}); the leg "
+        f"{got[0][LM_RESHARD]['seconds']:.1f} s ({device_line()})")
+
+
 def lm_gang_phase():
-    """[train-lm-mp]'s and [train-lm-pp]'s legs as ONE gang of 4 gloo
-    ranks on the card (one start of the ranks for both phases), each leg
-    laying its own mesh over the same processes. Returns every rank's
-    results."""
+    """[train-lm-mp]'s and [train-lm-pp]'s legs and the resharding leg
+    as ONE gang of 4 gloo ranks on the card (one start of the ranks for
+    all of them), each leg laying its own mesh over the same processes.
+    Returns every rank's results."""
     worker = mp_worker()
     torch.cuda.empty_cache()
     legs = ((LM_MP_FULL,) + LM_MP_PARITY + LM_MP_RINGS
             + (LM_MP_RING_ALONE_FAULT, LM_MP_RING_TRAIN) + LM_MP_FAULTS
             + (LM_MP_RING_FAULT,) + LM_PP_FULL + LM_PP_PARITY
-            + LM_PP_FAULTS)
+            + LM_PP_FAULTS + (LM_RESHARD,))
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         got = worker.gang(LM_MP_RANKS, os.path.join(tmp, "r"), legs,
@@ -3126,6 +3230,7 @@ def lm_gang_phase():
         f"card, {len(legs)} legs: {time.perf_counter() - t0:.1f} s (by leg: "
         + ", ".join(f"{n} {got[0][n]['seconds']:.1f}" for n in legs) + ")")
     check(got[0]["backend"] == "gloo", "ranks sharing one card not gloo")
+    reshard_checks(got)
     return got
 
 
@@ -4302,6 +4407,191 @@ WS_KERNELS = ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel")
 WS_REGISTERS = 168
 
 
+# ---------------------------------------------------------------------------
+# [hfta]: the fused sweep trainer through K1-K3 under torch.func.vmap
+# ---------------------------------------------------------------------------
+
+# the reference bench's HFTA leg (bench.py:872-910): gpt2-small, K = 8
+# replicas of 8 x 512 each, bf16 over f32 masters, attention flash, one
+# window of 10 timed steps after 3 warmup steps, against the solo
+# LMTrainer at the same size
+HFTA_K, HFTA_BATCH, HFTA_SEQ, HFTA_STEPS, HFTA_WARMUP = 8, 8, 512, 10, 3
+
+
+def hfta_fold_check(ops, dev):
+    """vmap(flash_attention) at K = 4 over [4, 2, 512, 12, 64] bf16,
+    causal, with a key mask: the output and dq, dk, dv bit-equal to four
+    separate calls; the folded call launches K1 once and K2, K3 once
+    each."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    K, shape = 4, (2, 512, 12, 64)
+    q, k, v = (torch.randn((K,) + shape, generator=g, device=dev
+                           ).bfloat16().requires_grad_() for _ in range(3))
+    mask = (torch.rand((K,) + shape[:2], generator=g, device=dev) > 0.1
+            ).float()
+    do = torch.randn((K,) + shape, generator=g, device=dev).bfloat16()
+    ops.reset_launch_counts()
+    out = torch.func.vmap(
+        lambda a, b, c, m: ops.flash_attention(a, b, c, True, m))(
+        q, k, v, mask)
+    out.backward(do)
+    torch.cuda.synchronize()
+    folded = {n: ops.launch_counts[n] for n in FLASH_KERNELS}
+    check(folded == {n: 1 for n in FLASH_KERNELS},
+          f"[hfta] vmapped flash launched {folded}, not once each")
+    equal = []
+    for r in range(K):
+        qr, kr, vr = (x[r].detach().clone().requires_grad_()
+                      for x in (q, k, v))
+        o = ops.flash_attention(qr, kr, vr, True, mask[r])
+        o.backward(do[r])
+        equal.append(all(torch.equal(a, b) for a, b in (
+            (o, out[r]), (qr.grad, q.grad[r]), (kr.grad, k.grad[r]),
+            (vr.grad, v.grad[r]))))
+    check(all(equal), f"[hfta] folded flash differs from the loop: {equal}")
+    log(f"  fold: vmap(flash_attention) at K={K} over {list(shape)} "
+        f"bit-equal to {K} calls (out, dq, dk, dv) with one launch each "
+        f"of K1-K3")
+
+
+def hfta_small(layers=2, **kw):
+    """gpt2-small's width at `layers` layers, bf16, flash, 4 x 512."""
+    from mpi_operator_tpu_torch.models.transformer import lm_config
+    from mpi_operator_tpu_torch.train import LMTrainerConfig
+    cfg = lm_config("gpt2-small", attention="flash", num_layers=layers,
+                    max_len=HFTA_SEQ)
+    return cfg, LMTrainerConfig(global_batch_size=4, seq_len=HFTA_SEQ,
+                                warmup_steps=2, **kw)
+
+
+def hfta_exact_checks(dev):
+    """At gpt2-small's width, 2 layers: the fused K = 1 step against the
+    solo LMTrainer after 3 steps (params, mu, nu bit-equal); K = 4 with
+    nan-replica:1@2 against an unpoisoned fused run (replica 1 frozen,
+    replicas 0, 2, 3 bit-equal), then the planted fault (the guard's
+    per-row select made one select of the whole state) failing it."""
+    from mpi_operator_tpu_torch.data import TokenStream
+    from mpi_operator_tpu_torch.train import LMTrainer
+    from mpi_operator_tpu_torch.train import hfta
+    from mpi_operator_tpu_torch.train.resilience import FaultInjector
+    cfg, tcfg = hfta_small()
+    solo = LMTrainer(cfg, tcfg, device=dev)
+    fused = hfta.HFTATrainer(cfg, tcfg, hfta.HFTAHyperparams.sweep(1, tcfg),
+                             device=dev)
+    s, f = solo.init_state(0), fused.init_state()
+    stream = TokenStream(4, HFTA_SEQ, cfg.vocab_size, seed=1, device=dev)
+    for _ in range(3):
+        t, y = next(stream)
+        s, _ = solo.train_step(s, t, y)
+        f, _ = fused.train_step(f, t[None], y[None])
+    k1 = {n: torch.equal(a, b) for n, (a, b) in (
+        ("params", (s.params, f.params[0])), ("mu", (s.opt.mu, f.opt.mu[0])),
+        ("nu", (s.opt.nu, f.opt.nu[0])))}
+    check(all(k1.values()), f"[hfta] fused K=1 vs LMTrainer after 3 steps: "
+          f"{k1}, max |diff| "
+          f"{float((s.params - f.params[0]).abs().max())}")
+    del solo, fused, s, f
+
+    tcfg = hfta_small(log_every=1)[1]
+    tr = hfta.HFTATrainer(cfg, tcfg, hfta.HFTAHyperparams.sweep(
+        4, tcfg, seeds=[0, 1, 2, 3]), freeze_after=2, device=dev)
+
+    def run(faults, select=None):
+        real = hfta.select_replicas
+        if select is not None:
+            hfta.select_replicas = select
+        try:
+            st, m = tr.benchmark(
+                tr.init_state(), hfta.FusedTokenStream(
+                    tr, 4, HFTA_SEQ, cfg.vocab_size), num_steps=5,
+                warmup_steps=1, log=lambda line: None,
+                faults=FaultInjector(faults))
+        finally:
+            hfta.select_replicas = real
+        return st, m
+
+    def whole(ok, pairs):
+        for old, new in pairs:
+            torch.where(ok.all(), new, old, out=old)
+
+    ctrl, _ = run("")
+    bad, m = run("nan-replica:1@2")
+    iso = [torch.equal(bad.params[k], ctrl.params[k]) for k in (0, 2, 3)]
+    check(m["per_replica"]["frozen"] == [False, True, False, False]
+          and all(iso), f"[hfta] isolation: frozen "
+          f"{m['per_replica']['frozen']}, siblings bit-equal {iso}")
+    fault, _ = run("nan-replica:1@2", whole)
+    held = [torch.equal(fault.params[k], ctrl.params[k]) for k in (0, 2, 3)]
+    check(not any(held), f"[hfta] the whole-state select fault kept the "
+          f"siblings bit-equal {held}")
+    log(f"  exact: fused K=1 bit-equal to LMTrainer after 3 steps "
+        f"(2 layers) {k1}; K=4 nan-replica:1@2 froze "
+        f"{m['per_replica']['frozen']}, siblings bit-equal {iso}; the "
+        f"whole-state select fault: siblings bit-equal {held} (must fail)")
+
+
+def hfta_phase(ops, dev):
+    """The fused trainer on the card: the folding, exactness and
+    isolation checks, then the reference bench's leg (HFTA_*): K = 8
+    gpt2-small replicas through HFTATrainer.benchmark with the kernel
+    counts zeroed just before and read just after (K1-K3 each once a
+    layer a step for all K replicas, not K times), against the solo
+    LMTrainer at one replica's size. Returns the leg's launches."""
+    from mpi_operator_tpu_torch.data import TokenStream
+    from mpi_operator_tpu_torch.models.transformer import lm_config
+    from mpi_operator_tpu_torch.train import LMTrainer, LMTrainerConfig
+    from mpi_operator_tpu_torch.train import hfta
+    hfta_fold_check(ops, dev)
+    hfta_exact_checks(dev)
+    cfg = lm_config("gpt2-small", attention="flash", max_len=HFTA_SEQ)
+    tcfg = LMTrainerConfig(global_batch_size=HFTA_BATCH, seq_len=HFTA_SEQ,
+                           log_every=HFTA_STEPS)
+    solo = LMTrainer(cfg, tcfg, device=dev)
+    _, sm = solo.benchmark(solo.init_state(0), TokenStream(
+        HFTA_BATCH, HFTA_SEQ, cfg.vocab_size, seed=1, device=dev),
+        num_steps=HFTA_STEPS, warmup_steps=HFTA_WARMUP, log=lambda l: None)
+    del solo
+    torch.cuda.empty_cache()
+    tr = hfta.HFTATrainer(cfg, tcfg, hfta.HFTAHyperparams.sweep(
+        HFTA_K, tcfg, learning_rates=[2.5e-4 * (1 + k / 4)
+                                      for k in range(HFTA_K)],
+        seeds=list(range(HFTA_K))), device=dev)
+    state = tr.init_state()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    state, m = tr.benchmark(state, hfta.FusedTokenStream(
+        tr, HFTA_BATCH, HFTA_SEQ, cfg.vocab_size), num_steps=HFTA_STEPS,
+        warmup_steps=HFTA_WARMUP, log=lambda line: log(f"  {line}"))
+    torch.cuda.synchronize()
+    counts = dict(ops.launch_counts)
+    steps, layers = state.step, cfg.num_layers
+    check(all(counts[n] == layers * steps for n in FLASH_KERNELS),
+          f"[hfta] K1-K3 launches {counts} over {steps} fused steps of "
+          f"{layers} layers; expected {layers * steps} each (K={HFTA_K} "
+          f"replicas folded into each launch)")
+    check(all(n == 0 for k, n in counts.items() if k not in FLASH_KERNELS),
+          f"[hfta] other kernels launched: {counts}")
+    check(all(math.isfinite(x) for x in m["final_loss"])
+          and m["frozen_replicas"] == 0,
+          f"[hfta] losses {m['final_loss']}, frozen {m['frozen_replicas']}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    speedup = m["tokens_per_sec"] / sm["tokens_per_sec"]
+    log(f"  leg: gpt2-small K={HFTA_K} x {HFTA_BATCH} x {HFTA_SEQ}, "
+        f"{HFTA_STEPS} timed steps: aggregate {m['tokens_per_sec']:.0f} "
+        f"tokens/s, solo {sm['tokens_per_sec']:.0f} tokens/s, "
+        f"fused_speedup {speedup:.3f}, per-replica MFU "
+        f"{m['per_replica']['mfu'][0]}, solo MFU {sm['mfu']}, peak "
+        f"{peak:.2f} GiB; K1-K3 {counts['flash_fwd']} launches each = "
+        f"{layers} a step x {steps} steps, not {layers * HFTA_K} a step; "
+        f"final losses {[round(x, 4) for x in m['final_loss']]} "
+        f"({device_line()})")
+    del state, tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {n: counts[n] for n in FLASH_KERNELS}
+
+
 def decode_types(args):
     """The compute and cache dtypes at the head of a mangled decode
     kernel's template arguments (bf16 is a named type, f32 `f`, int8
@@ -4542,6 +4832,14 @@ def main() -> int:
     log(f"[train-remat] {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
+    log(f"[hfta] HFTATrainer: gpt2-small, K={HFTA_K} replicas of "
+        f"{HFTA_BATCH} x {HFTA_SEQ}, bf16 over f32 masters, attention=flash, "
+        f"{HFTA_STEPS} timed steps, against the solo LMTrainer; the folded "
+        f"flash, K=1 and isolation checks at 2 layers")
+    hfta_counts = hfta_phase(ops, dev)
+    log(f"[hfta] {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
     log("[generate] run_generate_benchmark: gpt2-medium and llama-1b, "
         "batch 8, prompt 128, 16 new tokens, bf16 and int8 KV, "
         "decode_kernel=True")
@@ -4582,7 +4880,10 @@ def main() -> int:
 
     t0 = time.perf_counter()
     log("[train-lm-gang] one gang of 4 gloo ranks on the card runs the "
-        "legs of [train-lm-mp] and [train-lm-pp]")
+        "legs of [train-lm-mp] and [train-lm-pp], and restore_resharded: "
+        "gpt2-medium at (dp, fsdp, tp) = (1, 2, 2) restored at (1, 4, 1), "
+        "at fsdp 2 on 2 ranks and as one replica, then the wrong-offset "
+        "fault")
     lm_gang = lm_gang_phase()
     log(f"[train-lm-gang] {time.perf_counter() - t0:.1f} s")
 
@@ -4652,7 +4953,8 @@ def main() -> int:
                             for leg, counts in ring_counts.items()}),
              lm_pp={sched: [c[name] for c in ranks]
                     for sched, ranks in pp_counts.items()},
-             operator=dict(launches=operator["launches"][name]))
+             operator=dict(launches=operator["launches"][name]),
+             hfta=dict(k=HFTA_K, launches=hfta_counts[name]))
         for name, line in flash_lines.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -56,9 +56,15 @@ other's checkpoint at the same pp, tp and ep). It refuses what the
 reference refuses: `accum_steps` > 1, MoE under 1F1B, `tp_overlap`, and
 device counts that pp x tp x ep x sp x slices does not divide.
 
-The arguments of the parts not ported yet raise, naming the ROADMAP.md
-step that ports them; none is ignored: HFTA and a resharding restore
-(10e).
+`run_hfta_benchmark(k=8)` is the reference's fused sweep (`--hfta K`):
+K replicas of a gpt2 or llama config trained by one HFTATrainer step
+(train/hfta.py) over the data-parallel mesh, each on its own
+batch_per_device x ranks rows a step of a step-keyed stream keyed by
+(seed, step, replica), with per-replica learning rates (`--hfta-lrs`)
+and init seeds (`--hfta-seeds`); it reports the aggregate tokens/s.
+`TPU_RESHARD_RESTORE=1` resumes every entry point through the resharding
+restore (train/checkpoint.py restore_resharded): a checkpoint written
+over another split or world size.
 """
 from __future__ import annotations
 
@@ -353,6 +359,94 @@ def run_lm_benchmark(
     return state, metrics
 
 
+def run_hfta_benchmark(
+    workload: str = "gpt2",
+    size: Optional[str] = None,
+    batch_per_device: int = 8,
+    seq_len: int = 512,
+    num_steps: int = 50,
+    warmup_steps: int = 5,
+    dtype_name: str = "bfloat16",
+    k: int = 8,
+    learning_rates=None,
+    seeds=None,
+    num_layers: Optional[int] = None,
+    attention: str = "auto",
+    num_slices: int = 1,
+    train_dir: Optional[str] = None,
+    lr_schedule: str = "linear",
+    decay_steps: int = 10_000,
+    lr: Optional[float] = None,
+    lr_warmup_steps: Optional[int] = None,
+    metrics_port: Optional[int] = None,
+    event_log: Optional[str] = None,
+    events=None,
+    device: DeviceLike = None,
+    log: Callable[[str], None] = print,
+) -> Tuple[object, Dict[str, object]]:
+    """The horizontally fused sweep (the reference's run_hfta_benchmark):
+    K replicas of the gpt2 or llama config trained by ONE HFTATrainer
+    step (train/hfta.py) over the data-parallel mesh of the process
+    group's ranks. Each replica trains on its own batch_per_device x
+    ranks rows a step, so a fused step does K times the solo step's
+    token work and the aggregate tokens/s compares with K solo runs. The
+    stream is step-keyed by (seed 1, step, replica) (FusedTokenStream),
+    so a resumed fused run replays the same tokens. Resumes from and
+    writes its final checkpoint to `train_dir`. Runs on the CUDA card
+    unless `device="cpu"`. Returns (state, metrics)."""
+    from ..train.checkpoint import (maybe_resume, maybe_save,
+                                    wait_for_checkpoints)
+    from ..train.hfta import FusedTokenStream, HFTAHyperparams, HFTATrainer
+
+    if workload not in ("gpt2", "llama"):
+        raise ValueError(f"--hfta fuses causal-LM workloads only "
+                         f"(got {workload!r})")
+    if dtype_name not in _DTYPES:
+        raise ValueError(f"dtype_name={dtype_name!r}; expected one of "
+                         f"{sorted(_DTYPES)}")
+    dev = resolve_device(device)
+    mesh = data_parallel_mesh(num_slices)
+    name = f"{workload}-{size}" if size else workload
+    overrides = dict(dtype=_DTYPES[dtype_name], attention=attention,
+                     max_len=max(seq_len, 32))
+    if num_layers:
+        overrides["num_layers"] = num_layers
+    cfg = lm_config(name, **overrides)
+    global_batch = batch_per_device * mesh.size      # a replica's batch
+    opt_overrides = {}
+    if lr is not None:
+        opt_overrides["learning_rate"] = lr
+    if lr_warmup_steps is not None:
+        opt_overrides["warmup_steps"] = lr_warmup_steps
+    tcfg = LMTrainerConfig(global_batch_size=global_batch, seq_len=seq_len,
+                           lr_schedule=lr_schedule, decay_steps=decay_steps,
+                           **opt_overrides)
+    hp = HFTAHyperparams.sweep(k, tcfg, learning_rates=learning_rates,
+                               seeds=seeds)
+    trainer = HFTATrainer(cfg, tcfg, hp, device=dev, mesh=mesh)
+    log(f"hfta: fusing K={k} x {name} replicas, "
+        f"lrs={list(hp.learning_rates)} seeds={list(hp.seeds)}")
+    wtel, owns_events = _worker_telemetry(metrics_port, event_log,
+                                          train_dir, events, log)
+    try:
+        state = maybe_resume(train_dir, trainer.init_state(), log)
+        stream = FusedTokenStream(trainer, global_batch, seq_len,
+                                  cfg.vocab_size, seed=1, start=state.step)
+        state, metrics = trainer.benchmark(
+            state, stream, num_steps=num_steps, warmup_steps=warmup_steps,
+            log=log, registry=wtel.registry, events=wtel.events)
+        maybe_save(train_dir, state, log, block=False)
+        if wtel.events is not None:
+            from ..telemetry import events as tev
+            wtel.events.emit(tev.RUN_COMPLETE, step=state.step)
+    finally:
+        wtel.close(close_events=owns_events)
+    wait_for_checkpoints()
+    metrics["replica_learning_rates"] = list(hp.learning_rates)
+    metrics["replica_seeds"] = list(hp.seeds)
+    return state, metrics
+
+
 @torch.no_grad()
 def _moe_drop_rate(model, batch: int, seq_len: int, device,
                    mesh=None) -> float:
@@ -547,8 +641,9 @@ def run_vit_benchmark(
 
 
 def main(argv=None) -> int:
-    """The CLI, with the reference's flags; --hfta, not ported, raises,
-    naming the ROADMAP.md step that ports it. --pp, --tp, --sp and --ep
+    """The CLI, with the reference's flags. --hfta K runs
+    run_hfta_benchmark (--hfta-lrs, --hfta-seeds: K comma-separated
+    values each). --pp, --tp, --sp and --ep
     lay the gang's mesh (dp fills what they leave; --sp defaults
     --attention to ring), --pp-schedule and --pp-interleave pick the
     pipeline's schedule, --tp-overlap and --tp-ring the ring
@@ -612,8 +707,15 @@ def main(argv=None) -> int:
                              "shard in half and rotates the halves in "
                              "opposite directions (needs --tp-overlap)")
     parser.add_argument("--hfta", type=int, default=0,
-                        help="the reference's fused sweep (> 0 raises: "
-                             "train/hfta.py is ROADMAP.md step 10e)")
+                        help="fuse K sweep replicas into one vmapped train "
+                             "step (train/hfta.py): K x the token work a "
+                             "step, aggregate tokens/sec; causal LM only")
+    parser.add_argument("--hfta-lrs", default=None,
+                        help="comma-separated per-replica learning rates "
+                             "(K values; default: the config's lr)")
+    parser.add_argument("--hfta-seeds", default=None,
+                        help="comma-separated per-replica init seeds (K "
+                             "values; default: all 0)")
     parser.add_argument("--moe-experts", type=int, default=0,
                         help="replace every other FFN with an N-expert "
                              "top-2 MoE")
@@ -673,11 +775,6 @@ def main(argv=None) -> int:
                         help="'cpu' to run on the CPU (default: the card)")
     args = parser.parse_args(argv)
 
-    if args.hfta:
-        raise ValueError(f"--hfta={args.hfta}: the fused sweep trainer "
-                         f"(train/hfta.py) is not in the port yet "
-                         f"(ROADMAP.md step 10e)")
-
     from ..bootstrap import initialize
     from ..bootstrap.bootstrap import (ENV_COORDINATOR, ENV_EXPECTED_CHIPS,
                                        ENV_LAUNCHER, ENV_NUM_PROCESSES,
@@ -729,6 +826,29 @@ def main(argv=None) -> int:
             headline = {"metric": "vit_images_per_sec",
                         "value": round(metrics["images_per_sec"], 2),
                         "unit": "images/sec"}
+        elif args.hfta:
+            _state, metrics = run_hfta_benchmark(
+                workload=args.workload, size=args.size,
+                batch_per_device=args.batch_per_device or 8,
+                seq_len=args.seq_len, num_steps=args.num_steps,
+                warmup_steps=args.warmup_steps, dtype_name=args.dtype,
+                k=args.hfta,
+                learning_rates=[float(x) for x in args.hfta_lrs.split(",")]
+                if args.hfta_lrs else None,
+                seeds=[int(x) for x in args.hfta_seeds.split(",")]
+                if args.hfta_seeds else None,
+                num_layers=args.num_layers or None, attention=args.attention,
+                num_slices=num_slices, train_dir=args.train_dir,
+                lr_schedule=args.lr_schedule, decay_steps=args.decay_steps,
+                lr=args.lr, lr_warmup_steps=args.lr_warmup_steps,
+                metrics_port=args.metrics_port, events=events,
+                device=args.device, log=log)
+            headline = {"metric":
+                        f"{args.workload}_hfta{args.hfta}_tokens_per_sec",
+                        "value": round(metrics["tokens_per_sec"], 0),
+                        "unit": "tokens/sec (aggregate)",
+                        "final_loss": [round(float(x), 6)
+                                       for x in metrics["final_loss"]]}
         else:
             _state, metrics = run_lm_benchmark(
                 workload=args.workload, size=args.size,
@@ -759,7 +879,8 @@ def main(argv=None) -> int:
             headline = {"metric": f"{args.workload}_tokens_per_sec",
                         "value": round(metrics["tokens_per_sec"], 0),
                         "unit": "tokens/sec"}
-        headline["final_loss"] = round(float(metrics["final_loss"]), 6)
+        if not args.hfta:
+            headline["final_loss"] = round(float(metrics["final_loss"]), 6)
         if coordinator:
             print(json.dumps(headline))
         exit_code = 0
@@ -788,8 +909,8 @@ def main(argv=None) -> int:
             dist.destroy_process_group()
 
 
-__all__ = ["main", "run_generate_benchmark", "run_lm_benchmark",
-           "run_vit_benchmark"]
+__all__ = ["main", "run_generate_benchmark", "run_hfta_benchmark",
+           "run_lm_benchmark", "run_vit_benchmark"]
 
 
 if __name__ == "__main__":

@@ -54,7 +54,7 @@ The image models (train/trainer.py):
 from __future__ import annotations
 
 import functools
-from typing import Dict, Mapping
+from typing import Dict, List, Mapping
 
 import numpy as np
 import torch
@@ -93,6 +93,19 @@ def _take(node, i):
     if isinstance(node, Mapping):
         return {k: _take(v, i) for k, v in node.items()}
     return np.asarray(node)[i]
+
+
+def params_from_hfta(cfg: TransformerConfig, stacked: Mapping
+                     ) -> List[Dict[str, torch.Tensor]]:
+    """The reference HFTA trainer's stacked flax params (every leaf with
+    a leading [K] replica axis; nested dicts of numpy arrays) as the K
+    whole-model f32 state dicts the port's HFTATrainer starts from
+    (`HFTATrainer.init_state(state_dicts=...)`)."""
+    leaf = stacked
+    while isinstance(leaf, Mapping):
+        leaf = next(iter(leaf.values()))
+    return [params_from_flax(cfg, _take(stacked, i))
+            for i in range(np.asarray(leaf).shape[0])]
 
 
 def params_from_stacked(cfg: TransformerConfig, stacked: Mapping,
@@ -276,5 +289,5 @@ def resnet_params_from_flax(model, params: Mapping,
 
 
 __all__ = ["draw_params", "init_params", "init_vit", "params_from_flax",
-           "params_from_stacked", "resnet_params_from_flax",
+           "params_from_hfta", "params_from_stacked", "resnet_params_from_flax",
            "vit_params_from_flax"]

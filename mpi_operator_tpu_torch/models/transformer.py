@@ -920,12 +920,19 @@ class TiedHead(torch.autograd.Function):
     `_head_matmul` custom_vjp numerics: the forward is `head_logits` (f32
     out); the backward rounds the f32 cotangent to the table's dtype
     before both products, accumulates them in f32 and returns dh in h's
-    dtype and dtable in the table's."""
+    dtype and dtable in the table's. Its body is matmuls, so
+    `torch.func.vmap` (the HFTA trainer's replicas) batches it by its
+    generated rule."""
+
+    generate_vmap_rule = True
 
     @staticmethod
-    def forward(ctx, h, table):
-        ctx.save_for_backward(h, table)
+    def forward(h, table):
         return head_logits(h, table, table.dtype)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
 
     @staticmethod
     def backward(ctx, g):

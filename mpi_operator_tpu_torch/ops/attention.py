@@ -726,27 +726,61 @@ def flash_delta(out, do):
     return (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
 
 
+def _fold(x, dim, size):
+    """[.., K at `dim`, ..] (or unbatched, None) as [K * B, ...]: the
+    replica dim moved to the front, broadcast where absent, made
+    contiguous and folded into the batch dim."""
+    x = (x.unsqueeze(0).expand(size, *x.shape) if dim is None
+         else x.movedim(dim, 0))
+    return x.contiguous().reshape(size * x.shape[1], *x.shape[2:])
+
+
 class FlashAttention(torch.autograd.Function):
     """The `_flash_core` custom_vjp: forward through K1, backward
-    through K2 and K3 with delta = rowsum(dO * O). Saves q, k, v, out,
-    lse and the mask, nothing else."""
+    through K2 and K3 with delta = rowsum(dO * O). Returns (out, lse),
+    lse not differentiable; saves q, k, v, out, lse and the uint8 key
+    mask, nothing else.
+
+    Under `torch.func.vmap` (the HFTA trainer's replicas, train/hfta.py)
+    the `vmap` rule folds the replica dim into the batch dim, [K, B, S,
+    H, D] -> [K B, S, H, D] and the mask [K, B, S] -> [K B, S], and
+    applies the Function once: K1 launches once for the K replicas, K2
+    and K3 once each in the backward. The kernels compute every (b, h)
+    alone, so the folded call equals K separate calls bit for bit."""
 
     @staticmethod
-    def forward(ctx, q, k, v, mask, causal):
-        mask = _mask_u8(mask, q.device)          # converted once, saved
-        out, lse = flash_fwd(q, k, v, causal, mask)
+    def forward(q, k, v, mask, causal):
+        return flash_fwd(q, k, v, causal, _mask_u8(mask, q.device))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, mask, causal = inputs
+        out, lse = output
         ctx.causal = causal
-        ctx.save_for_backward(q, k, v, out, lse, mask)
-        return out
+        ctx.mark_non_differentiable(lse)
+        ctx.save_for_backward(q, k, v, out, lse, _mask_u8(mask, q.device))
 
     @staticmethod
-    def backward(ctx, do):
+    def backward(ctx, do, _dlse):
         q, k, v, out, lse, mask = ctx.saved_tensors
         do = do.contiguous()
         delta = flash_delta(out, do)
         dq = flash_dq(q, k, v, do, lse, delta, ctx.causal, mask)
         dk, dv = flash_dkv(q, k, v, do, lse, delta, ctx.causal, mask)
         return dq, dk, dv, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, mask, causal):
+        K = info.batch_size
+        qd, kd, vd, md, _ = in_dims
+        q = _fold(q, qd, K)
+        if mask is not None:
+            mask = _fold(mask, md, K)
+        out, lse = FlashAttention.apply(q, _fold(k, kd, K), _fold(v, vd, K),
+                                        mask, causal)
+        B = q.shape[0] // K
+        return ((out.reshape(K, B, *out.shape[1:]),
+                 lse.reshape(K, B, *lse.shape[1:])), (0, 0))
 
 
 def flash_attention(q, k, v, causal: bool = True, mask=None):
@@ -755,9 +789,11 @@ def flash_attention(q, k, v, causal: bool = True, mask=None):
     attend). Any S >= 1: the kernels mask the ragged tail themselves,
     with no dense fallback. A row whose keys are all masked gets the
     mean of v (the reference's online softmax) and no gradient (the
-    backward re-masks p). Returns [B, S, H, D] in q's dtype."""
+    backward re-masks p). Returns [B, S, H, D] in q's dtype. Under
+    `torch.func.vmap` the replicas fold into one launch
+    (`FlashAttention.vmap`)."""
     _check_flash_shapes(q, k, v, mask)
-    return FlashAttention.apply(q, k, v, mask, causal)
+    return FlashAttention.apply(q, k, v, mask, causal)[0]
 
 
 __all__ = ["DECODE_CTAS_PER_SM", "DECODE_MIN_SPLIT_TILES",

@@ -45,7 +45,8 @@ into a temporary sibling whose name every rank agrees on (a token rank
 them; shard 0's writer commits the directory once every shard's marker
 is there. Every rank restores its own shard, then the state refreshes
 what it derives from it (`after_restore`: fsdp's gathered working
-copy). A checkpoint of another layout raises `ReshardRequired`.
+copy). `restore_checkpoint` of another layout raises `ReshardRequired`;
+`restore_resharded` restores it.
 
 A pipeline state (train/pp_trainer.py) is saved the same way, one shard
 a rank of pp x ep x tp, but its payload is keyed by the canonical
@@ -55,18 +56,27 @@ records pp, tp, ep and the parameters, not the schedule. A restore reads
 each key it holds from whichever shard wrote it (`restore_payload()`),
 so a GPipe checkpoint resumes under 1F1B with any interleave, and back.
 
-Not here (ROADMAP step 10e): `restore_resharded`, `ReadStats` and the
-`TPU_RESHARD_RESTORE` knob, which raise when asked for.
+`restore_resharded` (the reference's resharding reader) restores any
+of these checkpoints into any other split: a replica, fsdp x ep x tp,
+another world size, another pp size, a pipeline state into a flat one
+and back. It rebuilds the saved layout from `layout.json` alone, reads
+each saved tensor a rank needs whole (a thread pool overlaps them),
+copies its values into host staging buffers shaped like the live state
+and drops it (`ReadStats`: bytes read, the peak in flight); then the
+staging goes into the state. `maybe_resume(reshard=True)` or
+`TPU_RESHARD_RESTORE=1` routes the resume through it.
 """
 from __future__ import annotations
 
 import json
+import math
 import os
 import shutil
 import threading
 import time
 import warnings
 from concurrent.futures import Future, ThreadPoolExecutor
+from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
@@ -78,8 +88,11 @@ from ..telemetry import span
 
 #: FileSystemWriter threads (DCP's default is 1): one file each
 WRITER_THREADS = 4
-#: the reference's env knob for a resharding restore (not ported yet)
+#: "1"/"true" routes maybe_resume through restore_resharded (with a
+#: per-candidate fallback to the plain restore)
 ENV_RESHARD_RESTORE = "TPU_RESHARD_RESTORE"
+#: restore_resharded's read threads (0/unset: up to 16)
+ENV_RESTORE_THREADS = "TPU_RESTORE_THREADS"
 _METADATA = ".metadata"
 _LAYOUT = "layout.json"
 #: seconds shard 0's writer waits for the other shards before it gives up
@@ -88,7 +101,8 @@ SHARD_WAIT = 600.0
 
 class ReshardRequired(ValueError):
     """A checkpoint written over another split of the state: restoring it
-    needs a resharding restore (ROADMAP.md step 10e)."""
+    needs `restore_resharded` (or TPU_RESHARD_RESTORE=1 under
+    maybe_resume)."""
 
 # Per-directory last step THIS process saved. Every rank executes the
 # same periodic hooks in the same order, so the value is identical across
@@ -441,7 +455,8 @@ def _saved_layout(path: str, state) -> Optional[dict]:
         raise ReshardRequired(
             f"{path} holds one replica of the whole state; this state is "
             f"split over {shard[1]} shards ({state.layout_key['mesh']}): "
-            f"restoring it needs restore_resharded, ROADMAP.md step 10e")
+            f"restore it with restore_resharded (or "
+            f"{ENV_RESHARD_RESTORE}=1)")
     with open(layout_file) as f:
         saved = json.load(f)
     want = dict(getattr(state, "layout_key", None) or {},
@@ -450,8 +465,8 @@ def _saved_layout(path: str, state) -> Optional[dict]:
         raise ReshardRequired(
             f"{path} was written over {saved.get('mesh')} in "
             f"{saved.get('shards')} shards; this state is "
-            f"{want.get('mesh')} in {want['shards']}: restoring it needs "
-            f"restore_resharded, ROADMAP.md step 10e")
+            f"{want.get('mesh')} in {want['shards']}: restore it with "
+            f"restore_resharded (or {ENV_RESHARD_RESTORE}=1)")
     return saved
 
 
@@ -491,6 +506,492 @@ def _restore_named(path: str, state):
     return state
 
 
+# ---------------------------------------------------------------------------
+# the resharding restore
+# ---------------------------------------------------------------------------
+
+@dataclass
+class ReadStats:
+    """What one restore_resharded call read. `peak_in_flight_bytes` is
+    the memory contract a test pins: the most bytes of saved tensors held
+    on this host at once (read and not yet scattered into the state),
+    which stays at one saved tensor's bytes with max_workers=1, well under
+    `total_bytes` (every tensor the checkpoint holds)."""
+    leaves: int = 0
+    reads: int = 0
+    bytes_read: int = 0
+    total_bytes: int = 0
+    in_flight_bytes: int = 0
+    peak_in_flight_bytes: int = 0
+    seconds: float = 0.0
+    _lock: threading.Lock = field(default_factory=threading.Lock,
+                                  repr=False)
+
+    def begin_read(self, nbytes: int) -> None:
+        with self._lock:
+            self.reads += 1
+            self.bytes_read += nbytes
+            self.in_flight_bytes += nbytes
+            self.peak_in_flight_bytes = max(self.peak_in_flight_bytes,
+                                            self.in_flight_bytes)
+
+    def end_read(self, nbytes: int) -> None:
+        with self._lock:
+            self.in_flight_bytes -= nbytes
+
+
+#: the saved and live keys of the three flat buffers, by kind
+_FLAT_KEYS = {"params": "params", "mu": "opt.mu", "nu": "opt.nu"}
+
+
+def _grid(sizes: Dict[str, int]):
+    """A mesh of these axis sizes without a process group (the mesh a
+    checkpoint was written over may no longer exist): its `shape` for
+    `param_shardings`, and `coords(k)` of shard k (a shard index is
+    row-major over the axes in mesh order, as a mesh rank is)."""
+    from ..parallel.mesh import Mesh, MeshConfig
+    cfg = MeshConfig(**sizes)
+    return Mesh(cfg, range(cfg.num_devices))
+
+
+def _block(placement, coords, sizes, shape) -> Tuple[tuple, tuple]:
+    """(start, size) of the block of the global tensor a rank at
+    `coords` holds (`sharding.local_block`'s narrowing, as a box)."""
+    from ..parallel.sharding import COMPUTE_AXES
+    start, size = [0] * len(shape), list(shape)
+    for axis in COMPUTE_AXES:
+        d = None if placement is None else placement.split(axis)
+        n = int(sizes.get(axis, 1))
+        if d is not None and n > 1:
+            size[d] //= n
+            start[d] += coords[axis] * size[d]
+    return tuple(start), tuple(size)
+
+
+def _boxes(size: tuple, a: int, b: int):
+    """[a, b) of a row-major array of shape `size` as contiguous boxes:
+    [(flat start, box start, box size)], at most 2 ndim - 1 of them."""
+    if a >= b:
+        return []
+    if not size:
+        return [(0, (), ())]
+    inner = math.prod(size[1:])
+    r0, c0 = divmod(a, inner)
+    r1, c1 = divmod(b, inner)
+    if r0 == r1:
+        return [(r0 * inner + f, (r0,) + st, (1,) + sz)
+                for f, st, sz in _boxes(size[1:], c0, c1)]
+    out = []
+    if c0:
+        out += [(r0 * inner + f, (r0,) + st, (1,) + sz)
+                for f, st, sz in _boxes(size[1:], c0, inner)]
+        r0 += 1
+    if r1 > r0:
+        out.append((r0 * inner, (r0,) + (0,) * (len(size) - 1),
+                    (r1 - r0,) + tuple(size[1:])))
+    if c1:
+        out += [(r1 * inner + f, (r1,) + st, (1,) + sz)
+                for f, st, sz in _boxes(size[1:], 0, c1)]
+    return out
+
+
+@dataclass
+class _Piece:
+    """Part of one parameter's values in a flat buffer: the box of the
+    global tensor it belongs to (start, size), the range [a, b) of that
+    box's row-major elements it holds, and where element a sits in the
+    buffer (`offset`). A saved piece names its tensor (directory, key);
+    a live one its host staging buffer."""
+    name: str
+    which: str
+    start: tuple
+    size: tuple
+    a: int
+    b: int
+    offset: int
+    where: Any = None
+
+
+def _flat_pieces(cfg, sizes, coords, which, live=False):
+    """(the pieces, the slice length) of an LM flat buffer
+    (train/lm_trainer.py) over a mesh of `sizes` (fsdp, ep, tp) at
+    `coords`: the buffer laid out by class of parameter, zero-padded to
+    split over fsdp, this rank's fsdp slice of it. Of a saved shard (not
+    `live`) a parameter replicated over tp or ep is taken only from the
+    shard at coordinate 0 there."""
+    from ..parallel.sharding import COMPUTE_AXES, param_shardings
+    from .lm_trainer import flat_layout, split_class
+    mesh = _grid(sizes)
+    placements = param_shardings(mesh, cfg)
+    order, _ = flat_layout((n, split_class(p, mesh), p.local_shape)
+                           for n, p in placements.items())
+    n = sum(math.prod(s) for _, s in order)
+    F = mesh.shape["fsdp"]
+    per = (n + (-n) % F) // F
+    lo, hi = coords["fsdp"] * per, (coords["fsdp"] + 1) * per
+    out, off = [], 0
+    for name, local in order:
+        p = placements[name]
+        size = math.prod(local)
+        a, b = max(off, lo) - off, min(off + size, hi) - off
+        keep = live or all(
+            coords[ax] == 0 for ax in COMPUTE_AXES
+            if p.split(ax) is None or mesh.shape[ax] == 1)
+        if a < b and keep:
+            start, box = _block(p, coords, mesh.shape, p.shape)
+            out.append(_Piece(name, which, start, box, a, b,
+                              off + a - lo))
+        off += size
+    return out, per
+
+
+def _saved_pieces(path: str, cfg, stats: ReadStats):
+    """Every piece of the checkpoint at `path` that a restore may read
+    (a replica's, a state split over fsdp x ep x tp, or a pipeline
+    state's keyed by canonical names), each naming its (directory, key);
+    the layout is rebuilt from `layout.json` alone. Fills
+    stats.total_bytes."""
+    from ..models.transformer import param_shapes
+    from ..parallel.pipeline import block_of
+    from ..parallel.sharding import COMPUTE_AXES, param_shardings
+    shapes = param_shapes(cfg)
+    layout_file = os.path.join(path, _LAYOUT)
+    if not os.path.exists(layout_file):
+        sources, sizes = [(path, {})], {"fsdp": 1, "ep": 1, "tp": 1}
+    else:
+        with open(layout_file) as f:
+            saved = json.load(f)
+        got = {n: tuple(s) for n, s in saved.get("params", [])}
+        if got != {n: tuple(s) for n, s in shapes.items()}:
+            raise ValueError(f"{path} holds another model's parameters "
+                             f"than this state's ({len(got)} vs "
+                             f"{len(shapes)} tensors, or their shapes)")
+        sizes = dict(saved["mesh"])
+        grid = _grid(sizes)
+        sources = [(os.path.join(path, f"shard_{k}"), grid.coords(k))
+                   for k in range(int(saved["shards"]))]
+    pieces = []
+    metas = []
+    for src, coords in sources:
+        meta = dcp.FileSystemReader(src).read_metadata().state_dict_metadata
+        metas.append((src, meta))
+        for key, m in meta.items():
+            if key not in ("step", "opt.count"):
+                stats.total_bytes += (math.prod(m.size)
+                                      * m.properties.dtype.itemsize)
+        if "pp" not in sizes:
+            for which, key in _FLAT_KEYS.items():
+                if key not in meta:
+                    raise ValueError(f"{src} lacks {key!r}")
+                got, per = _flat_pieces(cfg, sizes, coords or _grid(
+                    sizes).coords(0), which)
+                if math.prod(meta[key].size) != per:
+                    raise ValueError(
+                        f"{src}: {key!r} holds {math.prod(meta[key].size)} "
+                        f"values; this model over {sizes} needs {per}")
+                for piece in got:
+                    piece.where = (src, key)
+                pieces += got
+            continue
+        mesh = _grid(sizes)
+        placements = param_shardings(mesh, cfg)
+        for key in meta:
+            which, _, rest = key.partition("/")
+            if which not in _FLAT_KEYS or not rest:
+                continue
+            name, _, tag = rest.partition("@")
+            p = placements[name] if block_of(name) is not None else None
+            c = {"tp": 0, "ep": 0}
+            if tag:
+                t, e = tag.split(".")
+                c = {"tp": int(t[2:]), "ep": int(e[2:])}
+            if any(c[ax] for ax in COMPUTE_AXES
+                   if p is None or p.split(ax) is None
+                   or mesh.shape[ax] == 1):
+                continue                       # a replica of another copy
+            start, box = _block(p, c, mesh.shape, shapes[name])
+            if tuple(meta[key].size) != box:
+                raise ValueError(f"{src}: {key!r} is {tuple(meta[key].size)}"
+                                 f", the layout gives {box}")
+            pieces.append(_Piece(name, which, start, box, 0,
+                                 math.prod(box), 0, (src, key)))
+    return pieces, metas
+
+
+def _rule_block(rules, which, name, mesh, coords, shape):
+    """The (start, size) a restore rule gives one parameter's landing
+    block at `coords` of `mesh`, or None when no rule matches: rules are
+    ((pattern, ...), spec) pairs windowed over the path (which,
+    *name.split(".")), the first hit wins, a None spec replicates, a dim
+    its axes do not divide replicates (`parallel/sharding.py
+    sharding_for_path`); a dim over several axes is split major to minor
+    in the spec's order."""
+    from ..parallel.sharding import sharding_for_path
+    if not rules:
+        return None
+    spec = sharding_for_path(mesh, (which,) + tuple(name.split(".")), rules,
+                             shape)
+    if spec is None:
+        return None
+    start, size = [0] * len(shape), list(shape)
+    for d, entry in enumerate(spec):
+        axes = () if entry is None else (
+            entry if isinstance(entry, tuple) else (entry,))
+        idx = 0
+        for a in axes:
+            idx = idx * mesh.shape[a] + coords[a]
+        if axes:
+            size[d] //= math.prod(mesh.shape[a] for a in axes)
+            start[d] = idx * size[d]
+    return tuple(start), tuple(size)
+
+
+def _live_pieces(state, cfg, rules, mesh):
+    """(pieces of what this rank holds, each naming its host staging
+    buffer; {live key: (live tensor, staging)}) for
+    the LM trainer's state (its masters and moments: its fsdp slice of
+    its tp and ep blocks), a pipeline state (`restore_payload()`) or a
+    dict {"params/<name>" | "mu/<name>" | "nu/<name>": tensor} (`mesh`
+    places its blocks under `rules`; unmatched keys land whole)."""
+    from ..models.transformer import param_shapes
+    from ..parallel.pipeline import block_of
+    from ..parallel.sharding import param_shardings
+    shapes = param_shapes(cfg)
+    if isinstance(state, dict):
+        mesh = mesh if mesh is not None else _grid({})
+        coords = mesh.coords()
+        pieces, staging = [], {}
+        for key, t in state.items():
+            which, _, name = key.partition("/")
+            if which not in _FLAT_KEYS or name not in shapes:
+                raise ValueError(f"{key!r}: a dict target is keyed "
+                                 f"params/, mu/ or nu/<parameter name>")
+            host = torch.zeros(t.shape, dtype=torch.float32)
+            staging[key] = (t, host)
+            start, size = _rule_block(rules, which, name, mesh, coords,
+                                      shapes[name]) or (
+                (0,) * len(shapes[name]), shapes[name])
+            if size != tuple(t.shape):
+                raise ValueError(f"{key!r} is {tuple(t.shape)}; its block "
+                                 f"is {size}")
+            pieces.append(_Piece(name, which, start, size, 0,
+                                 math.prod(size), 0, host))
+        return pieces, staging
+    sizes = dict(state.layout_key["mesh"])
+    grid = _grid(sizes)
+    shard = getattr(state, "shard", None)
+    coords = grid.coords(shard[0] if shard else 0)
+    pieces, staging = [], {}
+    if hasattr(state, "restore_payload"):
+        placements = param_shardings(grid, cfg)
+        for key, t in state.restore_payload().items():
+            which, _, rest = key.partition("/")
+            if which not in _FLAT_KEYS:
+                staging[key] = (t, None)
+                continue
+            name = rest.partition("@")[0]
+            p = placements[name] if block_of(name) is not None else None
+            start, size = _block(p, coords, sizes, shapes[name])
+            host = torch.zeros(t.shape, dtype=t.dtype)
+            staging[key] = (t, host)
+            pieces.append(_Piece(name, which, start, size, 0,
+                                 math.prod(size), 0, host))
+    else:
+        live = state.checkpoint_payload()
+        for which, key in _FLAT_KEYS.items():
+            host = torch.zeros(live[key].shape, dtype=live[key].dtype)
+            staging[key] = (live[key], host)
+            got, per = _flat_pieces(cfg, sizes, coords, which, live=True)
+            if per != live[key].numel():
+                raise ValueError(f"{key}: {live[key].numel()} values, the "
+                                 f"layout gives {per}")
+            for piece in got:
+                piece.where = host
+            pieces += got
+        staging["opt.count"] = (live["opt.count"], None)
+    for piece in pieces:
+        got = _rule_block(rules, piece.which, piece.name, grid, coords,
+                          shapes[piece.name])
+        if got is not None and got[1] != piece.size:
+            raise ValueError(
+                f"restore rule for {piece.which}/{piece.name} lands a "
+                f"{got[1]} block; this state holds {piece.size}")
+        if got is not None:
+            piece.start = got[0]
+    return pieces, staging
+
+
+def _scatter(src: torch.Tensor, sp: _Piece, dst: _Piece) -> int:
+    """Copy what saved piece `sp` (its tensor `src`) holds of live piece
+    `dst` into dst's staging buffer; returns the values copied."""
+    moved = 0
+    for fs, ss, zs in _boxes(sp.size, sp.a, sp.b):
+        gs = [a + b for a, b in zip(sp.start, ss)]
+        for fd, sd, zd in _boxes(dst.size, dst.a, dst.b):
+            gd = [a + b for a, b in zip(dst.start, sd)]
+            lo = [max(x, y) for x, y in zip(gs, gd)]
+            hi = [min(x + m, y + n) for x, m, y, n in zip(gs, zs, gd, zd)]
+            if any(x >= y for x, y in zip(lo, hi)):
+                continue
+            o = sp.offset + fs - sp.a
+            a = src.reshape(-1)[o:o + math.prod(zs)].view(zs)
+            o = dst.offset + fd - dst.a
+            b = dst.where.reshape(-1)[o:o + math.prod(zd)].view(zd)
+            a = a[tuple(slice(x - g, y - g) for x, y, g in zip(lo, hi, gs))]
+            b[tuple(slice(x - g, y - g) for x, y, g in zip(lo, hi, gd))
+              ].copy_(a)
+            moved += a.numel()
+    return moved
+
+
+def _restore_threads(n: int) -> int:
+    raw = os.environ.get(ENV_RESTORE_THREADS, "")
+    if raw.isdigit() and int(raw) > 0:
+        return int(raw)
+    return max(1, min(16, n, os.cpu_count() or 4))
+
+
+def restore_resharded(directory_or_path: str, state, rules=None,
+                      max_workers: Optional[int] = None,
+                      log: Callable[[str], None] = print,
+                      stats: Optional[ReadStats] = None, mesh=None,
+                      model_config=None):
+    """Restore a checkpoint into `state` whatever split wrote it
+    (reshard-on-read): a replica's checkpoint, one split over fsdp x ep
+    x tp or a pipeline state's, into the LM trainer's state over any
+    fsdp, ep and tp, a pipeline state over any pp, tp and ep, any world
+    size. The saved layout is rebuilt from `layout.json` alone (its mesh
+    sizes and the parameters), so the mesh that wrote it need not exist.
+
+    Each saved tensor (a shard's buffer, or one canonical key) that holds
+    something this rank needs is read whole, its values copied into host
+    staging buffers shaped like the state's, and dropped; a thread pool
+    (`max_workers`, default TPU_RESTORE_THREADS or up to 16) overlaps the
+    reads. Once every value is in, the staging is copied into the live
+    state (a torn candidate raises before the state is touched) and the
+    state refreshes what it derives (fsdp's gathered working copy).
+
+    `rules` (the reference's regex restore rules) override where a
+    parameter lands: ((pattern, ...), spec) pairs over the path (kind,
+    *name components), kind "params", "mu" or "nu"; the first hit wins;
+    a None spec replicates. A state holds each parameter in its own
+    block, so a rule must give that block's shape; a dict target
+    {"params/<name>": tensor, ...} of the model `model_config` takes
+    any, its blocks placed on `mesh` (unmatched keys land whole).
+    `stats` (a ReadStats) records the bytes read and the peak in flight.
+    Raises ValueError on another model's checkpoint or a shape that does
+    not fit, TypeError on a state it does not restore (the HFTA and
+    image trainers': under maybe_resume those take the plain restore).
+    Returns `state`."""
+    wait_for_checkpoints()
+    path = os.fspath(directory_or_path)
+    if not os.path.basename(path).startswith("step_"):
+        latest = latest_checkpoint(path)
+        if latest is None:
+            raise FileNotFoundError(f"no checkpoints under {path!r}")
+        path = latest
+    path = os.path.abspath(path)
+    _quiet_single_process()
+    stats = stats if stats is not None else ReadStats()
+    t0 = time.monotonic()
+    if isinstance(state, dict):
+        if model_config is None:
+            raise ValueError("a dict target needs model_config=")
+        cfg = model_config
+    else:
+        layout = getattr(state, "layout_key", None) or {}
+        if "pp" not in layout.get("mesh", {}) and not hasattr(state,
+                                                             "masters"):
+            raise TypeError(f"restore_resharded restores the LM trainers' "
+                             f"states and dicts of parameters, not a "
+                             f"{type(state).__name__}")
+        cfg = state.model.config
+    live, staging = _live_pieces(state, cfg, rules, mesh)
+    saved, metas = _saved_pieces(path, cfg, stats)
+    stats.leaves = len(staging) + 1
+    by_name: Dict[Tuple[str, str], List[_Piece]] = {}
+    for piece in live:
+        by_name.setdefault((piece.which, piece.name), []).append(piece)
+    jobs: Dict[Tuple[str, str], List[_Piece]] = {}
+    for piece in saved:
+        if (piece.which, piece.name) in by_name:
+            jobs.setdefault(piece.where, []).append(piece)
+    need = sum(p.b - p.a for p in live)
+    moved = [0]
+    lock = threading.Lock()
+
+    def read(where, pieces):
+        src, key = where
+        meta = dict(metas)[src][key]
+        t = torch.empty(tuple(meta.size), dtype=meta.properties.dtype)
+        nbytes = t.numel() * t.element_size()
+        stats.begin_read(nbytes)
+        try:
+            dcp.load({key: t}, storage_reader=dcp.FileSystemReader(src),
+                     no_dist=True)
+            n = 0
+            for sp in pieces:
+                for dst in by_name[(sp.which, sp.name)]:
+                    n += _scatter(t, sp, dst)
+            with lock:
+                moved[0] += n
+        finally:
+            del t
+            stats.end_read(nbytes)
+
+    with ThreadPoolExecutor(max_workers=max_workers or _restore_threads(
+            len(jobs)), thread_name_prefix="reshard-restore") as pool:
+        for f in [pool.submit(read, where, pieces)
+                  for where, pieces in jobs.items()]:
+            f.result()
+    if moved[0] != need:
+        raise ValueError(f"{path} gave {moved[0]} of the {need} values this "
+                         f"rank holds")
+    first = metas[0][0]
+    step = torch.zeros((), dtype=torch.int64)
+    count = torch.zeros((), dtype=torch.int32)
+    scalars = {"step": step}
+    if "opt.count" in metas[0][1]:
+        scalars["opt.count"] = count
+    dcp.load(scalars, storage_reader=dcp.FileSystemReader(first),
+             no_dist=True)
+    with torch.no_grad():
+        for key, (t, host) in staging.items():
+            if host is not None:
+                t.copy_(host)
+            elif key == "opt.count":
+                t.fill_(int(count))
+    if not isinstance(state, dict):
+        state.step = int(step)
+        if hasattr(state, "after_restore"):
+            state.after_restore()
+    stats.seconds = time.monotonic() - t0
+    _LAST_RESTORE_INFO.update(
+        path=path, seconds=round(stats.seconds, 3), leaves=stats.leaves,
+        resharded=True, step=int(step), bytes_read=stats.bytes_read,
+        peak_in_flight_bytes=stats.peak_in_flight_bytes)
+    return state
+
+
+def _resharded_with_fallback(log: Callable[[str], None]):
+    """The per-candidate restore of restore_with_fallback under
+    TPU_RESHARD_RESTORE (the reference's `_resharded_with_orbax_fallback`):
+    the resharding reader first; a genuine mismatch or a missing file
+    (ValueError, FileNotFoundError) moves on to the previous step_N, any
+    other failure of the reader retries the SAME candidate through the
+    plain restore first."""
+    def _restore(path: str, state):
+        try:
+            return restore_resharded(path, state, log=log)
+        except (ValueError, FileNotFoundError):
+            raise
+        except Exception as exc:  # noqa: BLE001 - the reader's surprises
+            log(f"WARNING: resharded restore of {path} failed ({exc!r}); "
+                f"retrying through the plain restore")
+            return restore_checkpoint(path, state)
+    return _restore
+
+
 def restore_with_fallback(train_dir, state, log=print, restore=None
                           ) -> Tuple[Any, Optional[str]]:
     """Newest-first restore with per-candidate fallback: a candidate that
@@ -510,6 +1011,7 @@ def restore_with_fallback(train_dir, state, log=print, restore=None
                 f"previous step")
             continue
         try:
+            _LAST_RESTORE_INFO.clear()
             t0 = time.monotonic()
             restored = restore_fn(path, state)
             seconds = time.monotonic() - t0
@@ -517,10 +1019,14 @@ def restore_with_fallback(train_dir, state, log=print, restore=None
             leaves = 1 + len(payload)                    # + step
             log(f"INFO: restored {path} in {seconds:.2f}s "
                 f"({leaves} leaves)")
+            read = {k: _LAST_RESTORE_INFO[k] for k in
+                    ("bytes_read", "peak_in_flight_bytes")
+                    if k in _LAST_RESTORE_INFO}
+            resharded = bool(_LAST_RESTORE_INFO.get("resharded"))
             _LAST_RESTORE_INFO.clear()
             _LAST_RESTORE_INFO.update(
                 path=path, seconds=round(seconds, 3), leaves=leaves,
-                resharded=False, bytes=_nbytes(payload))
+                resharded=resharded, bytes=_nbytes(payload), **read)
             return restored, path
         except ReshardRequired:
             raise
@@ -534,7 +1040,8 @@ def restore_with_fallback(train_dir, state, log=print, restore=None
 
 def last_restore_info() -> Dict[str, Any]:
     """{"path", "seconds", "leaves", "resharded", "bytes"} of the most
-    recent successful restore in this process (empty dict when none)."""
+    recent successful restore in this process (empty dict when none);
+    a resharded one adds "bytes_read" and "peak_in_flight_bytes"."""
     return dict(_LAST_RESTORE_INFO)
 
 
@@ -542,18 +1049,20 @@ def maybe_resume(train_dir, state, log=print, reshard: Optional[bool] = None):
     """Restore the newest INTACT checkpoint under train_dir into `state`
     (no-op when train_dir is falsy or empty); a corrupted newest step_N
     falls back to the previous one with a logged warning. The single
-    resume path the benchmark entry point uses. A resharding restore
-    (`reshard=True`, or TPU_RESHARD_RESTORE=1) is not ported: it raises."""
+    resume path the benchmark entry point uses. `reshard` (default: the
+    TPU_RESHARD_RESTORE env knob, "1"/"true") routes each candidate
+    through restore_resharded, falling back to the plain restore of the
+    same candidate when the reader itself fails: what a gang resized
+    4 -> 2 needs when its checkpoint was split over a mesh that is
+    gone."""
     if reshard is None:
         reshard = os.environ.get(ENV_RESHARD_RESTORE, "").lower() \
             in ("1", "true", "yes")
-    if reshard:
-        raise ValueError(
-            f"reshard restore ({ENV_RESHARD_RESTORE}): not in the port yet "
-            f"(restore_resharded is ROADMAP.md Queue 1, step 10e)")
     if not train_dir:
         return state
-    state, path = restore_with_fallback(train_dir, state, log)
+    state, path = restore_with_fallback(
+        train_dir, state, log,
+        restore=_resharded_with_fallback(log) if reshard else None)
     if path is not None:
         log(f"resumed from {path} (step {int(state.step)})")
     return state
@@ -644,8 +1153,9 @@ def periodic_saver(train_dir, every: int, log=print, keep_last: int = 0,
     return hook
 
 
-__all__ = ["ENV_RESHARD_RESTORE", "ReshardRequired", "SHARD_WAIT",
-           "WRITER_THREADS", "checkpoint_steps",
+__all__ = ["ENV_RESHARD_RESTORE", "ENV_RESTORE_THREADS", "ReadStats",
+           "ReshardRequired", "SHARD_WAIT", "WRITER_THREADS",
+           "checkpoint_steps", "restore_resharded",
            "gc_checkpoints", "last_restore_info", "last_save_info",
            "latest_checkpoint", "maybe_resume", "maybe_save",
            "periodic_saver", "reset_saved_state", "restore_checkpoint",

@@ -218,12 +218,15 @@ class AdamWState:
 
 
 def adamw_update(p: torch.Tensor, g: torch.Tensor, g_norm: torch.Tensor,
-                 opt: AdamWState, lr: torch.Tensor, cfg: LMTrainerConfig
+                 opt: AdamWState, lr: torch.Tensor, cfg: LMTrainerConfig,
+                 wd: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """`make_adamw`'s update of flat f32 parameters `p` from gradients
     `g` whose global norm is `g_norm`, at learning rate `lr` (the
     schedule at opt.count). Returns new (params, mu, nu); the caller
-    stores them and advances the count. The operations follow optax's:
+    stores them and advances the count. Stacked [K, N] rows take g_norm,
+    lr, opt.count and `wd` (in place of cfg.weight_decay) as [K, 1]
+    columns. The operations follow optax's:
 
       g   = g if |g| < clip else g / |g| * clip
       mu  = (1 - b1) g + b1 mu;   nu = (1 - b2) g^2 + b2 nu
@@ -243,7 +246,10 @@ def adamw_update(p: torch.Tensor, g: torch.Tensor, g_norm: torch.Tensor,
     den = (nu / bc2).sqrt_().add_(ADAM_EPS)
     u = (mu / bc1).div_(den)
     del den
-    u.add_(p, alpha=cfg.weight_decay)
+    if wd is None:
+        u.add_(p, alpha=cfg.weight_decay)
+    else:
+        u.add_(p * wd)
     u.mul_(-lr)
     return u.add_(p), mu, nu
 

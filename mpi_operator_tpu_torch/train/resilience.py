@@ -325,7 +325,7 @@ class FaultInjector:
       delay-coordinator:K       first K distributed-init attempts fail
                                 (the bootstrap's, bootstrap/bootstrap.py)
       nan-replica:K@N           poison fused-trainer replica K at step N
-                                (parsed for HFTA, ROADMAP step 10e)
+                                (HFTATrainer.benchmark, train/hfta.py)
 
     Unknown directives raise at parse time — a typo'd fault spec that
     silently injects nothing would green a test that proved nothing."""

@@ -144,9 +144,9 @@ def test_bert_keeps_flash_with_a_mask(monkeypatch):
     masks = []
     orig = port_ops.FlashAttention.forward
 
-    def spy(ctx, q, k, v, mask, causal):
+    def spy(q, k, v, mask, causal):
         masks.append((mask, causal))
-        return orig(ctx, q, k, v, mask, causal)
+        return orig(q, k, v, mask, causal)
     monkeypatch.setattr(port_ops.FlashAttention, "forward",
                         staticmethod(spy))
     pad = torch.from_numpy(_padding())

@@ -16,6 +16,7 @@ values however the state was updated in place afterwards. Values are
 compared bit for bit: a checkpoint is a copy, not a computation.
 """
 import os
+import types
 
 import numpy as np
 import pytest
@@ -290,8 +291,27 @@ def test_async_save_then_in_place_steps_restores_step_n(tmp_path):
 
 
 def test_resharding_restore_raises(tmp_path, monkeypatch):
-    with pytest.raises(ValueError, match="step 10"):
-        ck.maybe_resume(str(tmp_path), _ckpt_state(0, 0.0), reshard=True)
+    """The resharding restore is ported: maybe_resume(reshard=True) and
+    TPU_RESHARD_RESTORE=1 restore through restore_resharded (an empty
+    directory is still a no-op); what the reader cannot restore raises:
+    a state it does not know, another model's checkpoint."""
+    tr = _trainer()
+    state, _ = tr.train_step(tr.init_state(0), *_batch())
+    assert ck.maybe_resume(str(tmp_path), _ckpt_state(0, 0.0),
+                           reshard=True).step == 0
+    ck.save_checkpoint(tmp_path, state)
+    got = ck.maybe_resume(str(tmp_path), tr.init_state(1), reshard=True)
+    _assert_same(got, state)
+    assert ck.last_restore_info()["resharded"] is True
     monkeypatch.setenv(ck.ENV_RESHARD_RESTORE, "1")
-    with pytest.raises(ValueError, match="step 10"):
-        ck.maybe_resume(str(tmp_path), _ckpt_state(0, 0.0))
+    _assert_same(ck.maybe_resume(str(tmp_path), tr.init_state(1)), state)
+    assert ck.last_restore_info()["resharded"] is True
+    with pytest.raises(TypeError, match="restores the LM trainers"):
+        ck.restore_resharded(str(tmp_path), types.SimpleNamespace(step=0))
+    other = LMTrainer(gpt2_config("test", attention="dense",
+                                  dtype=torch.float32, vocab_size=2 * V,
+                                  max_len=32),
+                      LMTrainerConfig(global_batch_size=B, seq_len=S),
+                      device="cpu")
+    with pytest.raises(ValueError):
+        ck.restore_resharded(str(tmp_path), other.init_state(0))

@@ -116,13 +116,14 @@ def test_cli_runs_bert_moe_and_remat(capsys):
                  id="flags1-step 10d"),
     (["--sp", "2"], "not divisible by tp=1 × ep=1 × sp=2"),
     (["--ep", "2"], "--ep needs --moe-experts"),
-    (["--hfta", "2"], "step 10e")])
+    # the id this case had while --hfta was refused as step 10e
+    pytest.param(["--hfta", "2", "--workload", "bert"],
+                 "causal-LM workloads only", id="flags4-step 10e")])
 def test_cli_refuses_what_is_not_ported(flags, step):
-    """--hfta names the ROADMAP.md step that ports it; --tp, --pp, --sp
-    and --ep (steps 10b, 10c and 10d, done) are refused in one process
-    by the reference's checks: the mesh they ask for needs more ranks,
-    and --ep needs experts (tests/test_torch_ep.py and test_torch_pp.py
-    run them as gangs)."""
+    """The reference's refusals: --hfta with a workload that is not a
+    causal LM; --tp, --pp, --sp and --ep in one process: the mesh they
+    ask for needs more ranks, and --ep needs experts
+    (tests/test_torch_ep.py and test_torch_pp.py run them as gangs)."""
     with pytest.raises(ValueError, match=step):
         bench.main(["--size", "test", "--device", "cpu"] + flags)
 

@@ -25,6 +25,10 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "mpi_operator_tpu")
 FLEET_MODULES = ("mpi_operator_tpu_torch.serve.transfer",
                  "mpi_operator_tpu_torch.serve.router",
                  "mpi_operator_tpu_torch.telemetry.collector")
+#: the sweeps and elasticity slice (ROADMAP step 10e)
+SWEEP_MODULES = ("mpi_operator_tpu_torch.train.hfta",
+                 "mpi_operator_tpu_torch.examples.elastic_benchmark",
+                 "mpi_operator_tpu_torch.examples.sched_benchmark")
 #: the operator's control plane (ROADMAP step 8a), which loads no torch
 CONTROL_PLANE = ("mpi_operator_tpu_torch.__main__",
                  "mpi_operator_tpu_torch.api.types",
@@ -95,7 +99,8 @@ def test_importing_the_port_loads_no_jax():
     out = _python(code)
     assert out.returncode == 0, out.stderr
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
-    for m in FLEET_MODULES + ("mpi_operator_tpu_torch.serve.engine",):
+    for m in FLEET_MODULES + SWEEP_MODULES + (
+            "mpi_operator_tpu_torch.serve.engine",):
         assert m in loaded, m
     assert not [m for m in loaded if _forbidden(m)]
 
@@ -116,7 +121,7 @@ def test_no_source_of_the_port_imports_jax():
             bad += [f"{f.relative_to(ROOT)}:{node.lineno} {n}"
                     for n in names if _forbidden(n)]
     assert len(files) > 10
-    for m in FLEET_MODULES + CONTROL_PLANE:
+    for m in FLEET_MODULES + SWEEP_MODULES + CONTROL_PLANE:
         path = ROOT / (m.replace(".", "/") + ".py")
         if not path.exists():
             path = ROOT / m.replace(".", "/") / "__init__.py"

@@ -20,7 +20,9 @@ rounding noise into update differences of ~1e-6); optax's schedule and
 update step by step atol 1e-7 relative to values ~1.
 """
 import importlib
+import json
 import math
+import os
 
 import jax
 import jax.numpy as jnp
@@ -126,9 +128,9 @@ def test_training_forward_runs_the_flash_autograd_function():
     calls = []
     orig = port_ops.FlashAttention.forward
 
-    def spy(ctx, *args):
+    def spy(*args):
         calls.append(args[0].shape)
-        return orig(ctx, *args)
+        return orig(*args)
     port_ops.FlashAttention.forward = staticmethod(spy)
     try:
         out = model(toks)
@@ -374,14 +376,15 @@ def test_eval_step_and_evaluate_match_the_reference():
     assert state.step == 0 and int(state.opt.count) == 0
 
 
-def test_run_lm_benchmark_on_the_cpu(monkeypatch):
+def test_run_lm_benchmark_on_the_cpu(monkeypatch, tmp_path):
     """The entry point at test size: the reference's metric keys, every
     step's loss finite, warmup + timed steps taken, eval continuing the
-    stream; remat, MoE and BERT run at test size; the parts not ported
-    (a resharding restore: ROADMAP step 10e) and ViT (the image trainer:
-    step 7) raise instead of being ignored, and so do 2 slices, tp, pp or
-    sp meshes in one process (the reference's divisibility check) and ep
-    without experts."""
+    stream; remat, MoE and BERT run at test size; ViT (the image
+    trainer: step 7) raises instead of being ignored, and so do 2
+    slices, tp, pp or sp meshes in one process (the reference's
+    divisibility check) and ep without experts; TPU_RESHARD_RESTORE=1
+    resumes through the resharding restore (its checkpoint_restore
+    record says resharded)."""
     logs = []
     state, m = bench.run_lm_benchmark(
         "gpt2", "test", batch_per_device=2, seq_len=16, num_steps=4,
@@ -412,8 +415,13 @@ def test_run_lm_benchmark_on_the_cpu(monkeypatch):
         st, gm = bench.run_lm_benchmark(**{**kw, **good})
         assert st.step == 6 and math.isfinite(gm["final_loss"])
     monkeypatch.setenv("TPU_RESHARD_RESTORE", "1")
-    with pytest.raises(ValueError, match="reshard"):
-        bench.run_lm_benchmark(**kw)
+    d = str(tmp_path / "ckpt")
+    assert bench.run_lm_benchmark(**kw, train_dir=d)[0].step == 6
+    assert bench.run_lm_benchmark(**kw, train_dir=d)[0].step == 12
+    with open(os.path.join(d, "events.jsonl")) as f:
+        restores = [json.loads(line) for line in f
+                    if '"checkpoint_restore"' in line]
+    assert [r["resharded"] for r in restores] == [True]
 
 
 def test_benchmark_reports_the_reference_keys_and_goodput():

@@ -19,7 +19,7 @@ width, vocab 96):
 - a GPipe checkpoint resumes under 1F1B x 2 and back with canonical
   params, mu, nu and step bit-equal, the 1F1B x 2 evaluation equals
   GPipe's on the same weights (H35), and another pp or tp raises naming
-  ROADMAP.md step 10e;
+  restore_resharded, which restores it bit-equal;
 - `pipeline_apply` at pp = 4 equals the stages applied in sequence,
   forward and backward (the reference's TestPipeline);
 - the benchmark's keys (the reference's), its MFU from the whole
@@ -127,7 +127,8 @@ def test_checkpoint_is_schedule_agnostic(runs):
         assert r["layers_gpipe"] != r["layers_1f1b"]
         assert r["canonical_round_trip"]
         assert len(r["other_split"]) == 2
-        assert all("step 10e" in m for m in r["other_split"])
+        assert all("restore_resharded" in m for m in r["other_split"])
+        assert r["resharded"]
 
 
 def test_interleaved_evaluate_equals_gpipe(runs):

@@ -23,7 +23,7 @@ vocab 96):
   fsdp's reduce-scatter over tp, a tp-replicated parameter counted tp
   times in the norm: H25) each miss the limits by FAULT_MARGIN;
 - a same-mesh checkpoint resumes bit-equal; another split raises,
-  naming ROADMAP.md step 10e.
+  naming restore_resharded, which restores it bit-equal.
 """
 import os
 import sys
@@ -139,7 +139,7 @@ def test_checkpoint_resumes_bit_equal_and_refuses_another_split(runs, name):
     for r in mp.ranks(got, name):
         assert r["step"] == 2 and r["verified"] and r["loss_equal"]
         assert r["params"] and r["mu"] and r["nu"]
-        assert "step 10e" in r["other_mesh"]
+        assert "restore_resharded" in r["other_mesh"] and r["resharded"]
 
 
 def test_h25_the_norm_counts_each_parameter_once(runs):

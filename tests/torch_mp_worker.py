@@ -26,7 +26,7 @@ it), so the processes start once for every leg. A leg is one of:
 - "matmul": the ring collective-matmuls, uni and bidir, against the
   einsum oracle on this rank, forward and backward.
 - "ckpt": a same-mesh checkpoint resumed (bit-equal) and one written
-  over another mesh refused.
+  over another mesh refused, then restored by restore_resharded.
 - "bench": `LMTrainer.benchmark` on the mesh's TokenStream (the card's
   full-size leg: tokens/s, step p50, the state's bytes a rank, peak
   memory).
@@ -34,7 +34,8 @@ it), so the processes start once for every leg. A leg is one of:
   leg, with the replicated leaves' digest on every rank; "pp-bench" its
   benchmark on the card (tokens/s, step p50, bytes, peak memory, the
   idle share of a step beside the bubble); "pp-ckpt" a GPipe checkpoint
-  resumed under 1F1B x 2 and back, another pp or tp refused; "pp-apply"
+  resumed under 1F1B x 2 and back, another pp or tp refused (and
+  restored by restore_resharded); "pp-apply"
   `pipeline_apply` against the stages applied in sequence.
 
 Rank r saves `<out>-<r>.pt`: {leg: result} for the legs it was part of.
@@ -43,6 +44,7 @@ import argparse
 import dataclasses
 import gc
 import hashlib
+import math
 import os
 import socket
 import subprocess
@@ -189,6 +191,39 @@ LEGS = {
                                             moe_dropless=True),
     "pp/moe/pp2-ep2-gpipe": pp_leg("moe", pp=2, ep=2),
 }
+
+# the HFTA fused trainer over 2 ranks (test_torch_hfta.py): K = 2 one
+# replica a rank, K = 3 each rank its rows of every replica
+LEGS.update({
+    "hfta/dp2-k2": dict(leg("gpt2", kind="hfta", steps=3, batch=4, dp=2),
+                        k=2),
+    "hfta/dp2-k3": dict(leg("gpt2", kind="hfta", steps=3, batch=4, dp=2),
+                        k=3),
+})
+
+# restore_resharded across the splits of the state over 4 ranks
+# (test_torch_reshard.py): (label, mesh sizes) of each target, restored
+# from the previous one's checkpoint (the first from the source's)
+RESHARD_CHAIN = (("fsdp4", dict(fsdp=4)), ("tp4", dict(tp=4)),
+                 ("replica", dict(dp=4)), ("fsdp2-tp2", dict(fsdp=2, tp=2)),
+                 ("world2-fsdp2", dict(fsdp=2)), ("world1", dict()))
+LEGS.update({
+    "reshard/fsdp2-tp2": dict(leg("gpt2", kind="reshard", steps=2,
+                                  fsdp=2, tp=2),
+                              chain=RESHARD_CHAIN, pp=True, fallback=True,
+                              fault_target=("fsdp4", dict(fsdp=4))),
+    # the card's leg (chip_smoke.py [train-lm-gang]): gpt2-medium whole
+    # at (1, 2, 2) from seed 0, its moments set from the masters (no
+    # step: steps 0), restored at (1, 4, 1), at fsdp 2 on ranks 0 and 1
+    # and as one replica on rank 0, each from the source, and the planted
+    # fault
+    "chip/reshard-fsdp2-tp2": dict(
+        leg("gpt2", size="full", kind="reshard", steps=0, batch=8, seq=512,
+            fsdp=2, tp=2),
+        chain=(("fsdp4", dict(fsdp=4)), ("world2-fsdp2", dict(fsdp=2)),
+               ("world1", dict())), from_source=True, pp=False,
+        fallback=False, fault_target=("world2-fsdp2", dict(fsdp=2))),
+})
 
 #: the card's legs (chip_smoke.py [train-lm-mp]), 4 ranks sharing it
 CHIP = dict(size="chip", batch=8, seq=256)
@@ -607,7 +642,8 @@ def ckpt_leg(spec, device, mesh, train_dir):
     """Two steps, a checkpoint, a third step; a fresh state restored from
     the checkpoint takes the third step again: bit-equal params, mu, nu
     and loss. Then a state over another split (tp only) must refuse
-    the checkpoint, naming ROADMAP.md step 10e."""
+    the checkpoint, naming restore_resharded, and restore_resharded
+    restores it bit-equal as one replica on this rank."""
     from mpi_operator_tpu_torch.train import checkpoint as ck
     cfg = config_of(spec)
     tcfg = trainer_config(spec, cfg)
@@ -620,6 +656,8 @@ def ckpt_leg(spec, device, mesh, train_dir):
         state, _ = trainer.train_step(state, *b)
     ck.reset_saved_state()
     path = ck.save_checkpoint(train_dir, state)
+    saved = {k: trainer.global_flat(state, k) for k in ("params", "mu",
+                                                         "nu")}
     state, m = trainer.train_step(state, *data[2])
     want = {"params": state.params.clone(), "mu": state.opt.mu.clone(),
             "nu": state.opt.nu.clone(), "loss": float(m["loss"])}
@@ -640,7 +678,22 @@ def ckpt_leg(spec, device, mesh, train_dir):
         out["other_mesh"] = None
     except ck.ReshardRequired as e:
         out["other_mesh"] = str(e)
+    out["resharded"] = _resharded_replica(cfg, tcfg, device, path, saved, 2)
     return out
+
+
+def _resharded_replica(cfg, tcfg, device, path, want, step):
+    """restore_resharded of the checkpoint at `path` into one replica on
+    this rank (a mesh of one without a group: no collective): its flat
+    params, mu, nu and step equal to `want` and `step`."""
+    import torch.distributed as dist
+
+    from mpi_operator_tpu_torch.train import checkpoint as ck
+    solo = tlm.LMTrainer(cfg, tcfg, device=device, mesh=tmesh.Mesh(
+        tmesh.MeshConfig(), [dist.get_rank()]))
+    rep = ck.restore_resharded(path, solo.init_state(5))
+    return rep.step == step and all(
+        torch.equal(solo.global_flat(rep, k), want[k]) for k in want)
 
 
 def bench_leg(spec, device, mesh, steps=3, warmup=2):
@@ -681,8 +734,255 @@ def bench_leg(spec, device, mesh, steps=3, warmup=2):
             "launches": {k: after[k] - before[k] for k in FLASH}}
 
 
+def hfta_leg(spec, device, mesh):
+    """An HFTATrainer of K = spec["k"] replicas (learning rates, warmups
+    and seeds by replica) over the leg's mesh (None: one process), three
+    steps on seeded numpy fused batches, each rank its share: every
+    replica's flat params before and after, mu, nu, every step's losses,
+    and the all-reduces the steps ran."""
+    import torch.distributed as dist
+
+    from mpi_operator_tpu_torch.train import hfta
+    cfg, K = config_of(spec), spec["k"]
+    tcfg = tlm.LMTrainerConfig(global_batch_size=spec["batch"],
+                               seq_len=spec["seq"], warmup_steps=2)
+    hp = hfta.HFTAHyperparams.sweep(
+        K, tcfg, learning_rates=[1e-3 * (k + 1) for k in range(K)],
+        seeds=list(range(K)), warmup_steps=[k + 1 for k in range(K)])
+    tr = hfta.HFTATrainer(cfg, tcfg, hp, device=device, mesh=mesh)
+    state = tr.init_state()
+    out = {"start": tr.global_flat(state), "losses": [],
+           "slice_sharing": tr.slice_sharing, "allreduces": 0}
+    rs = np.random.RandomState(3)
+    real = dist.all_reduce
+
+    def counting(*a, **kw):
+        out["allreduces"] += 1
+        return real(*a, **kw)
+    for _ in range(spec["steps"]):
+        toks = rs.randint(0, cfg.vocab_size,
+                          (K, spec["batch"], spec["seq"] + 1))
+        dist.all_reduce = counting
+        try:
+            state, m = tr.train_step(state, tr.share(toks[..., :-1]),
+                                     tr.share(toks[..., 1:]))
+        finally:
+            dist.all_reduce = real
+        out["losses"].append(tr._all(m["loss"]).tolist())
+    out.update({k: tr.global_flat(state, k) for k in ("params", "mu", "nu")})
+    return out
+
+
+def _reshard_target(spec, sizes, device, make):
+    """(trainer, mesh) of one resharding target over the first ranks its
+    sizes need; every rank calls it (make_mesh is collective), the
+    trainer is None on the ranks outside."""
+    import torch.distributed as dist
+    cfg = tmesh.MeshConfig(**sizes)
+    mesh = tmesh.make_mesh(cfg, ranks=range(cfg.num_devices))
+    if dist.get_rank() not in mesh:
+        return None, mesh
+    return make(mesh), mesh
+
+
+def reshard_leg(spec, device, mesh, train_dir):
+    """restore_resharded across splits: the leg's model trained `steps`
+    steps at the leg's mesh (the source; its global params, mu, nu and
+    step are the oracle; with steps 0 the seed-0 draw with mu = p / 2
+    and nu = p * p of the masters p, step 7) and saved; each target of
+    spec["chain"] (label,
+    mesh sizes over the first ranks) restores it (`from_source`) or the
+    previous target's checkpoint, bit-equal to the oracle, and saves.
+    A target's check compares each rank's own restored buffers with the
+    same rank's buffers of a state its trainer builds from the oracle
+    (init_state from state dicts: no collective, no checkpoint code).
+    Then: the planted fault (rank 1's fsdp slice cut at the wrong
+    offset) must break spec["fault_target"] on rank 1; with spec["pp"]
+    a pipeline
+    state at pp 2 restored at pp 4, at (pp, tp) = (2, 2) and into a flat
+    replica; with spec["fallback"] a corrupt newest checkpoint falls
+    back to the previous step across a reshard (maybe_resume,
+    reshard=True). Every rank runs the leg; each records its ReadStats
+    a target."""
+    import torch.distributed as dist
+
+    from mpi_operator_tpu_torch.train import checkpoint as ck
+    from mpi_operator_tpu_torch.train.pp_trainer import PipelineLMTrainer
+    cfg = config_of(spec)
+    tcfg = trainer_config(spec, cfg)
+    me = dist.get_rank()
+    out = {"checks": {}, "stats": {}, "logs": []}
+    ck.reset_saved_state()
+
+    def flats(tr, st):
+        return {k: tr.global_flat(st, k).cpu() for k in ("params", "mu",
+                                                          "nu")}
+
+    def lm(m):
+        return tlm.LMTrainer(cfg, tcfg, device=device, mesh=m)
+
+    def data(m, step):
+        b = batches(cfg, step + 1, spec["seq"], spec["batch"])[step]
+        return [None if a is None else torch.from_numpy(
+            np.ascontiguousarray(mesh_share(a, m))).to(device) for a in b]
+
+    def local(tr, want):
+        """This rank's masters, mu and nu of a state of `tr`'s split
+        holding the global flat buffers `want`, made on the CPU by
+        init_state from them as state dicts (the trainer's own split, no
+        checkpoint code, no collective)."""
+        cpu = tlm.LMTrainer(tr.model_config, tr.config, device="cpu",
+                            mesh=tr.mesh)
+        shapes = tt.param_shapes(tr.model_config)
+        sizes = [math.prod(s) for s in shapes.values()]
+        return {k: cpu.init_state(0, state_dict={
+            n: t.view(s) for (n, s), t in zip(
+                shapes.items(), want[k].split(sizes))}).masters
+            for k in want}
+
+    def restore(label, tr, m, path, want, step, gather=False):
+        """Restore `path` into a fresh state of `tr` and compare: the
+        gathered global buffers (`gather`, collective over the target's
+        mesh) or this rank's own against `local`."""
+        st = tr.init_state(5)
+        stats = ck.ReadStats()
+        t0 = time.perf_counter()
+        ck.restore_resharded(path, st, stats=stats, log=out["logs"].append)
+        secs = time.perf_counter() - t0
+        if gather:
+            got, exp = flats(tr, st), want
+        else:
+            got = {"params": st.masters.cpu(), "mu": st.opt.mu.cpu(),
+                   "nu": st.opt.nu.cpu()}
+            exp = local(tr, want if spec["steps"] else
+                        {"params": want["params"]})
+            if not spec["steps"]:
+                # the moments are the masters' products (see below)
+                exp.update(mu=exp["params"] * 0.5,
+                           nu=exp["params"] * exp["params"])
+        out["checks"][label] = (st.step == step and all(
+            torch.equal(got[k], exp[k]) for k in exp))
+        payload = st.checkpoint_payload()
+        out["stats"][label] = {
+            "bytes_read": stats.bytes_read,
+            "share_bytes": sum(t.numel() * t.element_size() for k, t in
+                               payload.items() if k != "opt.count"),
+            "peak_in_flight_bytes": stats.peak_in_flight_bytes,
+            "total_bytes": stats.total_bytes, "seconds": secs,
+            "reads": stats.reads}
+        return st
+
+    src = lm(mesh)
+    state = src.init_state(0)
+    for i in range(spec["steps"]):
+        state, _ = src.train_step(state, *data(mesh, i))
+        if i == spec["steps"] - 2 and spec["fallback"]:
+            older = flats(src, state)
+            ck.save_checkpoint(os.path.join(train_dir, "src"), state)
+    if spec["steps"]:
+        want = flats(src, state)
+    else:
+        # no step: the moments are set from the masters elementwise by
+        # correctly rounded operations (the padding stays 0), so the
+        # oracle is one process's seed-0 draw and the same products of
+        # it, on any device and without a collective
+        from mpi_operator_tpu_torch.models.convert import init_params
+        with torch.no_grad():
+            state.opt.mu.copy_(state.masters * 0.5)
+            state.opt.nu.copy_(state.masters * state.masters)
+            state.opt.count.fill_(7)
+        state.step = 7
+        whole = init_params(cfg, torch.Generator(device=device).manual_seed(
+            0), device=device)
+        p = torch.cat([whole[n].reshape(-1)
+                       for n in tt.param_shapes(cfg)]).cpu()
+        want = {"params": p, "mu": p * 0.5, "nu": p * p}
+    step = state.step
+    source = ck.save_checkpoint(os.path.join(train_dir, "src"), state)
+    del state
+    dist.barrier()
+    path = source
+    for label, sizes in spec["chain"]:
+        tr, m = _reshard_target(spec, sizes, device, lm)
+        nxt = os.path.join(train_dir, label)
+        if tr is not None:
+            st = restore(label, tr, m, path, want, step)
+            if not spec.get("from_source"):
+                ck.save_checkpoint(nxt, st)
+            del st
+        dist.barrier()
+        if not spec.get("from_source"):
+            path = os.path.join(nxt, f"step_{step}")
+    # the planted fault: rank 1's fsdp slice cut one slice early (the
+    # first target over 2 ranks or more, from the source)
+    label, sizes = spec["fault_target"]
+    real = ck._flat_pieces
+
+    def cut(cfg_, sizes_, coords, which, live=False):
+        if live and me == 1 and coords["fsdp"] > 0:
+            coords = dict(coords, fsdp=coords["fsdp"] - 1)
+        return real(cfg_, sizes_, coords, which, live)
+    ck._flat_pieces = cut
+    try:
+        tr, m = _reshard_target(spec, sizes, device, lm)
+        if tr is not None:
+            restore("fault", tr, m, source, want, step)
+    finally:
+        ck._flat_pieces = real
+    dist.barrier()
+    if spec["pp"]:
+        pcfg = dataclasses.replace(cfg, num_layers=4)
+
+        def pp(m):
+            return PipelineLMTrainer(pcfg, m, tcfg, num_microbatches=4,
+                                     device=device)
+        tr, m = _reshard_target(spec, dict(pp=2, dp=2), device, pp)
+        pst = tr.init_state(0)
+        for b in list(_pp_batches(tr, dict(spec, steps=2), device)):
+            pst, _ = tr.train_step(pst, *b)
+        pwant, pstep = flats(tr, pst), pst.step
+        ppath = ck.save_checkpoint(os.path.join(train_dir, "pp2"), pst)
+        del pst
+        dist.barrier()
+        for label, sizes in (("pp4", dict(pp=4)),
+                             ("pp2-tp2", dict(pp=2, tp=2))):
+            tr, m = _reshard_target(spec, sizes, device, pp)
+            st = restore(label, tr, m, ppath, pwant, pstep, gather=True)
+            ppath = ck.save_checkpoint(os.path.join(train_dir, label), st)
+            dist.barrier()
+        tr, m = _reshard_target(spec, {}, device,
+                                lambda m: tlm.LMTrainer(pcfg, tcfg,
+                                                        device=device,
+                                                        mesh=m))
+        if tr is not None:
+            restore("pp-to-flat", tr, m, ppath, pwant, pstep, gather=True)
+        dist.barrier()
+    if spec["fallback"]:
+        if me == 0:
+            from mpi_operator_tpu_torch.train.resilience import (
+                corrupt_latest_checkpoint)
+            out["corrupted"] = corrupt_latest_checkpoint(
+                os.path.join(train_dir, "src"))
+        dist.barrier()
+        tr, m = _reshard_target(spec, dict(fsdp=4), device, lm)
+        st = ck.maybe_resume(os.path.join(train_dir, "src"), tr.init_state(5),
+                             out["logs"].append, reshard=True)
+        got = {"params": st.masters.cpu(), "mu": st.opt.mu.cpu(),
+               "nu": st.opt.nu.cpu()}
+        exp = local(tr, older)
+        out["checks"]["fallback"] = (st.step == step - 1 and all(
+            torch.equal(got[k], exp[k]) for k in exp))
+        out["restore_info"] = ck.last_restore_info()
+    return out
+
+
 def run_leg(name, spec, device, mesh, weights=None, train_dir=None):
     kind = spec["kind"]
+    if kind == "reshard":
+        return reshard_leg(spec, device, mesh, os.path.join(
+            train_dir, name.replace("/", "_")))
+    if kind == "hfta":
+        return hfta_leg(spec, device, mesh)
     if kind == "train":
         return train_leg(spec, device, mesh, (weights or {}).get(
             spec["model"]))
@@ -840,7 +1140,8 @@ def pp_ckpt_leg(spec, device, mesh, train_dir, weights=None):
     its evaluate equal to GPipe's on the same weights), takes a step and
     saves; GPipe restores that (bit-equal again). Then states over
     another pp and another tp of the same ranks must refuse the
-    checkpoint, naming ROADMAP.md step 10e."""
+    checkpoint, naming restore_resharded, and restore_resharded
+    restores it bit-equal as one flat replica on this rank."""
     import torch.distributed as dist
 
     from mpi_operator_tpu_torch.train import checkpoint as ck
@@ -888,6 +1189,8 @@ def pp_ckpt_leg(spec, device, mesh, train_dir, weights=None):
             out["other_split"].append(None)
         except ck.ReshardRequired as e:
             out["other_split"].append(str(e))
+    out["resharded"] = _resharded_replica(g.model_config, trainer_config(
+        spec, g.model_config), device, path, want, fs.step)
     return out
 
 
